@@ -1,0 +1,1 @@
+"""checkpoint of the PyTorch port (see the package docstring)."""

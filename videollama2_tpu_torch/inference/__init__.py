@@ -1,0 +1,1 @@
+"""inference of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,119 @@
+"""Multimodal assembly, video path (port of
+videollama2_tpu/models/videollama2.py): frames -> CLIP tower -> STC
+connector -> splice -> LLM prefill.
+
+Params tree: {"llm": ..., "vision": ..., "connector": ...}.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from videollama2_tpu.core.config import ModelConfig
+from videollama2_tpu.media import wire
+
+from ..multimodal import splice as splice_lib
+from . import connector as connector_lib
+from . import llm as llm_lib
+from . import vit as vit_lib
+
+VIT_ENCODE_CHUNK = 128  # frames per tower pass (bounds tower activations)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    if cfg.audio is not None:
+        raise NotImplementedError("the audio branch is not ported yet")
+    return {"llm": llm_lib.param_shapes(cfg.llm),
+            "vision": vit_lib.param_shapes(cfg.vision),
+            "connector": connector_lib.param_shapes(cfg.connector)}
+
+
+def _i420_to_rgb(buf: torch.Tensor) -> torch.Tensor:
+    """I420 uint8 [B, T, H*3/2, W] -> float32 RGB [B, T, H, W, 3] in
+    [0, 255]: BT.601 full-range inverse with nearest 2x chroma upsampling,
+    equal to media/wire.i420_to_rgb."""
+    B, T = buf.shape[0], buf.shape[1]
+    H = buf.shape[2] * 2 // 3
+    W = buf.shape[3]
+    f = buf.float()
+    y = f[:, :, :H]
+    cb = f[:, :, H:H + H // 4].reshape(B, T, H // 2, W // 2) - 128.0
+    cr = f[:, :, H + H // 4:].reshape(B, T, H // 2, W // 2) - 128.0
+    cb = cb.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    cr = cr.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    r = y + wire.INV_R_CR * cr
+    g = y - wire.INV_G_CB * cb - wire.INV_G_CR * cr
+    b = y + wire.INV_B_CB * cb
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                  broadcast_image: bool = False) -> torch.Tensor:
+    """Frames -> visual tokens [B, tokens_per_video, hidden].
+
+    frames: uint8 RGB [B, T, H, W, 3], uint8 I420 [B, T, H*3/2, W], or
+    already normalized floats [B, T, H, W, 3]. uint8 input is normalized
+    here and cast to bf16, as in the JAX package. With broadcast_image,
+    frames is [B, 1, ...] and the features are broadcast to num_frames.
+    """
+    B, T = frames.shape[0], frames.shape[1]
+    raw255 = None
+    if frames.dim() == 4:
+        if frames.dtype != torch.uint8:
+            raise ValueError("planar I420 frames must be uint8")
+        raw255 = _i420_to_rgb(frames)
+    elif frames.dtype == torch.uint8:
+        raw255 = frames.float()
+    if raw255 is not None:
+        mean = torch.tensor(cfg.vision.image_mean, dtype=torch.float32,
+                            device=frames.device)
+        std = torch.tensor(cfg.vision.image_std, dtype=torch.float32,
+                           device=frames.device)
+        frames = ((raw255 / 255.0 - mean) / std).to(torch.bfloat16)
+    flat = frames.reshape((B * T,) + tuple(frames.shape[2:]))
+    feats = _tower_features(params, cfg, flat)
+    feats = feats.reshape(B, T, feats.shape[1], feats.shape[2])
+    if broadcast_image:
+        feats = feats.expand((B, cfg.num_frames) + tuple(feats.shape[2:]))
+    return temporal_aggregator(params, cfg, feats)
+
+
+def _tower_features(params: dict, cfg: ModelConfig,
+                    flat: torch.Tensor) -> torch.Tensor:
+    """Tower over [N, H, W, 3] frames in chunks of VIT_ENCODE_CHUNK (halved
+    until it divides N), so only one chunk's activations are live."""
+    N = flat.shape[0]
+    chunk = VIT_ENCODE_CHUNK
+    while chunk > 1 and N % chunk:
+        chunk //= 2
+    if N <= chunk:
+        return vit_lib.features(params["vision"], cfg.vision, flat)
+    return torch.cat([vit_lib.features(params["vision"], cfg.vision,
+                                       flat[i:i + chunk])
+                      for i in range(0, N, chunk)])
+
+
+def temporal_aggregator(params: dict, cfg: ModelConfig,
+                        frame_feats: torch.Tensor) -> torch.Tensor:
+    """[B, T, N, D_vision] -> [B, tokens, D_llm] through the connector."""
+    return connector_lib.apply(params["connector"], cfg.connector,
+                               frame_feats)
+
+
+def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                       text_ids: torch.Tensor, is_visual: torch.Tensor,
+                       vis_index: torch.Tensor, positions: torch.Tensor,
+                       valid_len: torch.Tensor, cache: llm_lib.KVCache,
+                       broadcast_image: bool = False
+                       ) -> Tuple[torch.Tensor, llm_lib.KVCache]:
+    """Inference prefill with the visual splice -> (last_hidden, cache)."""
+    vis_tokens = encode_frames(params, cfg, frames,
+                               broadcast_image=broadcast_image)
+    text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
+                                    dtype=vis_tokens.dtype)
+    embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
+                                       vis_index)
+    return llm_lib.prefill(params["llm"], cfg.llm, embeds, positions,
+                           valid_len, cache)

@@ -1,0 +1,1 @@
+"""multimodal of the PyTorch port (see the package docstring)."""
