@@ -3,8 +3,11 @@
 H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main path gives it, then drives the
 full-width VideoLLaMA2-7B-16F video-QA path (CLIP-L/336 + STC + Mistral-7B,
-bf16, seeded random weights) through Engine.generate and checks that the
-run went through both kernels.
+seeded random weights) through Engine.generate twice: the bf16 slice (bf16
+weights and KV cache) and the int8 serving slice (int8 LLM and tower packs,
+W8A8 prefill, int8 KV cache, decode on the layered int8 kernels). It checks
+that each run went through its kernels, the exact launch counts, and the
+first-token (bf16) and decode (int8) logits against the plain versions.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -17,6 +20,7 @@ is non-zero; without a CUDA device it exits non-zero before printing
 anything on stdout.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -31,8 +35,13 @@ import torch  # noqa: E402
 
 K1_TOL = 2e-2   # bf16 output rounding + bf16 P in the PV product
 K2_TOL = 2e-2   # (outputs are averages of N(0, 1) values, |o| <= ~3)
+K3_TOL = 2e-2   # the same; q is scaled so each softmax is peaked, |o| ~ 1
+K45_REL_TOL = 1e-2  # of max|out|: bf16 output (and K5's h) rounding, 2^-9
 TIMING_ITERS = 10
 NEW_TOKENS = 32
+BUCKET = 1664
+MAX_LEN = 1696      # the bucket plus 32 tokens (1792 under kv8)
+DECODE_CHECK_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -55,122 +64,154 @@ def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
     return statistics.median(times)
 
 
-def rand_bf16(gen, shape):
-    return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+def rand_bf16(gen, shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
 
 
-def check_kernel(name, kernel, plain, cases, tol):
-    """cases: (label, args, kwargs) with bf16 CUDA q/k/v. Compares the
-    kernel with the plain version in fp32 on the same inputs and times the
-    kernel and the plain version (on the bf16 inputs) at each shape."""
+def layer_cycle(n_layers):
+    """Layer indices 0, 1, ..., n-1, 0, ... for timing loops: consecutive
+    launches read different layers, as the decode does, so a layer's
+    weights are not found in L2 from the previous launch."""
+    state = {"i": -1}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % n_layers
+        return state["i"]
+    return nxt
+
+
+def check_kernel(name, kernel, plain, cases, tol, rel=False):
+    """cases: (label, (args, kwargs), (ref_args, ref_kwargs), timed). The
+    kernel on args is compared with the plain version on ref_args (fp32
+    values of the same inputs); `timed(fn)` returns a zero-argument launch
+    of fn on the kernel's inputs, which times both. With rel, the bound is
+    tol * max|ref|."""
     worst = 0.0
     times = []
-    for label, (q, k, v), kw in cases:
-        got = kernel(q, k, v, **kw).float()
-        ref = plain(q.float(), k.float(), v.float(), **kw)
+    for label, (args, kw), (rargs, rkw), timed in cases:
+        got = kernel(*args, **kw).float()
+        ref = plain(*rargs, **rkw).float()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: non-finite output")
         err = (got - ref).abs().max().item()
+        bound = tol * ref.abs().max().item() if rel else tol
         del got, ref
-        ms = cuda_ms(lambda: kernel(q, k, v, **kw))
-        plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), iters=3)
-        log(f"[{name}] {label}: max_abs_err {err:.3e} (tol {tol:.0e}), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if not err <= tol:
-            raise RuntimeError(f"{name} {label}: max_abs_err {err} > {tol}")
+        ms = cuda_ms(timed(kernel))
+        plain_ms = cuda_ms(timed(plain), iters=3)
+        log(f"[{name}] {label}: max_abs_err {err:.3e} (bound {bound:.3e}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+        if not err <= bound:
+            raise RuntimeError(f"{name} {label}: max_abs_err {err} > {bound}")
         worst = max(worst, err)
         times.append((ms, plain_ms))
         torch.cuda.empty_cache()
     return worst, times
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
-                         "this run needs an NVIDIA GPU")
-    from videollama2_tpu.constants import VIDEO_TOKEN_INDEX
-    from videollama2_tpu.core import config as cfglib
-    from videollama2_tpu_torch.inference.engine import (Engine,
-                                                        GenerationConfig)
-    from videollama2_tpu_torch.ops import _build
-    from videollama2_tpu_torch.ops import attention as attn
-    from videollama2_tpu_torch.ops import encoder_attention as k1
-    from videollama2_tpu_torch.ops import flash_attention as k2
-    from videollama2_tpu_torch.utils.synthetic import synthetic_params
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-
-    # -- build -----------------------------------------------------------
-    cached = _build.library_path().exists()
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"[build] nvcc sm_90a build of csrc/*.cu "
-        f"{'(found built already) ' if cached else ''}and load: "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    # -- K1 against plain at tower shapes ----------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def attention_cases(gen):
+    """K1 at tower shapes, K2 at prefill shapes (q/k/v, same for both)."""
+    def qkv_case(label, qkv, kw):
+        return (label, (qkv, kw), (tuple(t.float() for t in qkv), kw),
+                lambda f: (lambda: f(*qkv, **kw)))
     clip = tuple(rand_bf16(gen, (64, 577, 16, 64)) for _ in range(3))
     ragged = torch.randint(300, 578, (64,), generator=gen, device="cuda",
                            dtype=torch.int32)
     siglip = tuple(rand_bf16(gen, (16, 729, 16, 72)) for _ in range(3))
-    k1_err, k1_times = check_kernel(
-        "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
-        [("[64,577,16,64]", clip, {}),
-         ("[64,577,16,64] ragged valid_len", clip, {"valid_len": ragged}),
-         ("[16,729,16,72]", siglip, {})], K1_TOL)
-    del clip, siglip
-
-    # -- K2 against plain at prefill shapes --------------------------------
-    q = rand_bf16(gen, (4, 1664, 32, 128))
-    k = rand_bf16(gen, (4, 1664, 8, 128))
-    v = rand_bf16(gen, (4, 1664, 8, 128))
+    k1 = [qkv_case("[64,577,16,64]", clip, {}),
+          qkv_case("[64,577,16,64] ragged valid_len", clip,
+                   {"valid_len": ragged}),
+          qkv_case("[16,729,16,72]", siglip, {})]
+    prefill = (rand_bf16(gen, (4, BUCKET, 32, 128)),
+               rand_bf16(gen, (4, BUCKET, 8, 128)),
+               rand_bf16(gen, (4, BUCKET, 8, 128)))
     valid = torch.tensor([1574, 1200, 1664, 900], dtype=torch.int32,
                          device="cuda")
-    k2_err, k2_times = check_kernel(
-        "flash_attention", k2.flash_attention, k2.flash_attention_plain,
-        [("q[4,1664,32,128] kv[4,1664,8,128] causal", (q, k, v),
-          {"valid_len": valid, "causal": True})], K2_TOL)
-    del q, k, v
-    torch.cuda.empty_cache()
+    k2 = [qkv_case("q[4,1664,32,128] kv[4,1664,8,128] causal", prefill,
+                   {"valid_len": valid, "causal": True})]
+    return k1, k2
 
-    # -- the slice at full width --------------------------------------------
-    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=16)
-    t0 = time.perf_counter()
-    params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                              seed=0)
-    torch.cuda.synchronize()
-    log(f"[slice] bf16 weights made on the card in "
-        f"{time.perf_counter() - t0:.1f} s "
-        f"({sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params)")
-    eng = Engine(cfg, params, dtype=torch.bfloat16, max_len=1696,
-                 buckets=(1664,), decode_chunk=32, kv_bits=16)
-    del params
-    B, T, H = 16, cfg.num_frames, cfg.vision.image_size
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (B, T, H + H // 2, H), dtype=np.uint8)
-    prompt = ([1] + [int(x) for x in rng.integers(10, 1000, 40)]
-              + [VIDEO_TOKEN_INDEX]
-              + [int(x) for x in rng.integers(10, 1000, 12)])
-    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
-    n_layers_vit = cfg.vision.select_layer % (cfg.vision.num_layers + 1)
-    want_k1 = n_layers_vit * (B * T // 128)
-    want_k2 = cfg.llm.num_layers
 
-    runs = []
-    stage = {}
+def decode_attention_cases(gen, quantize_rows):
+    """K3 at the slice's decode shape: B 16, 32 query on 8 kv heads, hd
+    128, M 1792, prompt bucket 1664, the 32nd token (write_pos 1695), four
+    cache layers rotated in timing."""
+    L, B, M, K, hd = 4, 16, 1792, 8, 128
+    write_pos = BUCKET + NEW_TOKENS - 1
+    valid = torch.randint(1200, BUCKET + 1, (B,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    q = rand_bf16(gen, (B, 32, hd), 4.0)
+    k_new, v_new = rand_bf16(gen, (B, K, hd)), rand_bf16(gen, (B, K, hd))
+    rows = [torch.randn((L, B, M, K, hd), generator=gen, device="cuda")
+            for _ in range(2)]
+    (kq, ks), (vq, vs) = quantize_rows(rows[0]), quantize_rows(rows[1])
+    int8 = dict(k_scale=ks.transpose(2, 3).contiguous(),
+                v_scale=vs.transpose(2, 3).contiguous())
+    caches = {"int8": (kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)),
+              "bf16": tuple(r.reshape(L, B, M, -1).bfloat16() for r in rows)}
+    del rows
+    cases = []
+    for label, cache, kw in (
+            ("int8 cache", "int8", int8),
+            ("bf16 cache", "bf16", {}),
+            ("int8 cache, window 1024", "int8", dict(int8, window=1024))):
+        ck, cv = caches[cache]
+        args = (q, k_new, v_new, ck, cv, 1, valid, write_pos, BUCKET)
+        ref_args = (q.float(),) + args[1:]
+        cyc = layer_cycle(L)
+        cases.append((
+            f"q[16,32,128] {cache}[{L},16,1792,1024] ragged valid_len, "
+            f"write_pos {write_pos}{', window 1024' if 'window' in kw else ''}",
+            (args, kw), (ref_args, kw),
+            lambda f, ck=ck, cv=cv, kw=kw, cyc=cyc: (
+                lambda: f(q, k_new, v_new, ck, cv, cyc(), valid, write_pos,
+                          BUCKET, **kw))))
+    return cases
+
+
+def matmul_cases(gen, quantize_int8):
+    """K4 at the fused qkv [4096 -> 6144] and o [4096 -> 4096], K5 at
+    [4096, 14336], R = 16 rows, bf16 scales as the Engine casts them; four
+    (K4) or two (K5) layers rotated in timing."""
+    def pack(L, din, dout):
+        p = quantize_int8(rand_bf16(gen, (L, din, dout), 0.02), axis=-2)
+        return p["q"], p["scale"].bfloat16()
+    x = rand_bf16(gen, (16, 4096))
+    k4 = []
+    for label, dout in (("qkv x[16,4096] q[4,4096,6144]", 6144),
+                        ("o x[16,4096] q[4,4096,4096]", 4096)):
+        q, s = pack(4, 4096, dout)
+        cyc = layer_cycle(4)
+        k4.append((label, ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
+                   lambda f, q=q, s=s, cyc=cyc: (
+                       lambda: f(x, q, s, cyc()))))
+    g, u, d = pack(2, 4096, 14336), pack(2, 4096, 14336), \
+        pack(2, 14336, 4096)
+    cyc = layer_cycle(2)
+    k5 = [("x[16,4096] gate/up[2,4096,14336] down[2,14336,4096]",
+           ((x, *g, *u, *d, 1), {}), ((x.float(), *g, *u, *d, 1), {}),
+           lambda f: (lambda: f(x, *g, *u, *d, cyc())))]
+    return k4, k5
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want):
+    """Two generate runs of 16 videos; checks the launch counts of every
+    kernel on the path (counters: name -> wrapper) against `want`, the
+    token shapes, and that both runs gave the same tokens. Returns the
+    counts and the stage split of the second run."""
+    B = frames.shape[0]
+    runs, stage = [], {}
     for run in range(2):
-        k1.encoder_attention.launches = 0
-        k2.flash_attention.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dev_frames = eng.upload_frames(frames)
@@ -183,13 +224,11 @@ def main() -> None:
                            stream_cb=lambda b, toks: stamps.setdefault(
                                len(toks), time.perf_counter()))
         t_end = time.perf_counter()
-        launches = (k1.encoder_attention.launches,
-                    k2.flash_attention.launches)
-        log(f"[slice] run {run + 1}: launches K1 {launches[0]} "
-            f"(want {want_k1}), K2 {launches[1]} (want {want_k2})")
-        if launches != (want_k1, want_k2):
-            raise RuntimeError(f"kernel launch counts {launches} != "
-                               f"{(want_k1, want_k2)}")
+        counts = {n: fn.launches for n, fn in counters.items()}
+        log(f"[{name}] run {run + 1}: launches {counts} (want {want})")
+        if counts != want:
+            raise RuntimeError(f"{name}: kernel launch counts {counts} != "
+                               f"{want}")
         toks = np.asarray(out)
         if toks.shape != (B, NEW_TOKENS) or toks.min() < 0 \
                 or toks.max() >= cfg.llm.vocab_size:
@@ -202,73 +241,64 @@ def main() -> None:
                  "decode_ms_per_token":
                      (t_end - t_first) / (NEW_TOKENS - 1) * 1e3,
                  "generate_s": t_end - t0}
-        log(f"[slice] run {run + 1}: upload {t_upload * 1e3:.1f} ms "
+        log(f"[{name}] run {run + 1}: upload {t_upload * 1e3:.1f} ms "
             f"({frames.nbytes / 1e6:.0f} MB), encode+prefill+first token "
             f"{stage['encode_prefill_first_token_s']:.3f} s, decode "
             f"{stage['decode_ms_per_token']:.2f} ms/token, generate "
             f"{stage['generate_s']:.3f} s")
     if not np.array_equal(runs[0], runs[1]):
-        raise RuntimeError("the two runs gave different tokens")
-    counts = {"encoder_attention": launches[0], "flash_attention": launches[1]}
-    log(f"[slice] {B}x{NEW_TOKENS} tokens, identical in both runs; "
+        raise RuntimeError(f"{name}: the two runs gave different tokens")
+    log(f"[{name}] {B}x{NEW_TOKENS} tokens, identical in both runs; "
         f"first row: {runs[1][0][:8].tolist()}...")
-
-    # -- the slice's first-token logits against the plain attention path ---
-    check_against_plain(eng, cfg, frames[:2], prompt, attn, k1, k2)
-
-    kernels = [
-        {"name": "encoder_attention", "route": "cuda",
-         "source": "videollama2_tpu_torch/csrc/encoder_attention.cu",
-         "replaces": "videollama2_tpu/ops/encoder_attention.py:230",
-         "launches": counts["encoder_attention"], "max_abs_err": k1_err,
-         "ms": k1_times[0][0], "plain_ms": k1_times[0][1]},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "videollama2_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "videollama2_tpu/ops/flash_attention.py:179",
-         "launches": counts["flash_attention"], "max_abs_err": k2_err,
-         "ms": k2_times[0][0], "plain_ms": k2_times[0][1]},
-    ]
-    log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return counts, stage
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+def _plan_args(cfg, frames, prompt, dev):
+    from videollama2_tpu_torch.multimodal import splice as splice_lib
+    plan = splice_lib.plan_batch([prompt] * frames.shape[0],
+                                 cfg.tokens_per_video, BUCKET)
+    return (torch.from_numpy(frames).to(dev),
+            torch.from_numpy(plan.text_ids).to(dev).long(),
+            torch.from_numpy(plan.is_visual).to(dev),
+            torch.from_numpy(plan.vis_index).to(dev),
+            torch.from_numpy(plan.positions).to(dev),
+            torch.from_numpy(plan.valid_len).to(dev))
+
+
+def compare_logits(name, fast, plain) -> None:
+    """The bounds are relative to the logits' std: a wrong mask, head
+    mapping or weight slice moves logits by about a std; rounding in
+    another order moves them by a few hundredths of one."""
+    if not (torch.isfinite(fast).all() and torch.isfinite(plain).all()):
+        raise RuntimeError(f"{name}: non-finite logits")
+    diff = (fast - plain).abs()
+    std = plain.std().item()
+    agree = (fast.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"[{name}] kernels vs plain: max abs diff {diff.max().item():.4f} "
+        f"(bound 0.4 std), mean abs diff {diff.mean().item():.4f} (bound "
+        f"0.05 std), logit std {std:.4f}, argmax agreement {agree:.2f}")
+    if not (diff.max().item() <= 0.4 * std
+            and diff.mean().item() <= 0.05 * std):
+        raise RuntimeError(f"{name}: kernel path logits differ from the "
+                           "plain path beyond the bounds")
 
 
 def check_against_plain(eng, cfg, frames, prompt, attn, k1, k2) -> None:
     """First-token logits of two videos through the kernels and through
     the plain attention path (attend swapped for attend_plain), both at
     full width in bf16. The two differ only by rounding inside attention
-    (the order of the fp32 sums, exp), which 23 + 32 bf16 layers amplify;
-    the bounds are relative to the logits' std (~1.3 here): a wrong mask or
-    a wrong head mapping moves logits by about a std.
+    (the order of the fp32 sums, exp), which 23 + 32 bf16 layers amplify.
     """
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
-    from videollama2_tpu_torch.multimodal import splice as splice_lib
 
-    B = frames.shape[0]
-    plan = splice_lib.plan_batch([prompt] * B, cfg.tokens_per_video, 1664)
+    args = _plan_args(cfg, frames, prompt, eng.device)
 
     def first_logits():
-        dev = eng.device
-        cache = llm_lib.init_cache(cfg.llm, B, 1664, torch.bfloat16,
-                                   device=dev)
+        cache = llm_lib.init_cache(cfg.llm, frames.shape[0], BUCKET,
+                                   torch.bfloat16, device=eng.device)
         with torch.inference_mode():
-            last, _ = vl2.prefill_multimodal(
-                eng.params, cfg, torch.from_numpy(frames).to(dev),
-                torch.from_numpy(plan.text_ids).to(dev).long(),
-                torch.from_numpy(plan.is_visual).to(dev),
-                torch.from_numpy(plan.vis_index).to(dev),
-                torch.from_numpy(plan.positions).to(dev),
-                torch.from_numpy(plan.valid_len).to(dev), cache)
+            last, _ = vl2.prefill_multimodal(eng.params, cfg, *args, cache)
             return llm_lib.lm_logits(eng.params["llm"], cfg.llm, last)
 
     before = (k1.encoder_attention.launches, k2.flash_attention.launches)
@@ -284,19 +314,210 @@ def check_against_plain(eng, cfg, frames, prompt, attn, k1, k2) -> None:
     finally:
         attn.attend = kernel_attend
     torch.cuda.synchronize()
-    if not (torch.isfinite(fast).all() and torch.isfinite(plain).all()):
-        raise RuntimeError("non-finite first-token logits")
-    diff = (fast - plain).abs()
-    std = plain.std().item()
-    agree = (fast.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    log(f"[slice] first-token logits, kernels vs plain attention: max abs "
-        f"diff {diff.max().item():.4f} (bound 0.4 std), mean abs diff "
-        f"{diff.mean().item():.4f} (bound 0.05 std), logit std {std:.4f}, "
-        f"argmax agreement {agree:.2f}")
-    if not (diff.max().item() <= 0.4 * std
-            and diff.mean().item() <= 0.05 * std):
-        raise RuntimeError("kernel path logits differ from the plain path "
-                           "beyond the bounds")
+    compare_logits("bf16 first-token logits", fast, plain)
+
+
+def check_decode_against_plain(eng, cfg, frames, prompt, k3, k45) -> None:
+    """Decode logits of two videos over the int8 packs and the int8 cache:
+    a W8A8 prefill fills the cache, then DECODE_CHECK_STEPS teacher-forced
+    decode steps run once on K3/K4/K5 and once, from a copy of the same
+    cache, with their plain versions swapped in. Both run in bf16."""
+    from videollama2_tpu_torch.models import llm as llm_lib
+    from videollama2_tpu_torch.models import videollama2 as vl2
+
+    args = _plan_args(cfg, frames, prompt, eng.device)
+    valid = args[-1]
+    B, L = frames.shape[0], cfg.llm.num_layers
+    cache = llm_lib.init_cache(cfg.llm, B, eng.max_len, kv_bits=8,
+                               device=eng.device)
+    with torch.inference_mode():
+        vl2.prefill_multimodal(eng.params, cfg, *args, cache, w8a8=True)
+    snapshot = llm_lib.KVCache(*(t.clone() for t in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale)))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        10, min(1000, cfg.llm.vocab_size), (DECODE_CHECK_STEPS, B))
+    ).to(eng.device)
+
+    def decode_logits(c):
+        out = []
+        with torch.inference_mode():
+            for s in range(DECODE_CHECK_STEPS):
+                te = llm_lib.embed_tokens(eng.params["llm"],
+                                          tokens[s][:, None], eng.dtype)
+                logits, c = llm_lib.decode_step(
+                    eng.params["llm"], cfg.llm, te, c, valid, BUCKET, s,
+                    w8a8=True)
+                out.append(logits)
+        return torch.stack(out)
+
+    wrappers = (k3.decode_attention_layered, k45.matmul_q8_layered,
+                k45.ffn_q8_layered)
+    before = [w.launches for w in wrappers]
+    fast = decode_logits(cache)
+    added = [w.launches - b for w, b in zip(wrappers, before)]
+    want = [DECODE_CHECK_STEPS * L, 2 * DECODE_CHECK_STEPS * L,
+            DECODE_CHECK_STEPS * L]
+    if added != want:
+        raise RuntimeError(f"int8 decode launches {added} != {want}")
+    saved = (k3.decode_attention_layered, k45.matmul_q8_layered,
+             k45.ffn_q8_layered)
+    k3.decode_attention_layered = k3.decode_attention_plain
+    k45.matmul_q8_layered = k45.matmul_q8_layered_plain
+    k45.ffn_q8_layered = k45.ffn_q8_layered_plain
+    try:
+        plain = decode_logits(snapshot)
+    finally:
+        (k3.decode_attention_layered, k45.matmul_q8_layered,
+         k45.ffn_q8_layered) = saved
+    torch.cuda.synchronize()
+    compare_logits(f"int8 decode logits, {DECODE_CHECK_STEPS} "
+                   "teacher-forced steps", fast, plain)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this run needs an NVIDIA GPU")
+    from videollama2_tpu.constants import VIDEO_TOKEN_INDEX
+    from videollama2_tpu.core import config as cfglib
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.models.llm import _quantize_kv_rows
+    from videollama2_tpu_torch.ops import _build
+    from videollama2_tpu_torch.ops import attention as attn
+    from videollama2_tpu_torch.ops import decode_attention as k3
+    from videollama2_tpu_torch.ops import decode_matmul as k45
+    from videollama2_tpu_torch.ops import encoder_attention as k1
+    from videollama2_tpu_torch.ops import flash_attention as k2
+    from videollama2_tpu_torch.ops.quant import quantize_int8
+    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
+
+    # -- build -----------------------------------------------------------
+    cached = _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"[build] nvcc sm_90a build of csrc/*.cu (one process a source) "
+        f"{'(found built already) ' if cached else ''}and load: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- every kernel against its plain version at main-path shapes ---------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_cases, k2_cases = attention_cases(gen)
+    k1_err, k1_times = check_kernel(
+        "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
+        k1_cases, K1_TOL)
+    k2_err, k2_times = check_kernel(
+        "flash_attention", k2.flash_attention, k2.flash_attention_plain,
+        k2_cases, K2_TOL)
+    del k1_cases, k2_cases
+    k3_err, k3_times = check_kernel(
+        "decode_attention", k3.decode_attention_layered,
+        k3.decode_attention_plain, decode_attention_cases(
+            gen, _quantize_kv_rows), K3_TOL)
+    k4_cases, k5_cases = matmul_cases(gen, quantize_int8)
+    k4_err, k4_times = check_kernel(
+        "matmul_q8_layered", k45.matmul_q8_layered,
+        k45.matmul_q8_layered_plain, k4_cases, K45_REL_TOL, rel=True)
+    k5_err, k5_times = check_kernel(
+        "ffn_q8_layered", k45.ffn_q8_layered, k45.ffn_q8_layered_plain,
+        k5_cases, K45_REL_TOL, rel=True)
+    del k4_cases, k5_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the two slices at full width ---------------------------------------
+    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=16)
+    B, T, H = 16, cfg.num_frames, cfg.vision.image_size
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (B, T, H + H // 2, H), dtype=np.uint8)
+    prompt = ([1] + [int(x) for x in rng.integers(10, 1000, 40)]
+              + [VIDEO_TOKEN_INDEX]
+              + [int(x) for x in rng.integers(10, 1000, 12)])
+    n_layers_vit = cfg.vision.select_layer % (cfg.vision.num_layers + 1)
+    L = cfg.llm.num_layers
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    attn_counters = {"encoder_attention": k1.encoder_attention,
+                     "flash_attention": k2.flash_attention}
+    attn_counts = {"encoder_attention": n_layers_vit * (B * T // 128),
+                   "flash_attention": L}
+    stages = {}
+
+    for slice_name, int8 in (("bf16 slice", False), ("int8 slice", True)):
+        t0 = time.perf_counter()
+        params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
+                                  seed=0, int8=int8)
+        torch.cuda.synchronize()
+        log(f"[{slice_name}] weights made on the card in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB)")
+        eng = Engine(cfg, params, dtype=torch.bfloat16, max_len=MAX_LEN,
+                     buckets=(BUCKET,), decode_chunk=NEW_TOKENS,
+                     kv_bits=8 if int8 else 16, device="cuda")
+        del params
+        counters = dict(attn_counters)
+        want = dict(attn_counts)
+        if int8:
+            steps = NEW_TOKENS - 1
+            counters.update(decode_attention=k3.decode_attention_layered,
+                            matmul_q8_layered=k45.matmul_q8_layered,
+                            ffn_q8_layered=k45.ffn_q8_layered)
+            want.update(decode_attention=steps * L,
+                        matmul_q8_layered=2 * steps * L,
+                        ffn_q8_layered=steps * L)
+        counts, stages[slice_name] = run_slice(
+            slice_name, eng, cfg, frames, prompt, gcfg, counters, want)
+        if int8:
+            int8_counts = counts
+            check_decode_against_plain(eng, cfg, frames[:2], prompt, k3, k45)
+        else:
+            bf16_counts = counts
+            check_against_plain(eng, cfg, frames[:2], prompt, attn, k1, k2)
+        log(f"[{slice_name}] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    log(json.dumps({"stages": stages}))
+
+    def entry(name, source, replaces, launches, err, times):
+        return {"name": name, "route": "cuda",
+                "source": f"videollama2_tpu_torch/csrc/{source}",
+                "replaces": f"videollama2_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err,
+                "ms": times[0][0], "plain_ms": times[0][1]}
+
+    kernels = [
+        entry("encoder_attention", "encoder_attention.cu",
+              "encoder_attention.py:230", bf16_counts["encoder_attention"],
+              k1_err, k1_times),
+        entry("flash_attention", "flash_attention.cu",
+              "flash_attention.py:179", bf16_counts["flash_attention"],
+              k2_err, k2_times),
+        entry("decode_attention_layered", "decode_attention.cu",
+              "decode_attention.py:249", int8_counts["decode_attention"],
+              k3_err, k3_times),
+        entry("matmul_q8_layered", "decode_matmul.cu", "decode_matmul.py:89",
+              int8_counts["matmul_q8_layered"], k4_err, k4_times),
+        entry("ffn_q8_layered", "decode_matmul.cu", "decode_matmul.py:346",
+              int8_counts["ffn_q8_layered"], k5_err, k5_times),
+    ]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -8,15 +8,21 @@ run it on the GPU host with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are bf16; the reference is the plain version in fp32 on the same
-values. Tolerance 2e-2 absolute: the kernels round P to bf16 for the PV
-product and round the output to bf16 (outputs here have |o| < ~3).
+values. Attention tolerance 2e-2 absolute: the kernels round P to bf16 for
+the PV product and round the output to bf16 (outputs here have |o| < ~3).
+The int8 matmuls are held to 1e-2 relative to the output's scale: bf16
+output rounding (2^-9) and, for the FFN, the bf16 rounding of h.
 """
 
 import pytest
 import torch
 
+from videollama2_tpu_torch.models.llm import _quantize_kv_rows
+from videollama2_tpu_torch.ops import decode_attention as k3
+from videollama2_tpu_torch.ops import decode_matmul as k45
 from videollama2_tpu_torch.ops import encoder_attention as k1
 from videollama2_tpu_torch.ops import flash_attention as k2
+from videollama2_tpu_torch.ops.quant import quantize_int8
 
 
 @pytest.fixture
@@ -54,3 +60,87 @@ def test_flash_attention_cuda_matches_plain(cuda_device, causal):
     ref = k2.flash_attention_plain(q.float(), k.float(), v.float(), valid,
                                    causal=causal)
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,window,hd,K", [("int8", None, 128, 8),
+                                               ("bf16", None, 128, 8),
+                                               ("int8", 100, 128, 8),
+                                               ("bf16", None, 64, 8),
+                                               ("int8", None, 64, 4),
+                                               ("int8", None, 128, 16),
+                                               ("bf16", None, 128, 32)])
+def test_decode_attention_cuda_matches_plain(cuda_device, cache, window, hd,
+                                             K):
+    """32 query heads on K kv heads: groups of 4 (Mistral), 8, 2 and 1."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + K)
+    B, H, L, M, prompt_len, step = 3, 32, 2, 512, 300, 37
+    valid = torch.tensor([300, 211, 1], dtype=torch.int32,
+                         device=cuda_device)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+    q, k_new, v_new = r(B, H, hd).bfloat16(), r(B, K, hd), r(B, K, hd)
+    ck, cv = r(L, B, M, K, hd), r(L, B, M, K, hd)
+    kw = {}
+    if cache == "int8":
+        (ck, ks), (cv, vs) = _quantize_kv_rows(ck), _quantize_kv_rows(cv)
+        kw = dict(k_scale=ks.transpose(2, 3).contiguous(),
+                  v_scale=vs.transpose(2, 3).contiguous())
+    ck = ck.reshape(L, B, M, K * hd).to(torch.int8 if cache == "int8"
+                                        else torch.bfloat16)
+    cv = cv.reshape(L, B, M, K * hd).to(ck.dtype)
+    k_new, v_new = k_new.bfloat16(), v_new.bfloat16()
+    args = (ck, cv, 1, valid, prompt_len + step, prompt_len)
+    got = k3.decode_attention_layered(q, k_new, v_new, *args, window=window,
+                                      **kw).float()
+    ref = k3.decode_attention_plain(q.float(), k_new, v_new, *args,
+                                    window=window, **kw)
+    torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 5, 20, 40, 64])
+def test_matmul_q8_layered_cuda_matches_plain(cuda_device, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn(rows, 1024, generator=gen, device=cuda_device).bfloat16()
+    pack = quantize_int8(torch.randn(2, 1024, 768, generator=gen,
+                                     device=cuda_device) * 0.02, axis=-2)
+    for scale in (pack["scale"], pack["scale"].bfloat16()):
+        got = k45.matmul_q8_layered(x, pack["q"], scale, 1).float()
+        ref = k45._mm_plain(x, pack["q"][1], scale[1])
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_ffn_q8_layered_cuda_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(16, 512, generator=gen, device=cuda_device).bfloat16()
+
+    def pack(din, dout):
+        w = torch.randn(2, din, dout, generator=gen, device=cuda_device)
+        p = quantize_int8(w * 0.05, axis=-2)
+        return p["q"], p["scale"].bfloat16()
+    g, u, d = pack(512, 1536), pack(512, 1536), pack(1536, 512)
+    got = k45.ffn_q8_layered(x, *g, *u, *d, 0).float()
+    ref = k45.ffn_q8_layered_plain(x.float(), *g, *u, *d, 0)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 40, 600])
+def test_dense_w8a8_cuda_matches_cpu(cuda_device, rows):
+    """W8A8 on the card (torch._int_mm: rows padded past 16; from 512 rows
+    on, the weight passed column-major) gives the CPU's int32-matmul
+    result: the int8 operands and the int32 product are exact in both."""
+    from videollama2_tpu_torch.ops.layers import dense_w8a8
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn(2, rows // 2, 1024, generator=gen)
+    pack = quantize_int8(torch.randn(1024, 512, generator=gen) * 0.02,
+                         axis=-2)
+    want = dense_w8a8(x, pack)
+    got = dense_w8a8(x.to(cuda_device),
+                     {k: v.to(cuda_device) for k, v in pack.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

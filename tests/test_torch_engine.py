@@ -28,6 +28,8 @@ from videollama2_tpu.media import wire
 from videollama2_tpu.models import llm as jllm
 from videollama2_tpu.models import videollama2 as jvl2
 from videollama2_tpu.multimodal import splice as jsplice
+from videollama2_tpu.ops import layers as jlayers
+from videollama2_tpu.ops import quant as jquant
 from videollama2_tpu_torch.checkpoint.from_jax import params_from_jax
 from videollama2_tpu_torch.inference.engine import Engine, GenerationConfig
 from videollama2_tpu_torch.models import llm as tllm
@@ -46,8 +48,8 @@ def tiny():
                                          cfg)
 
 
-def _videos(cfg, wire_fmt):
-    rng = np.random.default_rng(11)
+def _videos(cfg, wire_fmt, seed=11):
+    rng = np.random.default_rng(seed)
     H, T = cfg.vision.image_size, cfg.num_frames
     rgb = rng.integers(0, 256, (2, T, H, H, 3), dtype=np.uint8)
     if wire_fmt == "i420":
@@ -73,7 +75,7 @@ def _first_logits_jax(cfg, jp, frames, plan, bucket):
     return np.asarray(jllm.lm_logits(jp["llm"], cfg.llm, last))
 
 
-def _first_logits_port(cfg, tp, frames, plan, bucket):
+def _first_logits_port(cfg, tp, frames, plan, bucket, w8a8=False):
     cache = tllm.init_cache(cfg.llm, 2, 128, torch.float32)
     pos = torch.arange(bucket, dtype=torch.int32).expand(2, bucket)
     with torch.inference_mode():
@@ -82,8 +84,8 @@ def _first_logits_port(cfg, tp, frames, plan, bucket):
             torch.from_numpy(plan.text_ids).long(),
             torch.from_numpy(plan.is_visual),
             torch.from_numpy(plan.vis_index),
-            pos, torch.from_numpy(plan.valid_len), cache)
-        return tllm.lm_logits(tp["llm"], cfg.llm, last).numpy()
+            pos, torch.from_numpy(plan.valid_len), cache, w8a8=w8a8)
+        return tllm.lm_logits(tp["llm"], cfg.llm, last, w8a8=w8a8).numpy()
 
 
 @pytest.mark.parametrize("wire_fmt", ["float", "rgb", "i420"])
@@ -166,5 +168,95 @@ def test_unported_options_raise(tiny):
         eng.generate([[1, 2]], gen=GenerationConfig(speculative_k=4))
     with pytest.raises(NotImplementedError):
         eng.generate([[1, 2]], return_session=True)
+    with pytest.raises(ValueError):     # as the JAX Engine: 8 or 16 only
+        Engine(cfg, tp, dtype=torch.float32, kv_bits=4, device="cpu")
     with pytest.raises(NotImplementedError):
-        Engine(cfg, tp, dtype=torch.float32, kv_bits=8, device="cpu")
+        Engine(cfg, tp, dtype=torch.float32, device="cpu",
+               shard_fn=lambda p: p)
+
+
+def test_engine_without_a_device_needs_a_gpu(tiny, monkeypatch):
+    """The default device is the GPU: without one the Engine raises
+    instead of carrying on on the CPU."""
+    cfg, _, tp = tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, tp, dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def tiny_int8(tiny):
+    """The tiny model with int8 LLM packs (head included) and an int8
+    tower, as the serving configuration quantizes it."""
+    cfg, jp, _ = tiny
+    jq = dict(jp, llm=jquant.quantize_llm_params(jp["llm"]),
+              vision=jquant.quantize_vision_params(jp["vision"]))
+    return cfg, jq, params_from_jax(jax.tree.map(np.asarray, jq), cfg)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_int8_slice_matches_jax_engine(tiny_int8, kv_bits):
+    """The int8 serving path: W8A8 tower, prefill and head, decode on the
+    layered kernels (plain versions here; Pallas in interpret mode in the
+    JAX Engine, under force_native_quant so that it takes the W8A8 math the
+    accelerator serves). Greedy tokens identical; the caches after
+    generate compare one to one (int8 rows exactly; scales to 1e-5
+    relative: a scale is its row's amax / 127, so it carries the fp32 noise
+    of the k/v values, which differ by summation order through the tower,
+    the connector and two layers, measured up to 1.6e-6 relative);
+    first-token logits to FP32_LOGIT_ATOL.
+
+    W8A8 rounds activations to int8, and fp32 activations that differ in
+    the last bits between the packages round differently when they lie
+    within ~1e-5 of a .5 boundary: with the other tests' frames (seed 11)
+    a few tower activations do (the nearest at 3.8e-6), which moves some
+    visual tokens' cache rows by one int8 step. These frames (seed 7) keep
+    every W8A8 input at least 5.7e-6 from a boundary."""
+    cfg, jq, tq = tiny_int8
+    frames = _videos(cfg, "float", seed=7)
+    gen_kw = dict(max_new_tokens=NEW_TOKENS)
+    jeng = JaxEngine(cfg, jq, dtype=jnp.float32, max_len=128, buckets=(64,),
+                     kv_bits=kv_bits)
+    eng = Engine(cfg, tq, dtype=torch.float32, max_len=128, buckets=(64,),
+                 kv_bits=kv_bits, device="cpu")
+    assert eng.max_len == jeng.max_len == (256 if kv_bits == 8 else 128)
+    caches = {}
+
+    def keep_cache(name, decode_tail, at):
+        def wrapped(*args, **kw):
+            out = decode_tail(*args, **kw)
+            caches[name] = out[at] if at is not None else args[2]
+            return out
+        return wrapped
+
+    jeng._decode_tail = keep_cache("jax", jeng._decode_tail, 1)
+    eng._decode_tail = keep_cache("port", eng._decode_tail, None)
+    with jlayers.force_native_quant():
+        want = jeng.generate(PROMPTS, frames=frames,
+                             gen=JaxGenerationConfig(**gen_kw),
+                             eos_token_id=-1)
+    got = eng.generate(PROMPTS, frames=frames,
+                       gen=GenerationConfig(**gen_kw), eos_token_id=-1)
+    assert got == want
+    jc, tc = caches["jax"], caches["port"]
+    if kv_bits == 8:
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                          np.asarray(getattr(jc, name)))
+        for name in ("k_scale", "v_scale"):
+            np.testing.assert_allclose(getattr(tc, name).numpy(),
+                                       np.asarray(getattr(jc, name)),
+                                       rtol=1e-5, atol=0)
+    else:
+        for name in ("k", "v"):
+            np.testing.assert_allclose(getattr(tc, name).numpy(),
+                                       np.asarray(getattr(jc, name)),
+                                       rtol=0, atol=FP32_LOGIT_ATOL)
+
+    plan = jsplice.plan_batch(PROMPTS, cfg.tokens_per_video, 64)
+    with jlayers.force_native_quant(), jlayers.quant_inference(), \
+            jlayers.w8a8_prefill():
+        ref = _first_logits_jax(cfg, jeng.params, frames, plan, 64)
+    port = _first_logits_port(cfg, eng.params, frames, plan, 64, w8a8=True)
+    np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
+    assert [o[0] for o in got] == list(ref.argmax(-1))

@@ -81,7 +81,7 @@ def test_norms_rope_dense_match_jax():
         np.testing.assert_allclose(tlayers.ACT2FN[name](_t(x)).numpy(),
                                    _np(jlayers.ACT2FN[name](x)), atol=1e-5)
     with pytest.raises(NotImplementedError):
-        tlayers.dense(_t(x), {"kernel_q8": {}})
+        tlayers.dense(_t(x), {"kernel_q4": {}})   # int4: not ported yet
 
 
 def test_convs_match_jax():

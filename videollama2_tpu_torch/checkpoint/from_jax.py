@@ -4,8 +4,11 @@ The JAX tree is a plain dict with layers stacked on a leading L axis and
 kernels stored [in, out]; the port keeps that layout, so the bridge only
 fuses the separate q/k/v projections of the tower and of the LLM into the
 `qkv` entry the port's modules read (concatenated along the output axis,
-biases alongside). It raises if a JAX leaf is left unused or a port
-parameter is left unfilled, so both packages compute the same function.
+biases alongside). int8 packs ("kernel_q8": {"q", "scale"}) come across the
+same way, split (ops/quant.quantize_llm_params, quantize_vision_params) or
+already fused (ops/quant.fuse_qkv). It raises if a JAX leaf is left unused
+or a port parameter is left unfilled, so both packages compute the same
+function.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def _set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
+def _int8(tree: dict, part: str) -> bool:
+    """Whether the JAX tree's `part` carries int8 packs."""
+    return any("kernel_q8" in path
+               for path, _ in _flatten(tree.get(part, {}).get("layers", {})))
+
+
 def params_from_jax(jax_params: dict, cfg) -> dict:
     """jax_params: {"llm", "vision", "connector"} tree of numpy (or
     array-like) leaves. Returns the port's tree as CPU tensors (the Engine
@@ -44,10 +53,15 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
         return src[path]
 
     out: dict = {}
-    for path, shape in _flatten(vl2.param_shapes(cfg)):
-        if len(path) >= 2 and path[-2] == "qkv":
-            arr = np.concatenate([take(path[:-2] + (n, path[-1]))
-                                  for n in ("q", "k", "v")], axis=-1)
+    shapes = vl2.param_shapes(cfg, int8_llm=_int8(jax_params, "llm"),
+                              int8_vision=_int8(jax_params, "vision"))
+    for path, shape in _flatten(shapes):
+        if "qkv" in path and path not in src:
+            i = path.index("qkv")
+            arr = np.concatenate(
+                [take(path[:i] + (n,) + path[i + 1:])
+                 for n in ("q", "k", "v")],
+                axis=-1)
         else:
             arr = take(path)
         if tuple(arr.shape) != tuple(shape):

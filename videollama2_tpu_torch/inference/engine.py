@@ -1,12 +1,17 @@
 """Generation engine: multimodal prefill + chunked decode (port of
-videollama2_tpu/inference/engine.py, bf16 weights and a bf16 KV cache).
+videollama2_tpu/inference/engine.py: floating or int8-packed weights, a
+bf16 or int8 KV cache, on one device).
 
 Prompts are padded to static buckets, the KV cache is preallocated at
 `max_len` and written in place, and decoding runs in chunks of
 `decode_chunk` steps whose EOS bookkeeping stays on the device: the host
 reads the emitted tokens once per chunk, then applies EOS/`stop_fn` and
-streams. Speculative decoding, sessions, audio, grouped media and sharding
-raise NotImplementedError until their port.
+streams. Every int8 dense the engine reaches runs W8A8 (ops/layers.dense),
+as the JAX Engine's programs do under its quant_inference and w8a8_prefill
+contexts; with int8 packs on every LLM projection, decode runs on the
+layered kernels (models/llm._decode_step_q8). Speculative decoding,
+sessions, audio, grouped media and sharding raise NotImplementedError
+until their port.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from videollama2_tpu.core.config import ModelConfig
 from ..models import llm as llm_lib
 from ..models import videollama2 as vl2
 from ..multimodal import splice as splice_lib
+from ..ops import quant as quant_lib
 from . import sampling
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
@@ -42,7 +48,8 @@ class GenerationConfig:
 
 def _prepare(tree, dtype, device):
     """Move every leaf to `device`, casting floating leaves to `dtype`
-    (no copy for leaves already there in that dtype)."""
+    (int8 pack scales included, as the JAX Engine does; no copy for leaves
+    already there in that dtype)."""
     if isinstance(tree, dict):
         return {k: _prepare(v, dtype, device) for k, v in tree.items()}
     t = torch.as_tensor(tree)
@@ -57,9 +64,9 @@ class Engine:
                  dtype=torch.bfloat16, max_len: int = 4096,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  decode_chunk: int = DECODE_CHUNK, kv_bits: int = 16,
-                 device=None, shard_fn: Optional[Callable] = None):
-        if kv_bits != 16:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+                 device="cuda", shard_fn: Optional[Callable] = None):
+        if kv_bits not in (8, 16):
+            raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
         if shard_fn is not None:
             raise NotImplementedError("sharded engines are not ported yet")
         if cfg.llm.is_moe:
@@ -67,13 +74,23 @@ class Engine:
         self.cfg = cfg
         self.dtype = dtype
         self.kv_bits = kv_bits
+        if kv_bits == 8:
+            # the JAX Engine rounds up to a multiple of 256 under kv8 (a
+            # rule of its Pallas kernel's blocks); rounding alike keeps the
+            # two packages' caches the same shape
+            max_len = -(-max_len // 256) * 256
         self.max_len = max_len
         self.buckets = tuple(b for b in buckets if b <= max_len)
         self.decode_chunk = decode_chunk
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
-        self.params = _prepare(params, dtype, self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Engine: no CUDA device is available; pass "
+                               "device='cpu' to run the plain versions on "
+                               "the CPU")
+        params = _prepare(params, dtype, self.device)
+        if "llm" in params:
+            params = dict(params, llm=quant_lib.fuse_qkv(params["llm"]))
+        self.params = params
 
     # -- frames --------------------------------------------------------------
 
@@ -158,28 +175,31 @@ class Engine:
         valid_len = dev(plan.valid_len, torch.int32)
         positions = dev(plan.positions, torch.int32)
         cache = llm_lib.init_cache(cfg.llm, B, self.max_len, self.dtype,
-                                   device=self.device)
+                                   kv_bits=self.kv_bits, device=self.device)
         params = self.params
         if mode == "text":
             embeds = llm_lib.embed_tokens(params["llm"], text_ids, self.dtype)
             last, cache = llm_lib.prefill(params["llm"], cfg.llm, embeds,
-                                          positions, valid_len, cache)
+                                          positions, valid_len, cache,
+                                          w8a8=True)
         elif mode == "vision_shared":
             vis = vl2.encode_frames(params, cfg,
-                                    self._frames_to_device(frames))
+                                    self._frames_to_device(frames),
+                                    w8a8=True)
             vis = vis.expand((B,) + tuple(vis.shape[1:]))
             text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
                                             self.dtype)
             embeds = splice_lib.compose_embeds(text_emb, vis, is_visual,
                                                vis_index)
             last, cache = llm_lib.prefill(params["llm"], cfg.llm, embeds,
-                                          positions, valid_len, cache)
+                                          positions, valid_len, cache,
+                                          w8a8=True)
         else:
             last, cache = vl2.prefill_multimodal(
                 params, cfg, self._frames_to_device(frames), text_ids,
                 is_visual, vis_index, positions, valid_len, cache,
-                broadcast_image=(mode == "image"))
-        logits = llm_lib.lm_logits(params["llm"], cfg.llm, last)
+                broadcast_image=(mode == "image"), w8a8=True)
+        logits = llm_lib.lm_logits(params["llm"], cfg.llm, last, w8a8=True)
 
         generator = None
         if gen.do_sample:
@@ -217,7 +237,7 @@ class Engine:
                                           self.dtype)
                 logits, cache = llm_lib.decode_step(
                     self.params["llm"], cfg.llm, te, cache, valid_len,
-                    bucket, steps_done + s)
+                    bucket, steps_done + s, w8a8=True)
                 nxt = sampling.select_token(generator, logits, gen.do_sample,
                                             gen.temperature, gen.top_p)
                 nxt = torch.where(done, torch.full_like(nxt, eos), nxt)

@@ -1,14 +1,17 @@
-"""Causal decoder, bf16 dense path (port of videollama2_tpu/models/llm.py).
+"""Causal decoder, dense path (port of videollama2_tpu/models/llm.py).
 
 Mistral/Llama/Qwen2-style dense decoders with GQA, RoPE in the rotate-half
-layout and RMSNorm. MoE, the int8 KV cache and the packed int8/int4 decode
-raise NotImplementedError until their port.
+layout and RMSNorm; floating or int8-packed weights; a bf16 or int8 KV
+cache. MoE, tied embeddings, int4 packs and the verify step raise
+NotImplementedError until their port.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
   embed.weight [V, D]   final_norm.scale [D]   lm_head.kernel [D, V]
   layers: attn_norm.scale/mlp_norm.scale [L, D]
           qkv.kernel [L, D, (H + 2 Hkv) hd] (+ .bias for Qwen2)
           o.kernel [L, H hd, D]; gate/up.kernel [L, D, F]; down.kernel [L, F, D]
+With int8 weights every `kernel` above (the head's included) is a
+`kernel_q8` pack {q int8 [.., in, out], scale [.., 1, out]} (ops/quant).
 """
 
 from __future__ import annotations
@@ -22,21 +25,35 @@ import torch.nn.functional as F
 from videollama2_tpu.core.config import LLMConfig
 
 from ..ops import attention as attn_ops
+from ..ops import decode_attention as dk_attn
+from ..ops import decode_matmul as dk
 from ..ops.layers import (apply_rope, dense, layer_params, rms_norm,
                           rope_table)
+from ..ops.quant import kernel_shapes
 
 
 @dataclass
 class KVCache:
     """Preallocated KV cache, k/v: [L, B, M, Hkv * hd] (the JAX layout, with
     the kv-head and head-dim axes merged). Prefill and decode write rows in
-    place."""
+    place.
+
+    int8 cache (init_cache(kv_bits=8)): k/v hold int8 rows and
+    k_scale/v_scale the per-(row, kv-head) fp32 scales, stored transposed
+    as [L, B, Hkv, M] like the JAX cache, so both compare one to one. Every
+    writer quantizes with `_quantize_kv_rows`."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def _check_supported(cfg: LLMConfig) -> None:
@@ -49,19 +66,69 @@ def _check_supported(cfg: LLMConfig) -> None:
 def init_cache(cfg: LLMConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_bits: int = 16,
                device=None) -> KVCache:
-    if kv_bits != 16:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     shape = (cfg.num_layers, batch, max_len,
              cfg.num_kv_heads * cfg.head_dim)
+    if kv_bits == 8:
+        sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
+        return KVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device))
+    if kv_bits != 16:
+        raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def param_shapes(cfg: LLMConfig) -> dict:
+def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(row, kv-head) int8 quantization of new cache rows,
+    bit-identical to the JAX package's: x [..., hd] -> (int8 [..., hd],
+    fp32 scale [...]). The only KV quantizer: prefill and decode write
+    through it."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _store_kv(cache: KVCache, i: int, start: int, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write layer i's rows [start, start + n) in place from k/v
+    [B, n, Hkv, hd]; an int8 cache stores them through _quantize_kv_rows."""
+    B, n = k.shape[:2]
+    rows = slice(start, start + n)
+    for dst, scales, x in ((cache.k, cache.k_scale, k),
+                           (cache.v, cache.v_scale, v)):
+        if cache.quantized:
+            q, s = _quantize_kv_rows(x)            # [B,n,K,hd], [B,n,K]
+            dst[i, :, rows] = q.reshape(B, n, -1)
+            scales[i, :, :, rows] = s.transpose(1, 2)
+        else:
+            dst[i, :, rows] = x.reshape(B, n, -1)
+
+
+def _read_kv(cache: KVCache, i: int, rows: slice, kv_heads: int, dtype):
+    """Layer i's cache rows as k/v [B, n, Hkv, hd] in dtype, an int8 cache
+    dequantized (JAX `_dequant_kv`)."""
+    out = []
+    for src, scales in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+        x = src[i, :, rows]
+        x = x.reshape(x.shape[0], x.shape[1], kv_heads, -1)
+        if cache.quantized:
+            x = x.float() * scales[i, :, :, rows].transpose(1, 2)[..., None]
+        out.append(x.to(dtype))
+    return out
+
+
+def param_shapes(cfg: LLMConfig, int8: bool = False) -> dict:
+    """Shapes of the decoder's params; with int8, the layout of
+    ops/quant.quantize_llm_params with the head included."""
     _check_supported(cfg)
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qkv = {"kernel": (L, D, (H + 2 * K) * hd)}
+    qkv = kernel_shapes((L, D, (H + 2 * K) * hd), int8)
     if cfg.qkv_bias:
         qkv["bias"] = (L, (H + 2 * K) * hd)
     return {
@@ -69,14 +136,14 @@ def param_shapes(cfg: LLMConfig) -> dict:
         "layers": {
             "attn_norm": {"scale": (L, D)},
             "qkv": qkv,
-            "o": {"kernel": (L, H * hd, D)},
+            "o": kernel_shapes((L, H * hd, D), int8),
             "mlp_norm": {"scale": (L, D)},
-            "gate": {"kernel": (L, D, F_)},
-            "up": {"kernel": (L, D, F_)},
-            "down": {"kernel": (L, F_, D)},
+            "gate": kernel_shapes((L, D, F_), int8),
+            "up": kernel_shapes((L, D, F_), int8),
+            "down": kernel_shapes((L, F_, D), int8),
         },
         "final_norm": {"scale": (D,)},
-        "lm_head": {"kernel": (D, cfg.vocab_size)},
+        "lm_head": kernel_shapes((D, cfg.vocab_size), int8),
     }
 
 
@@ -88,12 +155,16 @@ def embed_tokens(params: dict, token_ids: torch.Tensor,
     return F.embedding(token_ids, w)
 
 
-def lm_logits(params: dict, cfg: LLMConfig,
-              hidden: torch.Tensor) -> torch.Tensor:
-    """Vocabulary logits in fp32 (products of the hidden dtype's values,
-    fp32 accumulation and no rounding of the result, as in the JAX head)."""
-    kernel = params["lm_head"]["kernel"]
-    return torch.matmul(hidden.float(), kernel.to(hidden.dtype).float())
+def lm_logits(params: dict, cfg: LLMConfig, hidden: torch.Tensor,
+              w8a8: bool = False) -> torch.Tensor:
+    """Vocabulary logits in fp32. A floating head multiplies the hidden
+    dtype's values with fp32 accumulation and no rounding of the result;
+    an int8 head goes through dense (w8a8 selects its branch) and its
+    output in the hidden dtype is widened, as in the JAX head."""
+    head = params["lm_head"]
+    if "kernel_q8" in head:
+        return dense(hidden, head, w8a8).float()
+    return torch.matmul(hidden.float(), head["kernel"].to(hidden.dtype).float())
 
 
 def _split_qkv(cfg: LLMConfig, qkv: torch.Tensor):
@@ -104,17 +175,20 @@ def _split_qkv(cfg: LLMConfig, qkv: torch.Tensor):
     return q, k, v
 
 
-def _ffn(x: torch.Tensor, lp: dict) -> torch.Tensor:
-    return dense(F.silu(dense(x, lp["gate"])) * dense(x, lp["up"]),
-                 lp["down"])
+def _ffn(x: torch.Tensor, lp: dict, w8a8: bool) -> torch.Tensor:
+    return dense(F.silu(dense(x, lp["gate"], w8a8)) * dense(x, lp["up"], w8a8),
+                 lp["down"], w8a8)
 
 
 def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
             positions: torch.Tensor, valid_len: torch.Tensor,
-            cache: Optional[KVCache] = None) -> torch.Tensor:
+            cache: Optional[KVCache] = None,
+            w8a8: bool = False) -> torch.Tensor:
     """Full-sequence forward (prefill). embeds [B, S, D], positions [B, S],
     valid_len [B] int32. Writes each layer's k/v into cache rows [0, S) in
-    place when a cache is given. Returns the final-normed hidden [B, S, D].
+    place when a cache is given (an int8 cache stores the rows quantized;
+    attention itself uses the exact k/v). w8a8 selects the serving branch
+    of int8 packs. Returns the final-normed hidden [B, S, D].
     """
     _check_supported(cfg)
     B, S, _ = embeds.shape
@@ -123,26 +197,25 @@ def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"]))
+        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
-            # in-place write of this layer's prompt rows
-            cache.k[i, :, :S] = k.reshape(B, S, -1)
-            cache.v[i, :, :S] = v.reshape(B, S, -1)
+            _store_kv(cache, i, 0, k, v)
         out = attn_ops.attend(q, k, v, valid_len=valid_len, causal=True,
                               window=cfg.sliding_window)
-        x = x + dense(out.reshape(B, S, -1), lp["o"])
+        x = x + dense(out.reshape(B, S, -1), lp["o"], w8a8)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(h, lp)
+        x = x + _ffn(h, lp, w8a8)
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 
 def prefill(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
             positions: torch.Tensor, valid_len: torch.Tensor,
-            cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+            cache: KVCache, w8a8: bool = False
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt, fill cache rows [0, S), return the hidden state of
     each sample's last VALID token ([B, D]) and the cache."""
-    hidden = forward(params, cfg, embeds, positions, valid_len, cache)
+    hidden = forward(params, cfg, embeds, positions, valid_len, cache, w8a8)
     S = embeds.shape[1]
     idx = torch.clamp(valid_len.long() - 1, 0, S - 1)
     last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
@@ -164,9 +237,16 @@ def decode_mask(cfg: LLMConfig, valid_len: torch.Tensor, prompt_len: int,
     return mask[:, None, None, :]
 
 
+def _packed_decode(layers: dict) -> bool:
+    """Decode goes through the layered int8 kernels when every projection
+    is an int8 pack without LoRA (the JAX package's routing)."""
+    return all("kernel_q8" in layers[n] and "lora" not in layers[n]
+               for n in ("qkv", "o", "gate", "up", "down"))
+
+
 def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
                 cache: KVCache, valid_len: torch.Tensor, prompt_len: int,
-                step: int) -> Tuple[torch.Tensor, KVCache]:
+                step: int, w8a8: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for the whole batch.
 
     Shared-row cache layout: every sample's generated token `step` lives at
@@ -176,8 +256,14 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
 
     token_embeds: [B, 1, D]; valid_len: [B]; prompt_len: the prompt bucket;
     step: decode index. Returns (logits [B, V] fp32, cache written in place).
+    With int8 packs on every projection the step runs on the layered
+    kernels (`_decode_step_q8`); otherwise on dense() and the plain masked
+    attention over the whole cache (an int8 cache is dequantized for it).
     """
     _check_supported(cfg)
+    if _packed_decode(params["layers"]):
+        return _decode_step_q8(params, cfg, token_embeds, cache, valid_len,
+                               prompt_len, step, w8a8)
     B = token_embeds.shape[0]
     M = cache.max_len
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -189,16 +275,70 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"]))
+        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
         q, k = apply_rope(q, k, cos, sin)
-        # in-place write of the new row, shared by every sample
-        cache.k[i, :, write_pos] = k.reshape(B, K * hd).to(cache.k.dtype)
-        cache.v[i, :, write_pos] = v.reshape(B, K * hd).to(cache.v.dtype)
-        k_read = cache.k[i].view(B, M, K, hd).to(q.dtype)
-        v_read = cache.v[i].view(B, M, K, hd).to(q.dtype)
+        # the new row, shared by every sample, then the whole layer read
+        # back (an int8 cache dequantized, the new row included)
+        _store_kv(cache, i, write_pos, k, v)
+        k_read, v_read = _read_kv(cache, i, slice(None), K, q.dtype)
         out = attn_ops.mha(q, k_read, v_read, mask=mask)
-        x = x + dense(out.reshape(B, 1, H * hd), lp["o"])
+        x = x + dense(out.reshape(B, 1, H * hd), lp["o"], w8a8)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(h, lp)
+        x = x + _ffn(h, lp, w8a8)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
-    return lm_logits(params, cfg, x[:, 0]), cache
+    return lm_logits(params, cfg, x[:, 0], w8a8), cache
+
+
+def _decode_step_q8(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
+                    cache: KVCache, valid_len: torch.Tensor, prompt_len: int,
+                    step: int, w8a8: bool) -> Tuple[torch.Tensor, KVCache]:
+    """Decode step over int8 packs (JAX `_decode_step_q8`, bits=8): the
+    fused qkv and the o projection go through `matmul_q8_layered` (K4),
+    attention over layer i of the stacked cache through
+    `decode_attention_layered` (K3), seeded with the new k/v, and the
+    SwiGLU FFN through `ffn_q8_layered` (K5). Each kernel reads layer i of
+    the stacked weights or cache in place.
+
+    JAX writes every layer's new row with one update after its layer scan;
+    here each layer writes its row at write_pos in place before its
+    attention and seeds K3 with the row as stored (an int8 row
+    dequantized, as JAX seeds it). The two are equivalent because K3 never
+    reads row write_pos (the current token attends to itself through the
+    seeded state), and a layer reads only its own slice of the cache.
+    """
+    B = token_embeds.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    layers = params["layers"]
+    positions = (valid_len + step)[:, None]
+    cos, sin = rope_table(positions, hd, cfg.rope_theta)
+    write_pos = prompt_len + step
+    qkv_b = layers["qkv"].get("bias")
+    o_b = layers["o"].get("bias")
+    big = {n: layers[n]["kernel_q8"]
+           for n in ("qkv", "o", "gate", "up", "down")}
+    x = token_embeds[:, 0]                                  # [B, D]
+    for i in range(cfg.num_layers):
+        h = rms_norm(x, layers["attn_norm"]["scale"][i], cfg.rms_norm_eps)
+        qkv = dk.matmul_q8_layered(h, big["qkv"]["q"], big["qkv"]["scale"], i)
+        if qkv_b is not None:
+            qkv = qkv + qkv_b[i].to(qkv.dtype)
+        q, k, v = _split_qkv(cfg, qkv[:, None])
+        q, k = apply_rope(q, k, cos, sin)
+        _store_kv(cache, i, write_pos, k, v)
+        k_row, v_row = (t[:, 0].contiguous() for t in _read_kv(
+            cache, i, slice(write_pos, write_pos + 1), K, q.dtype))
+        out = dk_attn.decode_attention_layered(
+            q[:, 0], k_row, v_row, cache.k, cache.v, i, valid_len, write_pos,
+            prompt_len, window=cfg.sliding_window, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
+        out = dk.matmul_q8_layered(out.reshape(B, H * hd), big["o"]["q"],
+                                   big["o"]["scale"], i)
+        if o_b is not None:
+            out = out + o_b[i].to(out.dtype)
+        x = x + out
+        h = rms_norm(x, layers["mlp_norm"]["scale"][i], cfg.rms_norm_eps)
+        x = x + dk.ffn_q8_layered(
+            h, big["gate"]["q"], big["gate"]["scale"], big["up"]["q"],
+            big["up"]["scale"], big["down"]["q"], big["down"]["scale"], i)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    return lm_logits(params, cfg, x, w8a8), cache

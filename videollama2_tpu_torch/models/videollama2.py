@@ -22,11 +22,15 @@ from . import vit as vit_lib
 VIT_ENCODE_CHUNK = 128  # frames per tower pass (bounds tower activations)
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
+def param_shapes(cfg: ModelConfig, int8_llm: bool = False,
+                 int8_vision: bool = False) -> dict:
+    """Shapes of the whole tree; int8_llm / int8_vision give the layouts
+    of ops/quant.quantize_llm_params (head included) and
+    quantize_vision_params."""
     if cfg.audio is not None:
         raise NotImplementedError("the audio branch is not ported yet")
-    return {"llm": llm_lib.param_shapes(cfg.llm),
-            "vision": vit_lib.param_shapes(cfg.vision),
+    return {"llm": llm_lib.param_shapes(cfg.llm, int8=int8_llm),
+            "vision": vit_lib.param_shapes(cfg.vision, int8=int8_vision),
             "connector": connector_lib.param_shapes(cfg.connector)}
 
 
@@ -50,13 +54,15 @@ def _i420_to_rgb(buf: torch.Tensor) -> torch.Tensor:
 
 
 def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-                  broadcast_image: bool = False) -> torch.Tensor:
+                  broadcast_image: bool = False,
+                  w8a8: bool = False) -> torch.Tensor:
     """Frames -> visual tokens [B, tokens_per_video, hidden].
 
     frames: uint8 RGB [B, T, H, W, 3], uint8 I420 [B, T, H*3/2, W], or
     already normalized floats [B, T, H, W, 3]. uint8 input is normalized
     here and cast to bf16, as in the JAX package. With broadcast_image,
     frames is [B, 1, ...] and the features are broadcast to num_frames.
+    w8a8 selects the serving branch of the tower's int8 packs.
     """
     B, T = frames.shape[0], frames.shape[1]
     raw255 = None
@@ -73,15 +79,15 @@ def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                            device=frames.device)
         frames = ((raw255 / 255.0 - mean) / std).to(torch.bfloat16)
     flat = frames.reshape((B * T,) + tuple(frames.shape[2:]))
-    feats = _tower_features(params, cfg, flat)
+    feats = _tower_features(params, cfg, flat, w8a8)
     feats = feats.reshape(B, T, feats.shape[1], feats.shape[2])
     if broadcast_image:
         feats = feats.expand((B, cfg.num_frames) + tuple(feats.shape[2:]))
     return temporal_aggregator(params, cfg, feats)
 
 
-def _tower_features(params: dict, cfg: ModelConfig,
-                    flat: torch.Tensor) -> torch.Tensor:
+def _tower_features(params: dict, cfg: ModelConfig, flat: torch.Tensor,
+                    w8a8: bool) -> torch.Tensor:
     """Tower over [N, H, W, 3] frames in chunks of VIT_ENCODE_CHUNK (halved
     until it divides N), so only one chunk's activations are live."""
     N = flat.shape[0]
@@ -89,9 +95,9 @@ def _tower_features(params: dict, cfg: ModelConfig,
     while chunk > 1 and N % chunk:
         chunk //= 2
     if N <= chunk:
-        return vit_lib.features(params["vision"], cfg.vision, flat)
+        return vit_lib.features(params["vision"], cfg.vision, flat, w8a8)
     return torch.cat([vit_lib.features(params["vision"], cfg.vision,
-                                       flat[i:i + chunk])
+                                       flat[i:i + chunk], w8a8)
                       for i in range(0, N, chunk)])
 
 
@@ -106,14 +112,14 @@ def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                        text_ids: torch.Tensor, is_visual: torch.Tensor,
                        vis_index: torch.Tensor, positions: torch.Tensor,
                        valid_len: torch.Tensor, cache: llm_lib.KVCache,
-                       broadcast_image: bool = False
+                       broadcast_image: bool = False, w8a8: bool = False
                        ) -> Tuple[torch.Tensor, llm_lib.KVCache]:
     """Inference prefill with the visual splice -> (last_hidden, cache)."""
     vis_tokens = encode_frames(params, cfg, frames,
-                               broadcast_image=broadcast_image)
+                               broadcast_image=broadcast_image, w8a8=w8a8)
     text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
                                     dtype=vis_tokens.dtype)
     embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
                                        vis_index)
     return llm_lib.prefill(params["llm"], cfg.llm, embeds, positions,
-                           valid_len, cache)
+                           valid_len, cache, w8a8=w8a8)

@@ -22,9 +22,12 @@ from videollama2_tpu.core.config import VisionConfig
 from ..ops import attention as attn_ops
 from ..ops.conv import conv2d
 from ..ops.layers import ACT2FN, dense, layer_norm, layer_params
+from ..ops.quant import kernel_shapes
 
 
-def param_shapes(cfg: VisionConfig) -> dict:
+def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
+    """Shapes of the tower's params; with int8, the stacked linears are
+    int8 packs (ops/quant.quantize_vision_params)."""
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     P = cfg.patch_size
     if cfg.variant != "clip":
@@ -32,6 +35,9 @@ def param_shapes(cfg: VisionConfig) -> dict:
 
     def ln(lead=(L,)):
         return {"scale": lead + (D,), "bias": lead + (D,)}
+
+    def linear(d_in, d_out):
+        return dict(kernel_shapes((L, d_in, d_out), int8), bias=(L, d_out))
 
     return {
         "patch_embed": {"kernel": (P, P, 3, D)},
@@ -41,10 +47,10 @@ def param_shapes(cfg: VisionConfig) -> dict:
         "post_ln": ln(()),
         "layers": {
             "ln1": ln(), "ln2": ln(),
-            "qkv": {"kernel": (L, D, 3 * D), "bias": (L, 3 * D)},
-            "o": {"kernel": (L, D, D), "bias": (L, D)},
-            "fc1": {"kernel": (L, D, F_), "bias": (L, F_)},
-            "fc2": {"kernel": (L, F_, D), "bias": (L, D)},
+            "qkv": linear(D, 3 * D),
+            "o": linear(D, D),
+            "fc1": linear(D, F_),
+            "fc2": linear(F_, D),
         },
     }
 
@@ -61,35 +67,37 @@ def embeddings(params: dict, cfg: VisionConfig,
     return x + params["pos_embed"]["weight"].to(x.dtype)[None]
 
 
-def _encoder_layer(cfg: VisionConfig, x: torch.Tensor,
-                   lp: dict) -> torch.Tensor:
+def _encoder_layer(cfg: VisionConfig, x: torch.Tensor, lp: dict,
+                   w8a8: bool) -> torch.Tensor:
     N, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     act = ACT2FN[cfg.hidden_act]
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                    cfg.layer_norm_eps)
-    qkv = dense(h, lp["qkv"])
+    qkv = dense(h, lp["qkv"], w8a8)
     # column slices of the fused projection: strided views, which the
     # kernel reads in place
     q = qkv[..., :D].unflatten(-1, (H, hd))
     k = qkv[..., D:2 * D].unflatten(-1, (H, hd))
     v = qkv[..., 2 * D:].unflatten(-1, (H, hd))
     attn = attn_ops.attend(q, k, v, causal=False)
-    x = x + dense(attn.reshape(N, S, D), lp["o"])
+    x = x + dense(attn.reshape(N, S, D), lp["o"], w8a8)
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
                    cfg.layer_norm_eps)
-    return x + dense(act(dense(h, lp["fc1"])), lp["fc2"])
+    return x + dense(act(dense(h, lp["fc1"], w8a8)), lp["fc2"], w8a8)
 
 
-def features(params: dict, cfg: VisionConfig,
-             pixels: torch.Tensor) -> torch.Tensor:
-    """hidden_states[select_layer] without CLS: [N, H, W, 3] -> [N, P, D]."""
+def features(params: dict, cfg: VisionConfig, pixels: torch.Tensor,
+             w8a8: bool = False) -> torch.Tensor:
+    """hidden_states[select_layer] without CLS: [N, H, W, 3] -> [N, P, D].
+    w8a8 selects the serving branch of int8 packs (ops/layers.dense)."""
     x = embeddings(params, cfg, pixels)
     x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
                    cfg.layer_norm_eps)
     n_layers = cfg.select_layer % (cfg.num_layers + 1)
     for i in range(n_layers):
-        x = _encoder_layer(cfg, x, layer_params(params["layers"], i))
+        x = _encoder_layer(cfg, x, layer_params(params["layers"], i),
+                           w8a8)
     if cfg.select_feature == "patch":
         return x[:, 1:]
     if cfg.select_feature == "cls_patch":

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface (no PyTorch headers: a build takes seconds,
-not minutes). The library lands in `csrc/build/<hash>/`, keyed on a hash of
+Every `csrc/*.cu` file is compiled by its own `nvcc` process for `sm_90a`,
+all started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers: a build takes seconds, not
+minutes). The library lands in `csrc/build/<hash>/`, keyed on a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one is
 reused. The build writes to a temporary name and renames it into place, so
 concurrent processes never load a half-written library.
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,9 @@ _SIGNATURES = {
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vl2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    "vl2_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "vl2_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vl2_ffn_q8_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -69,22 +73,38 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libvl2_kernels.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with the output of a failure."""
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library path unless it exists."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o"
+                for src in sorted(CSRC.glob("*.cu"))]
+        _run([_start([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+              for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)])
+        lib = Path(tmpdir) / "lib.so"
+        _run([_start([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
+                      *map(str, objs)])])
+        os.replace(lib, out)
     return out
 
 

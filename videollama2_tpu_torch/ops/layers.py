@@ -1,9 +1,9 @@
 """Core neural-net primitives (port of videollama2_tpu/ops/layers.py).
 
-bf16/fp32 dense paths only; the int8/int4 weight packs and LoRA adapters
-raise NotImplementedError until their port. Normalization statistics run in
-fp32 whatever the compute dtype, and the cast points match the JAX package,
-because bf16 parity depends on them.
+Dense takes floating kernels and int8 weight packs (dequantize or W8A8);
+int4 packs and LoRA adapters raise NotImplementedError until their port.
+Normalization statistics run in fp32 whatever the compute dtype, and the
+cast points match the JAX package, because bf16 parity depends on them.
 """
 
 from __future__ import annotations
@@ -97,22 +97,83 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
 
 def layer_params(layers: dict, i: int) -> dict:
     """Layer i of a layer tree stacked on a leading L axis (views)."""
-    return {n: ({k: a[i] for k, a in e.items()} if isinstance(e, dict)
-                else e[i]) for n, e in layers.items()}
+    return {n: layer_params(e, i) if isinstance(e, dict) else e[i]
+            for n, e in layers.items()}
 
 
 # ---------------------------------------------------------------------------
 # Dense
 # ---------------------------------------------------------------------------
 
-def dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """y = x @ kernel (+ bias); kernel is [in, out] as in the JAX tree."""
-    if "kernel" not in p:
-        raise NotImplementedError(
-            f"quantized dense packs ({sorted(p)}) are not ported yet")
+def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
+    """y = x @ kernel (+ bias); kernel is [in, out] as in the JAX tree.
+
+    An int8 pack ("kernel_q8": {"q" [in, out], "scale" [1, out]}) takes one
+    of the JAX package's two branches, chosen by the caller: with w8a8 the
+    serving branch (`dense_w8a8`: activations quantized per row, an
+    int8 x int8 -> int32 product), which the Engine selects for every int8
+    dense it reaches, as the JAX Engine does under its quant_inference and
+    w8a8_prefill contexts; without it the dequantize branch
+    (x @ q.to(x.dtype), scale on the output), which is exact under
+    gradients.
+    """
     if "lora" in p:
         raise NotImplementedError("LoRA adapters are not ported yet")
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "kernel" in p:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
+    elif "kernel_q8" in p:
+        pack = p["kernel_q8"]
+        if w8a8:
+            y = dense_w8a8(x, pack)
+        else:
+            y = torch.matmul(x, pack["q"].to(x.dtype))
+            y = y * pack["scale"][..., 0, :].to(x.dtype)
+    else:
+        raise NotImplementedError(
+            f"dense packs {sorted(p)} are not ported yet")
     if p.get("bias") is not None:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+# torch._int_mm on CUDA takes only more than 16 rows (it raises "self.size(0)
+# needs to be greater than 16" on the H100, a rule its meta function does not
+# state); decode-time calls (the lm_head at B = 16) are padded up to this.
+INT_MM_MIN_ROWS = 17
+# From this many rows on, the weight goes to torch._int_mm column-major.
+INT_MM_TRANSPOSE_ROWS = 512
+
+
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [M, K] x int8 [K, N] -> int32 [M, N].
+
+    On CUDA, with the pack's row-major [in, out] layout torch._int_mm takes
+    a CUTLASS fallback whose time grows with M about 7x faster than that of
+    the kernel it takes for a column-major weight (on an H100: 23.6 against
+    3.3 ms at [26624, 4096] x [4096, 14336]), while the column-major copy
+    costs a fixed time per weight, ~0.8 ms for the 131 MB head (1.04
+    against 0.23 ms at [16, 4096] x [4096, 32000]). So large-M calls
+    (prefill, the tower)
+    transpose the weight and decode-sized calls do not (by those two
+    measurements the costs cross near 500 rows at these widths)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    rows = a.shape[0]
+    if rows < INT_MM_MIN_ROWS:
+        a = torch.cat([a, a.new_zeros(INT_MM_MIN_ROWS - rows, a.shape[1])])
+    if rows >= INT_MM_TRANSPOSE_ROWS:
+        b = b.t().contiguous().t()
+    return torch._int_mm(a, b)[:rows]
+
+
+def dense_w8a8(x: torch.Tensor, pack: dict) -> torch.Tensor:
+    """W8A8 (JAX `dense_w8a8`): per-row symmetric int8 activations, an
+    exact int32 product with the int8 weights, then `* xs * scale` in fp32
+    and a cast to x's dtype."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    xs = torch.clamp(amax, min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), pack["q"])
+    acc = acc.reshape(x.shape[:-1] + (acc.shape[-1],))
+    return (acc.float() * xs * pack["scale"][..., 0, :]).to(x.dtype)

@@ -6,7 +6,8 @@ torch.Generator, with the JAX package's init scales (normal(0, 0.02)
 kernels and embeddings, ones for norm scales, zeros for biases, He-normal
 connector convs, 1/sqrt(fan_in) readout). Random values, unlike constant
 fills, give every attention row a different softmax, so a kernel bug shows
-up in the output.
+up in the output. The int8 variant quantizes that same tree on the device
+with ops/quant, one tensor at a time.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 import torch
 
 from ..models import videollama2 as vl2
+from ..ops import quant
 
 
 def _init(path, shape, dtype, device, generator) -> torch.Tensor:
@@ -42,10 +44,43 @@ def _build(spec: dict, path, dtype, device, generator) -> dict:
     return out
 
 
+def _quantize_in_place(entries: dict, names) -> None:
+    """Replace entries[name]["kernel"] by its int8 pack, a stacked kernel
+    layer by layer (bit-identical to quantizing the whole stack: the amax
+    runs over each layer's input axis), dropping each floating kernel once
+    it is packed, so only one layer's temporaries are alive at a time."""
+    for name in names:
+        if "kernel" not in entries.get(name, {}):
+            continue
+        w = entries[name].pop("kernel")
+        if w.dim() == 2:
+            entries[name]["kernel_q8"] = quant.quantize_int8(w, axis=-2)
+            continue
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                            dtype=torch.float32, device=w.device)
+        for i in range(w.shape[0]):
+            pack = quant.quantize_int8(w[i], axis=-2)
+            q[i] = pack["q"]
+            scale[i] = pack["scale"]
+        del w
+        entries[name]["kernel_q8"] = {"q": q, "scale": scale}
+
+
 def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                     seed: int = 0) -> dict:
-    """Full parameter tree for `cfg` on `device` in `dtype`."""
+                     seed: int = 0, int8: bool = False) -> dict:
+    """Full parameter tree for `cfg` on `device` in `dtype`. With int8, the
+    LLM's projections and head and the tower's linears become int8 packs
+    (the layout of ops/quant.quantize_llm_params and
+    quantize_vision_params), quantized from the seeded floating weights."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    return _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
-                  generator)
+    params = _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
+                    generator)
+    if int8:
+        llm = params["llm"]
+        _quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS)
+        _quantize_in_place(llm, ("lm_head",))
+        _quantize_in_place(params["vision"]["layers"],
+                           quant.VISION_PROJECTIONS)
+    return params
