@@ -3,11 +3,14 @@
 H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main path gives it, then drives the
 full-width VideoLLaMA2-7B-16F video-QA path (CLIP-L/336 + STC + Mistral-7B,
-seeded random weights) through Engine.generate twice: the bf16 slice (bf16
-weights and KV cache) and the int8 serving slice (int8 LLM and tower packs,
-W8A8 prefill, int8 KV cache, decode on the layered int8 kernels). It checks
+seeded random weights) through Engine.generate twice in each of three
+slices: bf16 (bf16 weights and KV cache), int8 serving (int8 LLM and tower
+packs, W8A8 prefill, int8 KV cache, decode on the layered int8 kernels) and
+int4 serving, `load_4bit` (folded int4 LLM layers, int8 head and tower,
+W4A8 prefill, int8 KV cache, decode on the layered int4 kernels). It checks
 that each run went through its kernels, the exact launch counts, and the
-first-token (bf16) and decode (int8) logits against the plain versions.
+first-token (bf16) and decode (int8, int4) logits against the plain
+versions.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -36,8 +39,9 @@ import torch  # noqa: E402
 K1_TOL = 2e-2   # bf16 output rounding + bf16 P in the PV product
 K2_TOL = 2e-2   # (outputs are averages of N(0, 1) values, |o| <= ~3)
 K3_TOL = 2e-2   # the same; q is scaled so each softmax is peaked, |o| ~ 1
-K45_REL_TOL = 1e-2  # of max|out|: bf16 output (and K5's h) rounding, 2^-9
+MATMUL_REL_TOL = 1e-2  # of max|out|: bf16 output (and the FFNs' h) rounding
 TIMING_ITERS = 10
+SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clocks, longer than any enqueue
 NEW_TOKENS = 32
 BUCKET = 1664
 MAX_LEN = 1696      # the bucket plus 32 tokens (1792 under kv8)
@@ -49,13 +53,18 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Median over `iters` launches of fn's device time (CUDA events)."""
+    """Median over `iters` launches of fn's device time (CUDA events). A
+    spin kernel queued first keeps the device busy while the host enqueues
+    the start event, fn's launches and the end event, so the interval holds
+    fn's device work and not the host time to enqueue it (which exceeds a
+    decode kernel's few tens of microseconds)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -169,19 +178,21 @@ def decode_attention_cases(gen, quantize_rows):
     return cases
 
 
-def matmul_cases(gen, quantize_int8):
-    """K4 at the fused qkv [4096 -> 6144] and o [4096 -> 4096], K5 at
-    [4096, 14336], R = 16 rows, bf16 scales as the Engine casts them; four
-    (K4) or two (K5) layers rotated in timing."""
+def matmul_cases(gen, quantize, mm_layers):
+    """K4 (K6 with int4 packs) at the fused qkv [4096 -> 6144] and o
+    [4096 -> 4096], K5 (K7) at [4096, 14336], R = 16 rows, bf16 scales as
+    the Engine casts them; `mm_layers` (K4/K6: enough that the rotated
+    layers overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
+    `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel."""
     def pack(L, din, dout):
-        p = quantize_int8(rand_bf16(gen, (L, din, dout), 0.02), axis=-2)
-        return p["q"], p["scale"].bfloat16()
+        q, s = quantize(rand_bf16(gen, (L, din, dout), 0.02))
+        return q, s.bfloat16()
     x = rand_bf16(gen, (16, 4096))
     k4 = []
-    for label, dout in (("qkv x[16,4096] q[4,4096,6144]", 6144),
-                        ("o x[16,4096] q[4,4096,4096]", 4096)):
-        q, s = pack(4, 4096, dout)
-        cyc = layer_cycle(4)
+    for label, dout in ((f"qkv x[16,4096] [{mm_layers},4096,6144]", 6144),
+                        (f"o x[16,4096] [{mm_layers},4096,4096]", 4096)):
+        q, s = pack(mm_layers, 4096, dout)
+        cyc = layer_cycle(mm_layers)
         k4.append((label, ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
                    lambda f, q=q, s=s, cyc=cyc: (
                        lambda: f(x, q, s, cyc()))))
@@ -192,6 +203,16 @@ def matmul_cases(gen, quantize_int8):
            ((x, *g, *u, *d, 1), {}), ((x.float(), *g, *u, *d, 1), {}),
            lambda f: (lambda: f(x, *g, *u, *d, cyc())))]
     return k4, k5
+
+
+def head_matmul_case(gen, quantize_int8):
+    """matmul_q8 at the int8 head's shape, x[16,4096] q[4096,32000], fp32
+    scales (the JAX pack's)."""
+    x = rand_bf16(gen, (16, 4096))
+    p = quantize_int8(rand_bf16(gen, (4096, 32000), 0.02), axis=-2)
+    q, s = p["q"], p["scale"][0]
+    return [("x[16,4096] q[4096,32000]", ((x, q, s), {}),
+             ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)))]
 
 
 def _leaves(tree):
@@ -317,11 +338,12 @@ def check_against_plain(eng, cfg, frames, prompt, attn, k1, k2) -> None:
     compare_logits("bf16 first-token logits", fast, plain)
 
 
-def check_decode_against_plain(eng, cfg, frames, prompt, k3, k45) -> None:
-    """Decode logits of two videos over the int8 packs and the int8 cache:
-    a W8A8 prefill fills the cache, then DECODE_CHECK_STEPS teacher-forced
-    decode steps run once on K3/K4/K5 and once, from a copy of the same
-    cache, with their plain versions swapped in. Both run in bf16."""
+def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
+    """Decode logits of two videos over the int8 (bits 8) or int4 (bits 4)
+    packs and the int8 cache: a W8A8/W4A8 prefill fills the cache, then
+    DECODE_CHECK_STEPS teacher-forced decode steps run once on K3 and
+    K4/K5 (or K6/K7) and once, from a copy of the same cache, with their
+    plain versions swapped in. Both run in bf16."""
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
 
@@ -350,27 +372,27 @@ def check_decode_against_plain(eng, cfg, frames, prompt, k3, k45) -> None:
                 out.append(logits)
         return torch.stack(out)
 
-    wrappers = (k3.decode_attention_layered, k45.matmul_q8_layered,
-                k45.ffn_q8_layered)
-    before = [w.launches for w in wrappers]
+    mm, ffn = f"matmul_q{bits}_layered", f"ffn_q{bits}_layered"
+    swaps = ((k3, "decode_attention_layered", k3.decode_attention_plain),
+             (dk, mm, getattr(dk, mm + "_plain")),
+             (dk, ffn, getattr(dk, ffn + "_plain")))
+    before = [getattr(m, n).launches for m, n, _ in swaps]
     fast = decode_logits(cache)
-    added = [w.launches - b for w, b in zip(wrappers, before)]
+    added = [getattr(m, n).launches - b for (m, n, _), b in zip(swaps, before)]
     want = [DECODE_CHECK_STEPS * L, 2 * DECODE_CHECK_STEPS * L,
             DECODE_CHECK_STEPS * L]
     if added != want:
-        raise RuntimeError(f"int8 decode launches {added} != {want}")
-    saved = (k3.decode_attention_layered, k45.matmul_q8_layered,
-             k45.ffn_q8_layered)
-    k3.decode_attention_layered = k3.decode_attention_plain
-    k45.matmul_q8_layered = k45.matmul_q8_layered_plain
-    k45.ffn_q8_layered = k45.ffn_q8_layered_plain
+        raise RuntimeError(f"int{bits} decode launches {added} != {want}")
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, plain_fn in swaps:
+        setattr(m, n, plain_fn)
     try:
         plain = decode_logits(snapshot)
     finally:
-        (k3.decode_attention_layered, k45.matmul_q8_layered,
-         k45.ffn_q8_layered) = saved
+        for (m, n, _), fn in zip(swaps, saved):
+            setattr(m, n, fn)
     torch.cuda.synchronize()
-    compare_logits(f"int8 decode logits, {DECODE_CHECK_STEPS} "
+    compare_logits(f"int{bits} decode logits, {DECODE_CHECK_STEPS} "
                    "teacher-forced steps", fast, plain)
 
 
@@ -386,10 +408,11 @@ def main() -> None:
     from videollama2_tpu_torch.ops import _build
     from videollama2_tpu_torch.ops import attention as attn
     from videollama2_tpu_torch.ops import decode_attention as k3
-    from videollama2_tpu_torch.ops import decode_matmul as k45
+    from videollama2_tpu_torch.ops import decode_matmul as dk
     from videollama2_tpu_torch.ops import encoder_attention as k1
     from videollama2_tpu_torch.ops import flash_attention as k2
-    from videollama2_tpu_torch.ops.quant import quantize_int8
+    from videollama2_tpu_torch.ops import quant_matmul as qm
+    from videollama2_tpu_torch.ops.quant import quantize_int4, quantize_int8
     from videollama2_tpu_torch.utils.synthetic import synthetic_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -425,18 +448,26 @@ def main() -> None:
         "decode_attention", k3.decode_attention_layered,
         k3.decode_attention_plain, decode_attention_cases(
             gen, _quantize_kv_rows), K3_TOL)
-    k4_cases, k5_cases = matmul_cases(gen, quantize_int8)
-    k4_err, k4_times = check_kernel(
-        "matmul_q8_layered", k45.matmul_q8_layered,
-        k45.matmul_q8_layered_plain, k4_cases, K45_REL_TOL, rel=True)
-    k5_err, k5_times = check_kernel(
-        "ffn_q8_layered", k45.ffn_q8_layered, k45.ffn_q8_layered_plain,
-        k5_cases, K45_REL_TOL, rel=True)
-    del k4_cases, k5_cases
+    errs, times = {}, {}
+    for mm, ffn, mm_layers, quantize in (
+            ("matmul_q8_layered", "ffn_q8_layered", 4,
+             lambda w: tuple(quantize_int8(w, axis=-2).values())),
+            ("matmul_q4_layered", "ffn_q4_layered", 8,
+             lambda w: tuple(quantize_int4(w, axis=-2)[k]
+                             for k in ("q4", "scale")))):
+        mm_cases, ffn_cases = matmul_cases(gen, quantize, mm_layers)
+        for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
+            errs[name], times[name] = check_kernel(
+                name, getattr(dk, name), getattr(dk, name + "_plain"),
+                cases, MATMUL_REL_TOL, rel=True)
+        del mm_cases, ffn_cases
+    errs["matmul_q8"], times["matmul_q8"] = check_kernel(
+        "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain,
+        head_matmul_case(gen, quantize_int8), MATMUL_REL_TOL, rel=True)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the two slices at full width ---------------------------------------
+    # -- the three slices at full width -------------------------------------
     cfg = cfglib.preset("videollama2_mistral").replace(num_frames=16)
     B, T, H = 16, cfg.num_frames, cfg.vision.image_size
     rng = np.random.default_rng(0)
@@ -447,42 +478,46 @@ def main() -> None:
     n_layers_vit = cfg.vision.select_layer % (cfg.vision.num_layers + 1)
     L = cfg.llm.num_layers
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
-    attn_counters = {"encoder_attention": k1.encoder_attention,
-                     "flash_attention": k2.flash_attention}
-    attn_counts = {"encoder_attention": n_layers_vit * (B * T // 128),
-                   "flash_attention": L}
-    stages = {}
+    steps = NEW_TOKENS - 1
+    # every kernel's counter, checked in every slice: a kernel off the
+    # slice's path must launch no time
+    counters = {"encoder_attention": k1.encoder_attention,
+                "flash_attention": k2.flash_attention,
+                "decode_attention": k3.decode_attention_layered,
+                "matmul_q8_layered": dk.matmul_q8_layered,
+                "ffn_q8_layered": dk.ffn_q8_layered,
+                "matmul_q4_layered": dk.matmul_q4_layered,
+                "ffn_q4_layered": dk.ffn_q4_layered,
+                "matmul_q8": qm.matmul_q8}
+    stages, slice_counts = {}, {}
 
-    for slice_name, int8 in (("bf16 slice", False), ("int8 slice", True)):
+    for slice_name, bits in (("bf16 slice", None), ("int8 slice", 8),
+                             ("int4 slice", 4)):
+        want = dict.fromkeys(counters, 0)
+        want.update(encoder_attention=n_layers_vit * (B * T // 128),
+                    flash_attention=L)
+        if bits is not None:
+            want.update({"decode_attention": steps * L,
+                         f"matmul_q{bits}_layered": 2 * steps * L,
+                         f"ffn_q{bits}_layered": steps * L})
         t0 = time.perf_counter()
         params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                                  seed=0, int8=int8)
+                                  seed=0, llm_bits=bits)
         torch.cuda.synchronize()
         log(f"[{slice_name}] weights made on the card in "
             f"{time.perf_counter() - t0:.1f} s "
             f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB)")
         eng = Engine(cfg, params, dtype=torch.bfloat16, max_len=MAX_LEN,
                      buckets=(BUCKET,), decode_chunk=NEW_TOKENS,
-                     kv_bits=8 if int8 else 16, device="cuda")
+                     kv_bits=16 if bits is None else 8, device="cuda")
         del params
-        counters = dict(attn_counters)
-        want = dict(attn_counts)
-        if int8:
-            steps = NEW_TOKENS - 1
-            counters.update(decode_attention=k3.decode_attention_layered,
-                            matmul_q8_layered=k45.matmul_q8_layered,
-                            ffn_q8_layered=k45.ffn_q8_layered)
-            want.update(decode_attention=steps * L,
-                        matmul_q8_layered=2 * steps * L,
-                        ffn_q8_layered=steps * L)
-        counts, stages[slice_name] = run_slice(
+        slice_counts[bits], stages[slice_name] = run_slice(
             slice_name, eng, cfg, frames, prompt, gcfg, counters, want)
-        if int8:
-            int8_counts = counts
-            check_decode_against_plain(eng, cfg, frames[:2], prompt, k3, k45)
-        else:
-            bf16_counts = counts
+        if bits is None:
             check_against_plain(eng, cfg, frames[:2], prompt, attn, k1, k2)
+        else:
+            check_decode_against_plain(eng, cfg, frames[:2], prompt, k3, dk,
+                                       bits)
         log(f"[{slice_name}] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del eng
@@ -498,21 +533,30 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err,
                 "ms": times[0][0], "plain_ms": times[0][1]}
 
+    # launches: each kernel's count in the generate of the slice whose path
+    # runs it (matmul_q8 is on no path: 0, checked in every slice)
     kernels = [
         entry("encoder_attention", "encoder_attention.cu",
-              "encoder_attention.py:230", bf16_counts["encoder_attention"],
-              k1_err, k1_times),
+              "encoder_attention.py:230",
+              slice_counts[None]["encoder_attention"], k1_err, k1_times),
         entry("flash_attention", "flash_attention.cu",
-              "flash_attention.py:179", bf16_counts["flash_attention"],
+              "flash_attention.py:179", slice_counts[None]["flash_attention"],
               k2_err, k2_times),
         entry("decode_attention_layered", "decode_attention.cu",
-              "decode_attention.py:249", int8_counts["decode_attention"],
+              "decode_attention.py:249", slice_counts[8]["decode_attention"],
               k3_err, k3_times),
-        entry("matmul_q8_layered", "decode_matmul.cu", "decode_matmul.py:89",
-              int8_counts["matmul_q8_layered"], k4_err, k4_times),
-        entry("ffn_q8_layered", "decode_matmul.cu", "decode_matmul.py:346",
-              int8_counts["ffn_q8_layered"], k5_err, k5_times),
-    ]
+    ] + [entry(name, source, replaces, slice_counts[bits][name],
+               errs[name], times[name])
+         for name, source, replaces, bits in (
+             ("matmul_q8_layered", "decode_matmul.cu",
+              "decode_matmul.py:89", 8),
+             ("ffn_q8_layered", "decode_matmul.cu", "decode_matmul.py:346",
+              8),
+             ("matmul_q4_layered", "decode_matmul_q4.cu",
+              "decode_matmul.py:164", 4),
+             ("ffn_q4_layered", "decode_matmul_q4.cu",
+              "decode_matmul.py:297", 4),
+             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51", 4))]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

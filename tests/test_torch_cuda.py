@@ -10,8 +10,8 @@ run it on the GPU host with
 Inputs are bf16; the reference is the plain version in fp32 on the same
 values. Attention tolerance 2e-2 absolute: the kernels round P to bf16 for
 the PV product and round the output to bf16 (outputs here have |o| < ~3).
-The int8 matmuls are held to 1e-2 relative to the output's scale: bf16
-output rounding (2^-9) and, for the FFN, the bf16 rounding of h.
+The int8 and int4 matmuls are held to 1e-2 relative to the output's scale:
+bf16 output rounding (2^-9) and, for the FFNs, the bf16 rounding of h.
 """
 
 import pytest
@@ -22,7 +22,8 @@ from videollama2_tpu_torch.ops import decode_attention as k3
 from videollama2_tpu_torch.ops import decode_matmul as k45
 from videollama2_tpu_torch.ops import encoder_attention as k1
 from videollama2_tpu_torch.ops import flash_attention as k2
-from videollama2_tpu_torch.ops.quant import quantize_int8
+from videollama2_tpu_torch.ops import quant_matmul
+from videollama2_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
 
 @pytest.fixture
@@ -144,3 +145,75 @@ def test_dense_w8a8_cuda_matches_cpu(cuda_device, rows):
     got = dense_w8a8(x.to(cuda_device),
                      {k: v.to(cuda_device) for k, v in pack.items()})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def _q4_pack(gen, L, din, dout, device):
+    w = torch.randn(L, din, dout, generator=gen, device=device) * 0.02
+    p = quantize_int4(w, axis=-2)
+    return p["q4"], p["scale"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 5, 20, 40, 64])
+def test_matmul_q4_layered_cuda_matches_plain(cuda_device, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + rows)
+    x = torch.randn(rows, 1024, generator=gen, device=cuda_device).bfloat16()
+    q4, scale = _q4_pack(gen, 2, 1024, 768, cuda_device)
+    for s in (scale, scale.bfloat16()):
+        got = k45.matmul_q4_layered(x, q4, s, 1).float()
+        ref = k45.matmul_q4_layered_plain(x.float(), q4, s, 1)
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 33])
+def test_ffn_q4_layered_cuda_matches_plain(cuda_device, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn(rows, 512, generator=gen, device=cuda_device).bfloat16()
+    g, u = (_q4_pack(gen, 2, 512, 1536, cuda_device) for _ in range(2))
+    d = _q4_pack(gen, 2, 1536, 512, cuda_device)
+    g, u, d = ((q, s.bfloat16()) for q, s in (g, u, d))
+    got = k45.ffn_q4_layered(x, *g, *u, *d, 1).float()
+    ref = k45.ffn_q4_layered_plain(x.float(), *g, *u, *d, 1)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_q4_kernels_refuse_bad_arguments(cuda_device):
+    """Misaligned activations, a weight on another device, a layer out of
+    range and a depth the kernel does not tile raise before a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q4, scale = _q4_pack(gen, 2, 512, 256, cuda_device)
+    x = torch.randn(16, 513, generator=gen, device=cuda_device).bfloat16()
+    before = k45.matmul_q4_layered.launches
+    with pytest.raises(ValueError):                 # rows not 16-byte aligned
+        k45.matmul_q4_layered(x[:, 1:], q4, scale, 0)
+    with pytest.raises(ValueError):                 # weight on the CPU
+        k45.matmul_q4_layered(x[:, :512].contiguous(), q4.cpu(), scale, 0)
+    with pytest.raises(ValueError):                 # layer out of range
+        k45.matmul_q4_layered(x[:, :512].contiguous(), q4, scale, 2)
+    with pytest.raises(ValueError):                 # Din 384: not tiled
+        k45.matmul_q4_layered(x[:, :384].contiguous(),
+                              q4[:, :192].contiguous(), scale, 0)
+    with pytest.raises(ValueError):                 # down on the CPU
+        k45.ffn_q4_layered(x[:, :512].contiguous(), q4, scale, q4, scale,
+                           q4.cpu(), scale, 0)
+    assert k45.matmul_q4_layered.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 100])
+def test_matmul_q8_cuda_matches_plain(cuda_device, rows):
+    """The non-layered matmul_q8 on K4's kernel, 64 rows a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn(rows, 1024, generator=gen, device=cuda_device).bfloat16()
+    pack = quantize_int8(torch.randn(1024, 640, generator=gen,
+                                     device=cuda_device) * 0.02, axis=-2)
+    before = quant_matmul.matmul_q8.launches
+    got = quant_matmul.matmul_q8(x, pack["q"], pack["scale"]).float()
+    assert quant_matmul.matmul_q8.launches - before == -(-rows // 64)
+    ref = quant_matmul.matmul_q8_plain(x.float(), pack["q"], pack["scale"])
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())

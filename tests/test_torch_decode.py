@@ -1,9 +1,10 @@
-"""The port's int8 decode path against the JAX package, on the CPU: the
-plain versions of K3 (decode attention), K4 (layered int8 matmul) and K5
-(layered int8 SwiGLU FFN) against the Pallas kernels in interpret mode,
-and the LLM's prefill and decode steps over int8 packs and an int8 KV
-cache. The CUDA kernels themselves are held against the plain versions on
-a GPU by tests/test_torch_cuda.py.
+"""The port's int8 and int4 decode paths against the JAX package, on the
+CPU: the plain versions of K3 (decode attention), K4/K6 (layered int8 /
+folded int4 matmul), K5/K7 (layered int8 / int4 SwiGLU FFN) and
+`matmul_q8` against the Pallas kernels in interpret mode, and the LLM's
+prefill and decode steps over int8 and int4 packs and an int8 KV cache.
+The CUDA kernels themselves are held against the plain versions on a GPU
+by tests/test_torch_cuda.py.
 
 Same inputs, made with numpy, go through both packages in fp32. Kernel
 tolerance 1e-5: fp32 rounding of two summation orders. Model steps 1e-4,
@@ -26,12 +27,14 @@ from videollama2_tpu.models import llm as jllm
 from videollama2_tpu.ops import decode_matmul as jdk
 from videollama2_tpu.ops import layers as jlayers
 from videollama2_tpu.ops import quant as jquant
+from videollama2_tpu.ops import quant_matmul as jqm
 from videollama2_tpu.ops.decode_attention import \
     decode_attention_layered as jax_decode_attention
 from videollama2_tpu_torch.models import llm as tllm
 from videollama2_tpu_torch.ops import decode_attention as k3
 from videollama2_tpu_torch.ops import decode_matmul as k45
 from videollama2_tpu_torch.ops import quant as tquant
+from videollama2_tpu_torch.ops import quant_matmul as tqm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -143,6 +146,74 @@ def test_kernel_wrappers_reject_other_devices_and_count_only_launches():
     assert k3.decode_attention_layered.launches == 0
 
 
+# -- K6, K7, matmul_q8 --------------------------------------------------------
+
+def _pack4(rng, L, din, dout):
+    w = rng.standard_normal((L, din, dout), dtype=np.float32) * 0.05
+    pack = jquant.quantize_int4(jnp.asarray(w), axis=-2)
+    return {"q": pack["q4"], "scale": pack["scale"]}
+
+
+@pytest.mark.parametrize("rows", [5, 16, 40])
+def test_matmul_q4_layered_plain_matches_pallas(rows):
+    rng = np.random.default_rng(20 + rows)
+    x = rng.standard_normal((rows, 64), dtype=np.float32)
+    pack = _pack4(rng, 3, 64, 384)
+    want = jdk.matmul_q4_layered(jnp.asarray(x), pack["q"], pack["scale"],
+                                 jnp.int32(2), block_out=128, interpret=True)
+    got = k45.matmul_q4_layered(_t(x), _t(pack["q"]), _t(pack["scale"]), 2)
+    assert got.shape == (rows, 384)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ffn_q4_layered_plain_matches_pallas():
+    """Two F blocks a half: the Pallas kernel pairs F columns f and
+    f + F/2 per grid step; the plain version writes h whole."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((5, 64), dtype=np.float32)
+    g, u, d = _pack4(rng, 2, 64, 512), _pack4(rng, 2, 64, 512), \
+        _pack4(rng, 2, 512, 64)
+    want = jdk.ffn_q4_layered(jnp.asarray(x), g["q"], g["scale"], u["q"],
+                              u["scale"], d["q"], d["scale"], jnp.int32(1),
+                              block_f=128, interpret=True)
+    args = [_t(p[k]) for p in (g, u, d) for k in ("q", "scale")]
+    got = k45.ffn_q4_layered(_t(x), *args, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("rows,scale_shape", [(5, "[F]"), (70, "[1, F]")])
+def test_matmul_q8_plain_matches_pallas(rows, scale_shape):
+    rng = np.random.default_rng(22 + rows)
+    x = rng.standard_normal((rows, 64), dtype=np.float32)
+    pack = jquant.quantize_int8(
+        jnp.asarray(rng.standard_normal((64, 384), dtype=np.float32) * 0.05),
+        axis=-2)
+    scale = pack["scale"][0] if scale_shape == "[F]" else pack["scale"]
+    want = jqm.matmul_q8(jnp.asarray(x), pack["q"], scale, block_f=128,
+                         interpret=True)
+    got = tqm.matmul_q8(_t(x), _t(pack["q"]), _t(scale))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_q4_wrappers_reject_other_devices_and_count_only_launches():
+    x = torch.zeros(16, 256, device="meta")
+    q4 = torch.zeros(2, 128, 64, dtype=torch.int8, device="meta")
+    s = torch.zeros(2, 1, 64, device="meta")
+    with pytest.raises(ValueError):
+        k45.matmul_q4_layered(x, q4, s, 0)
+    with pytest.raises(ValueError):
+        k45.ffn_q4_layered(x, q4, s, q4, s, q4, s, 0)
+    with pytest.raises(ValueError):
+        tqm.matmul_q8(x, q4[0], s[0])
+    cpu = torch.randn(16, 256)
+    qc = torch.randint(-128, 128, (2, 128, 64), dtype=torch.int8)
+    k45.matmul_q4_layered(cpu, qc, torch.ones(2, 1, 64), 1)
+    tqm.matmul_q8(cpu[:, :128], qc[0], torch.ones(64))
+    assert k45.matmul_q4_layered.launches == 0
+    assert k45.ffn_q4_layered.launches == 0
+    assert tqm.matmul_q8.launches == 0
+
+
 # -- the LLM over int8 packs ----------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -233,4 +304,39 @@ def test_float_weights_decode_over_int8_cache_matches_jax():
                                 jnp.asarray(valid), S, jnp.int32(3))
     tlog, tc = tllm.decode_step(tp, cfg, _t(tok), tc, _t(valid), S, 3)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **STEP_TOL)
+    _assert_cache_equal(tc, jc)
+
+
+# -- the LLM over int4 packs ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def q4_llm():
+    cfg = cfglib.tiny_llm("mistral")
+    jp = jquant.fuse_qkv(jquant.quantize_llm_params(
+        jllm.init_params(jax.random.PRNGKey(3), cfg), bits=4))
+    return cfg, jp, jax.tree.map(lambda a: _t(np.array(a)), jp)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_q4_prefill_and_decode_steps_match_jax(q4_llm, kv_bits):
+    """W4A8 prefill (int8 head) fills the cache, then two decode steps run
+    on the int4 layered kernels (K6/K7: plain versions here, Pallas
+    matmul_q4_layered / ffn_q4_layered in interpret mode there)."""
+    cfg, jp, tp = q4_llm
+    assert tllm._packed_decode(tp["layers"]) == 4
+    S = 32
+    valid, (jlast, jc), (tlast, tc) = _prefill_both(cfg, jp, tp, kv_bits, S=S)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **STEP_TOL)
+    _assert_cache_equal(tc, jc, slice(0, S))
+    rng = np.random.default_rng(23)
+    for step in (0, 1):
+        tok = rng.standard_normal((2, 1, cfg.hidden_size), dtype=np.float32)
+        with jlayers.force_native_quant(), jlayers.quant_inference():
+            jlog, jc = jllm.decode_step(jp, cfg, jnp.asarray(tok), jc,
+                                        jnp.asarray(valid), S,
+                                        jnp.int32(step))
+        tlog, tc = tllm.decode_step(tp, cfg, _t(tok), tc, _t(valid), S, step,
+                                    w8a8=True)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   **STEP_TOL)
     _assert_cache_equal(tc, jc)

@@ -260,3 +260,48 @@ def test_int8_slice_matches_jax_engine(tiny_int8, kv_bits):
     port = _first_logits_port(cfg, eng.params, frames, plan, 64, w8a8=True)
     np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
     assert [o[0] for o in got] == list(ref.argmax(-1))
+
+
+@pytest.fixture(scope="module")
+def tiny_int4(tiny):
+    """The tiny model in the load_4bit serving layout: folded int4 LLM
+    layers, an int8 head and an int8 tower (JAX's quantized_abstract with
+    llm_bits=4 and quantize_vision)."""
+    cfg, jp, _ = tiny
+    jq = dict(jp, llm=jquant.quantize_llm_params(jp["llm"], bits=4),
+              vision=jquant.quantize_vision_params(jp["vision"]))
+    return cfg, jq, params_from_jax(jax.tree.map(np.asarray, jq), cfg)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_int4_slice_matches_jax_engine(tiny_int4, kv_bits):
+    """The int4 serving path: W8A8 tower, W4A8 prefill, int8 head, decode
+    on the int4 layered kernels (plain versions here; Pallas
+    matmul_q4_layered / ffn_q4_layered in interpret mode in the JAX Engine,
+    under force_native_quant). Greedy tokens identical; first-token logits
+    to FP32_LOGIT_ATOL. Frames as in test_int8_slice_matches_jax_engine
+    (seed 7), whose W8A8/W4A8 inputs stay clear of .5 boundaries here too
+    (ROADMAP §3)."""
+    cfg, jq, tq = tiny_int4
+    frames = _videos(cfg, "float", seed=7)
+    gen_kw = dict(max_new_tokens=NEW_TOKENS)
+    jeng = JaxEngine(cfg, jq, dtype=jnp.float32, max_len=128, buckets=(64,),
+                     kv_bits=kv_bits)
+    eng = Engine(cfg, tq, dtype=torch.float32, max_len=128, buckets=(64,),
+                 kv_bits=kv_bits, device="cpu")
+    assert set(eng.params["llm"]["layers"]["qkv"]) == {"kernel_q4"}
+    with jlayers.force_native_quant():
+        want = jeng.generate(PROMPTS, frames=frames,
+                             gen=JaxGenerationConfig(**gen_kw),
+                             eos_token_id=-1)
+    got = eng.generate(PROMPTS, frames=frames,
+                       gen=GenerationConfig(**gen_kw), eos_token_id=-1)
+    assert got == want
+
+    plan = jsplice.plan_batch(PROMPTS, cfg.tokens_per_video, 64)
+    with jlayers.force_native_quant(), jlayers.quant_inference(), \
+            jlayers.w8a8_prefill():
+        ref = _first_logits_jax(cfg, jeng.params, frames, plan, 64)
+    port = _first_logits_port(cfg, eng.params, frames, plan, 64, w8a8=True)
+    np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
+    assert [o[0] for o in got] == list(ref.argmax(-1))

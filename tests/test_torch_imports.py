@@ -84,7 +84,7 @@ def test_port_reaches_no_jax():
     closure = _closure()
     assert REFERENCE / "core" / "config.py" in closure
     assert REFERENCE / "media" / "wire.py" in closure
-    for mod in ("quant", "decode_attention", "decode_matmul"):
+    for mod in ("quant", "decode_attention", "decode_matmul", "quant_matmul"):
         assert PORT / "ops" / f"{mod}.py" in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"
                  for p, mods in closure.items() for m in mods

@@ -20,6 +20,7 @@ from videollama2_tpu.models import vit as jvit
 from videollama2_tpu.multimodal import splice as jsplice
 from videollama2_tpu.ops import conv as jconv
 from videollama2_tpu.ops import layers as jlayers
+from videollama2_tpu.ops import quant as jquant
 from videollama2_tpu_torch.checkpoint.from_jax import params_from_jax
 from videollama2_tpu_torch.models import connector as tconn
 from videollama2_tpu_torch.models import llm as tllm
@@ -80,8 +81,16 @@ def test_norms_rope_dense_match_jax():
     for name in ("quick_gelu", "gelu_pytorch_tanh", "gelu", "silu"):
         np.testing.assert_allclose(tlayers.ACT2FN[name](_t(x)).numpy(),
                                    _np(jlayers.ACT2FN[name](x)), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tlayers.dense(_t(x), {"kernel_q4": {}})   # int4: not ported yet
+    # a folded int4 pack of w (dequantize branch, JAX's default)
+    pack = jquant.quantize_int4(jnp.asarray(w), axis=-2)
+    tp = {"kernel_q4": {"q4": _t(np.array(pack["q4"])),
+                        "scale": _t(np.array(pack["scale"]))},
+          "bias": _t(bias)}
+    np.testing.assert_allclose(
+        tlayers.dense(_t(x), tp).numpy(),
+        _np(jlayers.dense(x, {"kernel_q4": {k: pack[k]
+                                            for k in ("q4", "scale")},
+                              "bias": bias})), atol=1e-5)
 
 
 def test_convs_match_jax():

@@ -4,11 +4,13 @@ The JAX tree is a plain dict with layers stacked on a leading L axis and
 kernels stored [in, out]; the port keeps that layout, so the bridge only
 fuses the separate q/k/v projections of the tower and of the LLM into the
 `qkv` entry the port's modules read (concatenated along the output axis,
-biases alongside). int8 packs ("kernel_q8": {"q", "scale"}) come across the
-same way, split (ops/quant.quantize_llm_params, quantize_vision_params) or
-already fused (ops/quant.fuse_qkv). It raises if a JAX leaf is left unused
-or a port parameter is left unfilled, so both packages compute the same
-function.
+biases alongside). Weight packs, int8 ("kernel_q8": {"q", "scale"}) and
+folded int4 ("kernel_q4": {"q4", "scale"}), come across the same way,
+split (ops/quant.quantize_llm_params, quantize_vision_params) or already
+fused (ops/quant.fuse_qkv); the int4 fold is over the input axis, so the
+output-axis concatenation fuses them unchanged. It raises if a JAX leaf is
+left unused or a port parameter is left unfilled, so both packages compute
+the same function.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models import videollama2 as vl2
+from ..ops.quant import PACKS
 
 
 def _flatten(tree, path=()):
@@ -33,10 +36,15 @@ def _set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def _int8(tree: dict, part: str) -> bool:
-    """Whether the JAX tree's `part` carries int8 packs."""
-    return any("kernel_q8" in path
-               for path, _ in _flatten(tree.get(part, {}).get("layers", {})))
+def _pack_bits(tree: dict, part: str):
+    """The weight bits of the packs in the layers of the JAX tree's `part`:
+    8 (int8), 4 (folded int4) or None (floating kernels)."""
+    paths = [path for path, _ in
+             _flatten(tree.get(part, {}).get("layers", {}))]
+    for bits, (pack, _) in PACKS.items():
+        if any(pack in path for path in paths):
+            return bits
+    return None
 
 
 def params_from_jax(jax_params: dict, cfg) -> dict:
@@ -53,8 +61,9 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
         return src[path]
 
     out: dict = {}
-    shapes = vl2.param_shapes(cfg, int8_llm=_int8(jax_params, "llm"),
-                              int8_vision=_int8(jax_params, "vision"))
+    shapes = vl2.param_shapes(cfg, llm_bits=_pack_bits(jax_params, "llm"),
+                              int8_vision=_pack_bits(jax_params,
+                                                     "vision") == 8)
     for path, shape in _flatten(shapes):
         if "qkv" in path and path not in src:
             i = path.index("qkv")

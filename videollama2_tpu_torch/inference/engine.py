@@ -1,15 +1,16 @@
 """Generation engine: multimodal prefill + chunked decode (port of
-videollama2_tpu/inference/engine.py: floating or int8-packed weights, a
-bf16 or int8 KV cache, on one device).
+videollama2_tpu/inference/engine.py: floating, int8-packed or
+folded-int4-packed weights, a bf16 or int8 KV cache, on one device).
 
 Prompts are padded to static buckets, the KV cache is preallocated at
 `max_len` and written in place, and decoding runs in chunks of
 `decode_chunk` steps whose EOS bookkeeping stays on the device: the host
 reads the emitted tokens once per chunk, then applies EOS/`stop_fn` and
-streams. Every int8 dense the engine reaches runs W8A8 (ops/layers.dense),
-as the JAX Engine's programs do under its quant_inference and w8a8_prefill
-contexts; with int8 packs on every LLM projection, decode runs on the
-layered kernels (models/llm._decode_step_q8). Speculative decoding,
+streams. Every packed dense the engine reaches runs W8A8 or W4A8
+(ops/layers.dense), as the JAX Engine's programs do under its
+quant_inference and w8a8_prefill contexts; with int8 (or int4) packs on
+every LLM projection, decode runs on the layered int8 (or int4) kernels
+(models/llm._decode_step_q8). Speculative decoding,
 sessions, audio, grouped media and sharding raise NotImplementedError
 until their port.
 """
@@ -48,8 +49,8 @@ class GenerationConfig:
 
 def _prepare(tree, dtype, device):
     """Move every leaf to `device`, casting floating leaves to `dtype`
-    (int8 pack scales included, as the JAX Engine does; no copy for leaves
-    already there in that dtype)."""
+    (pack scales included, as the JAX Engine does; int8 and int4 weight
+    bytes stay int8; no copy for leaves already there in that dtype)."""
     if isinstance(tree, dict):
         return {k: _prepare(v, dtype, device) for k, v in tree.items()}
     t = torch.as_tensor(tree)

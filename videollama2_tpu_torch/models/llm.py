@@ -1,8 +1,8 @@
 """Causal decoder, dense path (port of videollama2_tpu/models/llm.py).
 
 Mistral/Llama/Qwen2-style dense decoders with GQA, RoPE in the rotate-half
-layout and RMSNorm; floating or int8-packed weights; a bf16 or int8 KV
-cache. MoE, tied embeddings, int4 packs and the verify step raise
+layout and RMSNorm; floating, int8-packed or folded-int4-packed weights; a
+bf16 or int8 KV cache. MoE, tied embeddings and the verify step raise
 NotImplementedError until their port.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
@@ -11,7 +11,9 @@ Params (kernels [in, out], layers stacked on a leading L axis):
           qkv.kernel [L, D, (H + 2 Hkv) hd] (+ .bias for Qwen2)
           o.kernel [L, H hd, D]; gate/up.kernel [L, D, F]; down.kernel [L, F, D]
 With int8 weights every `kernel` above (the head's included) is a
-`kernel_q8` pack {q int8 [.., in, out], scale [.., 1, out]} (ops/quant).
+`kernel_q8` pack {q int8 [.., in, out], scale [.., 1, out]} (ops/quant);
+with int4 weights the layers' kernels are `kernel_q4` packs {q4 int8
+[.., in/2, out], scale [.., 1, out]} and the head stays a `kernel_q8` pack.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..ops import decode_attention as dk_attn
 from ..ops import decode_matmul as dk
 from ..ops.layers import (apply_rope, dense, layer_params, rms_norm,
                           rope_table)
-from ..ops.quant import kernel_shapes
+from ..ops.quant import PACKS, kernel_shapes
 
 
 @dataclass
@@ -122,13 +124,13 @@ def _read_kv(cache: KVCache, i: int, rows: slice, kv_heads: int, dtype):
     return out
 
 
-def param_shapes(cfg: LLMConfig, int8: bool = False) -> dict:
-    """Shapes of the decoder's params; with int8, the layout of
-    ops/quant.quantize_llm_params with the head included."""
+def param_shapes(cfg: LLMConfig, bits: Optional[int] = None) -> dict:
+    """Shapes of the decoder's params; with weight bits 8 or 4, the layout
+    of ops/quant.quantize_llm_params(bits) with the (int8) head included."""
     _check_supported(cfg)
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qkv = kernel_shapes((L, D, (H + 2 * K) * hd), int8)
+    qkv = kernel_shapes((L, D, (H + 2 * K) * hd), bits)
     if cfg.qkv_bias:
         qkv["bias"] = (L, (H + 2 * K) * hd)
     return {
@@ -136,14 +138,14 @@ def param_shapes(cfg: LLMConfig, int8: bool = False) -> dict:
         "layers": {
             "attn_norm": {"scale": (L, D)},
             "qkv": qkv,
-            "o": kernel_shapes((L, H * hd, D), int8),
+            "o": kernel_shapes((L, H * hd, D), bits),
             "mlp_norm": {"scale": (L, D)},
-            "gate": kernel_shapes((L, D, F_), int8),
-            "up": kernel_shapes((L, D, F_), int8),
-            "down": kernel_shapes((L, F_, D), int8),
+            "gate": kernel_shapes((L, D, F_), bits),
+            "up": kernel_shapes((L, D, F_), bits),
+            "down": kernel_shapes((L, F_, D), bits),
         },
         "final_norm": {"scale": (D,)},
-        "lm_head": kernel_shapes((D, cfg.vocab_size), int8),
+        "lm_head": kernel_shapes((D, cfg.vocab_size), bits and 8),
     }
 
 
@@ -237,11 +239,18 @@ def decode_mask(cfg: LLMConfig, valid_len: torch.Tensor, prompt_len: int,
     return mask[:, None, None, :]
 
 
-def _packed_decode(layers: dict) -> bool:
-    """Decode goes through the layered int8 kernels when every projection
-    is an int8 pack without LoRA (the JAX package's routing)."""
-    return all("kernel_q8" in layers[n] and "lora" not in layers[n]
-               for n in ("qkv", "o", "gate", "up", "down"))
+_PACKED = ("qkv", "o", "gate", "up", "down")
+
+
+def _packed_decode(layers: dict) -> Optional[int]:
+    """The weight bits of the layered decode kernels: 8 when every
+    projection is an int8 pack, 4 when every one is a folded int4 pack,
+    without LoRA (the JAX package's routing); None otherwise."""
+    for bits, (pack, _) in PACKS.items():
+        if all(pack in layers[n] and "lora" not in layers[n]
+               for n in _PACKED):
+            return bits
+    return None
 
 
 def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
@@ -256,14 +265,16 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
 
     token_embeds: [B, 1, D]; valid_len: [B]; prompt_len: the prompt bucket;
     step: decode index. Returns (logits [B, V] fp32, cache written in place).
-    With int8 packs on every projection the step runs on the layered
-    kernels (`_decode_step_q8`); otherwise on dense() and the plain masked
-    attention over the whole cache (an int8 cache is dequantized for it).
+    With int8 or int4 packs on every projection the step runs on the
+    layered kernels (`_decode_step_q8`); otherwise on dense() and the plain
+    masked attention over the whole cache (an int8 cache is dequantized for
+    it).
     """
     _check_supported(cfg)
-    if _packed_decode(params["layers"]):
+    bits = _packed_decode(params["layers"])
+    if bits is not None:
         return _decode_step_q8(params, cfg, token_embeds, cache, valid_len,
-                               prompt_len, step, w8a8)
+                               prompt_len, step, w8a8, bits)
     B = token_embeds.shape[0]
     M = cache.max_len
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -291,13 +302,15 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
 
 def _decode_step_q8(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
                     cache: KVCache, valid_len: torch.Tensor, prompt_len: int,
-                    step: int, w8a8: bool) -> Tuple[torch.Tensor, KVCache]:
-    """Decode step over int8 packs (JAX `_decode_step_q8`, bits=8): the
-    fused qkv and the o projection go through `matmul_q8_layered` (K4),
-    attention over layer i of the stacked cache through
-    `decode_attention_layered` (K3), seeded with the new k/v, and the
-    SwiGLU FFN through `ffn_q8_layered` (K5). Each kernel reads layer i of
-    the stacked weights or cache in place.
+                    step: int, w8a8: bool, bits: int = 8
+                    ) -> Tuple[torch.Tensor, KVCache]:
+    """Decode step over int8 (bits 8) or folded int4 (bits 4) packs (JAX
+    `_decode_step_q8`): the fused qkv and the o projection go through
+    `matmul_q8_layered` (K4) or `matmul_q4_layered` (K6), attention over
+    layer i of the stacked cache through `decode_attention_layered` (K3),
+    seeded with the new k/v, and the SwiGLU FFN through `ffn_q8_layered`
+    (K5) or `ffn_q4_layered` (K7). Each kernel reads layer i of the stacked
+    weights or cache in place; the head is an int8 pack either way.
 
     JAX writes every layer's new row with one update after its layer scan;
     here each layer writes its row at write_pos in place before its
@@ -314,12 +327,14 @@ def _decode_step_q8(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     write_pos = prompt_len + step
     qkv_b = layers["qkv"].get("bias")
     o_b = layers["o"].get("bias")
-    big = {n: layers[n]["kernel_q8"]
-           for n in ("qkv", "o", "gate", "up", "down")}
+    pack, wk = PACKS[bits]
+    mm, ffn = ((dk.matmul_q8_layered, dk.ffn_q8_layered) if bits == 8
+               else (dk.matmul_q4_layered, dk.ffn_q4_layered))
+    big = {n: layers[n][pack] for n in _PACKED}
     x = token_embeds[:, 0]                                  # [B, D]
     for i in range(cfg.num_layers):
         h = rms_norm(x, layers["attn_norm"]["scale"][i], cfg.rms_norm_eps)
-        qkv = dk.matmul_q8_layered(h, big["qkv"]["q"], big["qkv"]["scale"], i)
+        qkv = mm(h, big["qkv"][wk], big["qkv"]["scale"], i)
         if qkv_b is not None:
             qkv = qkv + qkv_b[i].to(qkv.dtype)
         q, k, v = _split_qkv(cfg, qkv[:, None])
@@ -331,14 +346,13 @@ def _decode_step_q8(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
             q[:, 0], k_row, v_row, cache.k, cache.v, i, valid_len, write_pos,
             prompt_len, window=cfg.sliding_window, k_scale=cache.k_scale,
             v_scale=cache.v_scale)
-        out = dk.matmul_q8_layered(out.reshape(B, H * hd), big["o"]["q"],
-                                   big["o"]["scale"], i)
+        out = mm(out.reshape(B, H * hd), big["o"][wk], big["o"]["scale"], i)
         if o_b is not None:
             out = out + o_b[i].to(out.dtype)
         x = x + out
         h = rms_norm(x, layers["mlp_norm"]["scale"][i], cfg.rms_norm_eps)
-        x = x + dk.ffn_q8_layered(
-            h, big["gate"]["q"], big["gate"]["scale"], big["up"]["q"],
-            big["up"]["scale"], big["down"]["q"], big["down"]["scale"], i)
+        x = x + ffn(h, big["gate"][wk], big["gate"]["scale"], big["up"][wk],
+                    big["up"]["scale"], big["down"][wk], big["down"]["scale"],
+                    i)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x, w8a8), cache

@@ -7,7 +7,7 @@ Params tree: {"llm": ..., "vision": ..., "connector": ...}.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,14 +22,14 @@ from . import vit as vit_lib
 VIT_ENCODE_CHUNK = 128  # frames per tower pass (bounds tower activations)
 
 
-def param_shapes(cfg: ModelConfig, int8_llm: bool = False,
+def param_shapes(cfg: ModelConfig, llm_bits: Optional[int] = None,
                  int8_vision: bool = False) -> dict:
-    """Shapes of the whole tree; int8_llm / int8_vision give the layouts
-    of ops/quant.quantize_llm_params (head included) and
+    """Shapes of the whole tree; llm_bits (8 or 4) / int8_vision give the
+    layouts of ops/quant.quantize_llm_params(bits) (int8 head included) and
     quantize_vision_params."""
     if cfg.audio is not None:
         raise NotImplementedError("the audio branch is not ported yet")
-    return {"llm": llm_lib.param_shapes(cfg.llm, int8=int8_llm),
+    return {"llm": llm_lib.param_shapes(cfg.llm, bits=llm_bits),
             "vision": vit_lib.param_shapes(cfg.vision, int8=int8_vision),
             "connector": connector_lib.param_shapes(cfg.connector)}
 

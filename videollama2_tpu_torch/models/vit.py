@@ -37,7 +37,8 @@ def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
         return {"scale": lead + (D,), "bias": lead + (D,)}
 
     def linear(d_in, d_out):
-        return dict(kernel_shapes((L, d_in, d_out), int8), bias=(L, d_out))
+        return dict(kernel_shapes((L, d_in, d_out), 8 if int8 else None),
+                    bias=(L, d_out))
 
     return {
         "patch_embed": {"kernel": (P, P, 3, D)},

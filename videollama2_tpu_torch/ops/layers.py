@@ -1,7 +1,8 @@
 """Core neural-net primitives (port of videollama2_tpu/ops/layers.py).
 
-Dense takes floating kernels and int8 weight packs (dequantize or W8A8);
-int4 packs and LoRA adapters raise NotImplementedError until their port.
+Dense takes floating kernels, int8 weight packs (dequantize or W8A8) and
+folded int4 packs (dequantize or W4A8); LoRA adapters raise
+NotImplementedError until their port.
 Normalization statistics run in fp32 whatever the compute dtype, and the
 cast points match the JAX package, because bf16 parity depends on them.
 """
@@ -12,6 +13,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .quant import dequantize_int4_in, unpack_int4
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +111,14 @@ def layer_params(layers: dict, i: int) -> dict:
 def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
     """y = x @ kernel (+ bias); kernel is [in, out] as in the JAX tree.
 
-    An int8 pack ("kernel_q8": {"q" [in, out], "scale" [1, out]}) takes one
-    of the JAX package's two branches, chosen by the caller: with w8a8 the
-    serving branch (`dense_w8a8`: activations quantized per row, an
-    int8 x int8 -> int32 product), which the Engine selects for every int8
-    dense it reaches, as the JAX Engine does under its quant_inference and
-    w8a8_prefill contexts; without it the dequantize branch
-    (x @ q.to(x.dtype), scale on the output), which is exact under
-    gradients.
+    A weight pack ("kernel_q8": {"q" [in, out], "scale" [1, out]}, or the
+    folded int4 "kernel_q4": {"q4" [in/2, out], "scale" [1, out]}) takes
+    one of the JAX package's two branches, chosen by the caller: with w8a8
+    the serving branch (`dense_w8a8` / `dense_w4a8`: activations quantized
+    per row, an int8 x int8 -> int32 product), which the Engine selects for
+    every packed dense it reaches, as the JAX Engine does under its
+    quant_inference and w8a8_prefill contexts; without it the dequantize
+    branch (JAX's, which is exact under gradients).
     """
     if "lora" in p:
         raise NotImplementedError("LoRA adapters are not ported yet")
@@ -128,6 +131,13 @@ def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
         else:
             y = torch.matmul(x, pack["q"].to(x.dtype))
             y = y * pack["scale"][..., 0, :].to(x.dtype)
+    elif "kernel_q4" in p:
+        pack = p["kernel_q4"]
+        if w8a8:
+            y = dense_w4a8(x, pack)
+        else:
+            y = torch.matmul(x, dequantize_int4_in(pack["q4"], pack["scale"],
+                                                   x.dtype))
     else:
         raise NotImplementedError(
             f"dense packs {sorted(p)} are not ported yet")
@@ -153,27 +163,54 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     3.3 ms at [26624, 4096] x [4096, 14336]), while the column-major copy
     costs a fixed time per weight, ~0.8 ms for the 131 MB head (1.04
     against 0.23 ms at [16, 4096] x [4096, 32000]). So large-M calls
-    (prefill, the tower)
-    transpose the weight and decode-sized calls do not (by those two
-    measurements the costs cross near 500 rows at these widths)."""
+    (prefill, the tower) take the weight column-major (copied here unless
+    it comes so, as `dense_w4a8` unpacks it) and decode-sized calls do not
+    (by those two measurements the costs cross near 500 rows at these
+    widths)."""
     if a.device.type != "cuda":
         return torch.matmul(a.to(torch.int32), b.to(torch.int32))
     rows = a.shape[0]
     if rows < INT_MM_MIN_ROWS:
         a = torch.cat([a, a.new_zeros(INT_MM_MIN_ROWS - rows, a.shape[1])])
-    if rows >= INT_MM_TRANSPOSE_ROWS:
+    if rows >= INT_MM_TRANSPOSE_ROWS and b.stride(0) != 1:
         b = b.t().contiguous().t()
     return torch._int_mm(a, b)[:rows]
+
+
+def _column_major(x: torch.Tensor) -> bool:
+    """Whether _int8_matmul wants x's weight column-major."""
+    return x.device.type == "cuda" and \
+        x.numel() // x.shape[-1] >= INT_MM_TRANSPOSE_ROWS
+
+
+def _quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 activations of W8A8/W4A8: (xq [rows, in]
+    int8, xs [..., 1] fp32)."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    xs = torch.clamp(amax, min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq.reshape(-1, x.shape[-1]), xs
+
+
+def _w8a8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor):
+    xq, xs = _quantize_rows(x)
+    acc = _int8_matmul(xq, wq)
+    acc = acc.reshape(x.shape[:-1] + (acc.shape[-1],))
+    return (acc.float() * xs * scale[..., 0, :]).to(x.dtype)
 
 
 def dense_w8a8(x: torch.Tensor, pack: dict) -> torch.Tensor:
     """W8A8 (JAX `dense_w8a8`): per-row symmetric int8 activations, an
     exact int32 product with the int8 weights, then `* xs * scale` in fp32
     and a cast to x's dtype."""
-    xf = x.float()
-    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-    xs = torch.clamp(amax, min=1e-8) / 127.0
-    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
-    acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), pack["q"])
-    acc = acc.reshape(x.shape[:-1] + (acc.shape[-1],))
-    return (acc.float() * xs * pack["scale"][..., 0, :]).to(x.dtype)
+    return _w8a8(x, pack["q"], pack["scale"])
+
+
+def dense_w4a8(x: torch.Tensor, pack: dict) -> torch.Tensor:
+    """W4A8 (JAX `dense_w4a8`): the folded nibbles unpack losslessly to an
+    int8 [in, out] plane (values in [-8, 7], the per-output-channel scale
+    unchanged), then the W8A8 product. A large-row call unpacks straight
+    into the column-major layout, so the weight is copied once."""
+    return _w8a8(x, unpack_int4(pack["q4"], column_major=_column_major(x)),
+                 pack["scale"])

@@ -6,13 +6,15 @@ torch.Generator, with the JAX package's init scales (normal(0, 0.02)
 kernels and embeddings, ones for norm scales, zeros for biases, He-normal
 connector convs, 1/sqrt(fan_in) readout). Random values, unlike constant
 fills, give every attention row a different softmax, so a kernel bug shows
-up in the output. The int8 variant quantizes that same tree on the device
-with ops/quant, one tensor at a time.
+up in the output. The quantized variants (int8 or folded int4 LLM layers,
+an int8 head and tower) quantize that same tree on the device with
+ops/quant, one layer at a time.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -44,43 +46,47 @@ def _build(spec: dict, path, dtype, device, generator) -> dict:
     return out
 
 
-def _quantize_in_place(entries: dict, names) -> None:
-    """Replace entries[name]["kernel"] by its int8 pack, a stacked kernel
-    layer by layer (bit-identical to quantizing the whole stack: the amax
-    runs over each layer's input axis), dropping each floating kernel once
-    it is packed, so only one layer's temporaries are alive at a time."""
+def _quantize_in_place(entries: dict, names, bits: int) -> None:
+    """Replace entries[name]["kernel"] by its int8 or folded int4 pack, a
+    stacked kernel layer by layer (bit-identical to quantizing the whole
+    stack: the amax runs over each layer's input axis), dropping each
+    floating kernel once it is packed, so only one layer's temporaries are
+    alive at a time."""
     for name in names:
         if "kernel" not in entries.get(name, {}):
             continue
         w = entries[name].pop("kernel")
         if w.dim() == 2:
-            entries[name]["kernel_q8"] = quant.quantize_int8(w, axis=-2)
+            entries[name].update(quant.quantize_kernel(w, bits))
             continue
-        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
-                            dtype=torch.float32, device=w.device)
+        shapes = quant.kernel_shapes(tuple(w.shape), bits)
+        (pack_name, spec), = shapes.items()
+        pack = {k: torch.empty(shape, dtype=torch.float32 if k == "scale"
+                               else torch.int8, device=w.device)
+                for k, shape in spec.items()}
         for i in range(w.shape[0]):
-            pack = quant.quantize_int8(w[i], axis=-2)
-            q[i] = pack["q"]
-            scale[i] = pack["scale"]
+            for k, t in quant.quantize_kernel(w[i], bits)[pack_name].items():
+                pack[k][i] = t
         del w
-        entries[name]["kernel_q8"] = {"q": q, "scale": scale}
+        entries[name][pack_name] = pack
 
 
 def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                     seed: int = 0, int8: bool = False) -> dict:
-    """Full parameter tree for `cfg` on `device` in `dtype`. With int8, the
-    LLM's projections and head and the tower's linears become int8 packs
-    (the layout of ops/quant.quantize_llm_params and
-    quantize_vision_params), quantized from the seeded floating weights."""
+                     seed: int = 0, llm_bits: Optional[int] = None) -> dict:
+    """Full parameter tree for `cfg` on `device` in `dtype`. With llm_bits
+    8 or 4 (bench.py's BENCH_BITS), the LLM's projections become int8 or
+    folded int4 packs, its head and the tower's linears int8 packs (the
+    layout of ops/quant.quantize_llm_params(bits) and
+    quantize_vision_params, the JAX package's quantized serving tree),
+    quantized from the seeded floating weights."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     params = _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
                     generator)
-    if int8:
+    if llm_bits is not None:
         llm = params["llm"]
-        _quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS)
-        _quantize_in_place(llm, ("lm_head",))
+        _quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS, llm_bits)
+        _quantize_in_place(llm, ("lm_head",), 8)
         _quantize_in_place(params["vision"]["layers"],
-                           quant.VISION_PROJECTIONS)
+                           quant.VISION_PROJECTIONS, 8)
     return params
