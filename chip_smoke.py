@@ -400,8 +400,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
-    from videollama2_tpu.constants import VIDEO_TOKEN_INDEX
-    from videollama2_tpu.core import config as cfglib
+    from videollama2_tpu_torch.constants import VIDEO_TOKEN_INDEX
+    from videollama2_tpu_torch.core import config as cfglib
     from videollama2_tpu_torch.inference.engine import (Engine,
                                                         GenerationConfig)
     from videollama2_tpu_torch.models.llm import _quantize_kv_rows

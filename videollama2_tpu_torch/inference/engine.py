@@ -23,7 +23,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from videollama2_tpu.core.config import ModelConfig
+from ..core.config import ModelConfig
 
 from ..models import llm as llm_lib
 from ..models import videollama2 as vl2

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from videollama2_tpu.core.config import ConnectorConfig
+from ..core.config import ConnectorConfig
 
 from ..ops.conv import conv2d, conv3d
 from ..ops.layers import gelu_exact, layer_norm

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from videollama2_tpu.core.config import LLMConfig
+from ..core.config import LLMConfig
 
 from ..ops import attention as attn_ops
 from ..ops import decode_attention as dk_attn

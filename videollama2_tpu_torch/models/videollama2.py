@@ -11,8 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from videollama2_tpu.core.config import ModelConfig
-from videollama2_tpu.media import wire
+from ..core.config import ModelConfig
+from ..media import wire
 
 from ..multimodal import splice as splice_lib
 from . import connector as connector_lib

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from videollama2_tpu.core.config import VisionConfig
+from ..core.config import VisionConfig
 
 from ..ops import attention as attn_ops
 from ..ops.conv import conv2d

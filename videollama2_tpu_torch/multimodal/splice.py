@@ -16,7 +16,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from videollama2_tpu.constants import IGNORE_INDEX, MODAL_INDEX_MAP
+from ..constants import IGNORE_INDEX, MODAL_INDEX_MAP
 
 _MODAL_IDS = tuple(MODAL_INDEX_MAP.values())
 
