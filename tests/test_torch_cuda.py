@@ -12,6 +12,11 @@ values. Attention tolerance 2e-2 absolute: the kernels round P to bf16 for
 the PV product and round the output to bf16 (outputs here have |o| < ~3).
 The int8 and int4 matmuls are held to 1e-2 relative to the output's scale:
 bf16 output rounding (2^-9) and, for the FFNs, the bf16 rounding of h.
+K2's LSE: 1e-3 absolute on values of ~5 (fp32 sums in another order, fast
+exp). The backward kernels (K8, K9) get the same bf16 q, k, v, o, do and
+the kernel's lse as the fp32 plain version, and are held to 2e-2 of
+max|grad|: they round p and ds to bf16 (2^-9 relative) before the dv, dq
+and dk products and round their outputs to bf16.
 """
 
 import pytest
@@ -61,6 +66,90 @@ def test_flash_attention_cuda_matches_plain(cuda_device, causal):
     ref = k2.flash_attention_plain(q.float(), k.float(), v.float(), valid,
                                    causal=causal)
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_cuda_matches_plain(cuda_device, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = _bf16_qkv(gen, 3, 300, 8, 2, 128, cuda_device)
+    valid = torch.tensor([300, 157, 0], dtype=torch.int32, device=cuda_device)
+    before = k2.flash_attention.launches
+    out, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                  return_lse=True)
+    assert k2.flash_attention.launches == before + 1
+    ref_out, ref_lse = k2.flash_attention_plain(
+        q.float(), k.float(), v.float(), valid, causal=causal,
+        return_lse=True)
+    torch.testing.assert_close(out.float(), ref_out, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    assert torch.all(lse[2] == -1e30)
+
+
+BWD_REL_TOL = 2e-2  # of max|grad|: bf16 p and ds in the products
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_cuda_matches_plain(cuda_device, D, hq, hkv,
+                                                causal):
+    """K8 and K9 at S 300 (not a multiple of the 64-row tiles), valid_len
+    S, an odd length below S, and 1."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D + hq + causal)
+    S = 300
+    q, k, v = _bf16_qkv(gen, 3, S, hq, hkv, D, cuda_device)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([S, 157, 1], dtype=torch.int32, device=cuda_device)
+    o, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                return_lse=True)
+    before = (k2.flash_attention_bwd_dq.launches,
+              k2.flash_attention_bwd_dkv.launches)
+    got = k2.flash_attention_bwd(q, k, v, o, lse, do, valid, causal)
+    torch.cuda.synchronize()
+    assert (k2.flash_attention_bwd_dq.launches,
+            k2.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = k2.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), valid,
+                                        causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        torch.testing.assert_close(
+            g.float(), w, rtol=0, atol=BWD_REL_TOL * w.abs().max().item(),
+            msg=lambda m, name=name: f"{name}: {m}")
+    # keys at or past valid_len get exactly zero gradients
+    assert torch.all(got[1][1, 157:] == 0) and torch.all(got[2][2, 1:] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_cuda_strided_qkv(cuda_device):
+    """FlashAttention on q/k/v views of a fused projection (no copy), as
+    the LLM layers pass them: gradients reach the fused tensor, equal to
+    the plain backward's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    B, S, H, K, D = 2, 256, 8, 2, 128
+    qkv = torch.randn(B, S, (H + 2 * K) * D, generator=gen,
+                      device=cuda_device).bfloat16().requires_grad_(True)
+    valid = torch.tensor([256, 131], dtype=torch.int32, device=cuda_device)
+
+    def split(t):
+        return (t[..., :H * D].unflatten(-1, (H, D)),
+                t[..., H * D:(H + K) * D].unflatten(-1, (K, D)),
+                t[..., (H + K) * D:].unflatten(-1, (K, D)))
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda_device).bfloat16()
+    out = k2.FlashAttention.apply(*split(qkv), valid, True, None)
+    (grad,) = torch.autograd.grad(out, qkv, do)
+    q, k, v = (t.detach() for t in split(qkv))
+    o, lse = k2.flash_attention(q, k, v, valid, return_lse=True)
+    torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
+    want = torch.cat([g.float().flatten(-2) for g in
+                      k2.flash_attention_bwd_plain(
+                          q.float(), k.float(), v.float(), o.float(), lse,
+                          do.float(), valid, True)], dim=-1)
+    torch.testing.assert_close(grad.float(), want, rtol=0,
+                               atol=BWD_REL_TOL * want.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-// Shared core of the two attention kernels (encoder_attention.cu and
-// flash_attention.cu): one thread block computes a 64-row query tile of one
-// (batch, head) with an online softmax over 64-key tiles.
+// Shared core of the attention kernels: one thread block computes a 64-row
+// query tile of one (batch, head) with an online softmax over 64-key tiles
+// (encoder_attention.cu, flash_attention.cu), and the fragment helpers the
+// backward kernels (flash_attention_bwd.cu) build their products from.
 //
 // Layout and numerics follow the JAX package's Pallas kernels: q/k/v are
 // [B, S, H, D] bf16 with D contiguous, scores and softmax state (m, l, acc)
@@ -34,6 +35,7 @@ struct AttnParams {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;        // contiguous [B, Sq, Hq, D]
+  float* lse;              // [B, Hq, Sq] per-row log-sum-exp, or nullptr
   const int* valid_len;    // [B] keys per batch row, or nullptr (= Sk)
   long long q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
   long long k_sb, k_ss, k_sh;
@@ -248,11 +250,17 @@ __device__ __forceinline__ void attention_tile(const AttnParams& p, int qtile,
   }
 
   // out = acc / l, rows past Sq and head-dim lanes past D are not stored.
+  // With an lse pointer, lane t == 0 of each quad (all four hold the same
+  // reduced m and l) also stores m + log(l): a fully masked row's m is the
+  // -1e30 fill, which absorbs log(count), so its lse is -1e30.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row >= p.Sq) continue;
-    const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
+    const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + row] = m_run[r] + logf(l);
+    const float inv = 1.f / l;
     __nv_bfloat16* out =
         p.o + ((long long)(b * p.Sq + row) * p.Hq + h) * p.D;
 #pragma unroll

@@ -1,10 +1,14 @@
 // K2: causal GQA flash attention, forward, for the LLM prefill.
 //
 // Replaces videollama2_tpu/ops/flash_attention.py::flash_attention (Pallas
-// `_flash_kernel`, forward without the LSE output): q [B, Sq, Hq, D],
+// `_flash_kernel`, with its optional LSE output): q [B, Sq, Hq, D],
 // k/v [B, Sk, Hkv, D] bf16, query head h reads kv head h / (Hq / Hkv),
 // keys at or past valid_len[b] and (causal) above the diagonal are masked,
-// m/l/acc stay fp32, and a row with valid_len == 0 returns mean(v).
+// m/l/acc stay fp32, and a row with valid_len == 0 returns mean(v). With a
+// non-null `lse` the kernel also stores each row's m + log(l) as fp32
+// [B, Hq, Sq] (the residual of the training backward, flash_attention_bwd.cu;
+// the Pallas kernel's 128-lane broadcast of it was a TPU layout rule and is
+// not kept). The serving path passes null and does no extra work.
 //
 // What bounds it on the H100: at the Mistral prefill (Sq = Sk = 1664, D 128,
 // 32 query heads on 8 kv heads) the products are ~2 * Sq * Sk * D FLOPs per
@@ -41,7 +45,7 @@ void launch(const vl2::AttnParams& p, bool causal, cudaStream_t st) {
 // Returns the cudaError_t of the launch (0 on success). Pointers are device
 // pointers; strides are in elements; the last axis of q/k/v is contiguous.
 extern "C" int vl2_flash_attention(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const int* valid_len, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
@@ -51,6 +55,7 @@ extern "C" int vl2_flash_attention(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.valid_len = valid_len;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;

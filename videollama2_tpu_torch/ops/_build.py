@@ -27,7 +27,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+# ptxas's report of every kernel's registers, shared memory and spills,
+# written beside the library by each build
+BUILD_LOG = "ptxas.txt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +41,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vl2_encoder_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
-    "vl2_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "vl2_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    "vl2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [_L] * 9
+                                  + [_F, _I, _P],
+    "vl2_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 6 + [_L] * 9
+                                   + [_F, _I, _P],
     "vl2_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
     "vl2_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vl2_ffn_q8_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -75,16 +82,19 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libvl2_kernels.so"
 
 
-def _run(procs) -> None:
-    """Wait for every (cmd, Popen); raise with the output of a failure."""
-    failed = []
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise with the output of a failure,
+    else return the compilers' output."""
+    failed, logs = [], []
     for cmd, proc in procs:
         stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
 def _start(cmd):
@@ -101,8 +111,10 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
         objs = [Path(tmpdir) / f"{src.stem}.o"
                 for src in sorted(CSRC.glob("*.cu"))]
-        _run([_start([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
-              for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)])
+        log = _run([_start([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o",
+                            str(obj)])
+                    for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)])
+        (out.parent / BUILD_LOG).write_text(log)
         lib = Path(tmpdir) / "lib.so"
         _run([_start([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
                       *map(str, objs)])])

@@ -76,14 +76,20 @@ def attend(q, k, v, valid_len=None, causal: bool = True,
     non-causal square calls up to 1024 tokens with equal heads, the flash
     kernel otherwise); everything else takes the plain path, as JAX sends it
     to XLA. Each kernel's wrapper then runs the CUDA kernel for CUDA tensors
-    and its plain version for CPU tensors.
+    and its plain version for CPU tensors. When a gradient is needed (grad
+    mode on and q, k or v requiring one), the flash route goes through
+    `FlashAttention`, whose backward runs the K8/K9 kernels; the encoder
+    route is never differentiated (the towers are frozen).
     """
     Sq, Sk = q.shape[1], k.shape[1]
     if window is None and q.shape[-1] % 64 == 0 and Sq >= 128:
         if not causal and Sq == Sk and Sq <= 1024 and q.shape[2] == k.shape[2]:
             from .encoder_attention import encoder_attention
             return encoder_attention(q, k, v, valid_len, scale)
-        from .flash_attention import flash_attention
+        from .flash_attention import FlashAttention, flash_attention
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, valid_len, causal, scale)
         return flash_attention(q, k, v, valid_len, causal, scale)
     return attend_plain(q, k, v, valid_len=valid_len, causal=causal,
                         window=window, scale=scale)

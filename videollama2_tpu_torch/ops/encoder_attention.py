@@ -47,6 +47,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in SUPPORTED_HEAD_DIMS or S > MAX_SEQ:
         raise ValueError(f"encoder_attention takes D in {SUPPORTED_HEAD_DIMS}"
                          f" and S <= {MAX_SEQ}, got S={S} D={D}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("encoder_attention has no backward: the towers "
+                           "it serves are frozen")
     if valid_len is not None:
         if (valid_len.device != q.device or valid_len.shape != (B,)
                 or valid_len.dtype != torch.int32):
