@@ -23,9 +23,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LLMConfig
-
 from ..ops import attention as attn_ops
 from ..ops import decode_attention as dk_attn
 from ..ops import decode_matmul as dk
@@ -182,32 +182,47 @@ def _ffn(x: torch.Tensor, lp: dict, w8a8: bool) -> torch.Tensor:
                  lp["down"], w8a8)
 
 
+def _layer(cfg: LLMConfig, x: torch.Tensor, lp: dict, cos: torch.Tensor,
+           sin: torch.Tensor, valid_len: torch.Tensor,
+           cache: Optional[KVCache], i: int, w8a8: bool) -> torch.Tensor:
+    B, S, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
+    q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
+    q, k = apply_rope(q, k, cos, sin)
+    if cache is not None:
+        _store_kv(cache, i, 0, k, v)
+    out = attn_ops.attend(q, k, v, valid_len=valid_len, causal=True,
+                          window=cfg.sliding_window)
+    x = x + dense(out.reshape(B, S, -1), lp["o"], w8a8)
+    h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
+    return x + _ffn(h, lp, w8a8)
+
+
 def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
             positions: torch.Tensor, valid_len: torch.Tensor,
             cache: Optional[KVCache] = None,
-            w8a8: bool = False) -> torch.Tensor:
-    """Full-sequence forward (prefill). embeds [B, S, D], positions [B, S],
-    valid_len [B] int32. Writes each layer's k/v into cache rows [0, S) in
-    place when a cache is given (an int8 cache stores the rows quantized;
-    attention itself uses the exact k/v). w8a8 selects the serving branch
-    of int8 packs. Returns the final-normed hidden [B, S, D].
+            w8a8: bool = False, remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward (prefill and training). embeds [B, S, D],
+    positions [B, S], valid_len [B] int32. Writes each layer's k/v into
+    cache rows [0, S) in place when a cache is given (an int8 cache stores
+    the rows quantized; attention itself uses the exact k/v). w8a8 selects
+    the serving branch of int8 packs. remat (training, no cache) wraps each
+    layer in torch.utils.checkpoint, as the JAX package wraps its layer
+    body in jax.checkpoint: only each layer's input is kept, and the layer
+    runs again in the backward. Returns the final-normed hidden [B, S, D].
     """
     _check_supported(cfg)
-    B, S, _ = embeds.shape
+    if remat and cache is not None:
+        raise ValueError("remat is for training: it takes no cache")
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
-        h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
-        q, k = apply_rope(q, k, cos, sin)
-        if cache is not None:
-            _store_kv(cache, i, 0, k, v)
-        out = attn_ops.attend(q, k, v, valid_len=valid_len, causal=True,
-                              window=cfg.sliding_window)
-        x = x + dense(out.reshape(B, S, -1), lp["o"], w8a8)
-        h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(h, lp, w8a8)
+        if remat:
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, valid_len, None, i,
+                           w8a8, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, lp, cos, sin, valid_len, cache, i, w8a8)
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 

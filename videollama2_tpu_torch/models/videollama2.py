@@ -1,6 +1,7 @@
 """Multimodal assembly, video path (port of
 videollama2_tpu/models/videollama2.py): frames -> CLIP tower -> STC
-connector -> splice -> LLM prefill.
+connector -> splice -> LLM prefill (serving) or LLM forward, head and
+shifted cross-entropy (training, `forward_train`).
 
 Params tree: {"llm": ..., "vision": ..., "connector": ...}.
 """
@@ -10,10 +11,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ..constants import IGNORE_INDEX
 from ..core.config import ModelConfig
 from ..media import wire
-
 from ..multimodal import splice as splice_lib
 from . import connector as connector_lib
 from . import llm as llm_lib
@@ -64,6 +66,15 @@ def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     frames is [B, 1, ...] and the features are broadcast to num_frames.
     w8a8 selects the serving branch of the tower's int8 packs.
     """
+    feats = frame_features(params, cfg, frames, broadcast_image, w8a8)
+    return temporal_aggregator(params, cfg, feats)
+
+
+def frame_features(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                   broadcast_image: bool = False,
+                   w8a8: bool = False) -> torch.Tensor:
+    """The tower half of encode_frames: frames -> per-frame features
+    [B, T (or num_frames), patches, D_vision]."""
     B, T = frames.shape[0], frames.shape[1]
     raw255 = None
     if frames.dim() == 4:
@@ -83,7 +94,7 @@ def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     feats = feats.reshape(B, T, feats.shape[1], feats.shape[2])
     if broadcast_image:
         feats = feats.expand((B, cfg.num_frames) + tuple(feats.shape[2:]))
-    return temporal_aggregator(params, cfg, feats)
+    return feats
 
 
 def _tower_features(params: dict, cfg: ModelConfig, flat: torch.Tensor,
@@ -123,3 +134,41 @@ def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                                        vis_index)
     return llm_lib.prefill(params["llm"], cfg.llm, embeds, positions,
                            valid_len, cache, w8a8=w8a8)
+
+
+def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                  text_ids: torch.Tensor, is_visual: torch.Tensor,
+                  vis_index: torch.Tensor, positions: torch.Tensor,
+                  valid_len: torch.Tensor, labels: torch.Tensor,
+                  remat: bool = True) -> Tuple[torch.Tensor, dict]:
+    """Training forward (JAX `forward_train`): (mean masked CE loss,
+    metrics {"loss", "num_tokens", "accuracy"}).
+
+    The tower runs under torch.no_grad (frozen, as JAX's stop_gradient on
+    its features); the connector, splice, LLM (each layer checkpointed
+    with remat) and fp32 head carry gradients. Labels use IGNORE_INDEX for
+    unsupervised positions; the loss is next-token CE over the supervised
+    ones (HF causal-LM shift)."""
+    with torch.no_grad():
+        feats = frame_features(params, cfg, frames)
+    vis_tokens = temporal_aggregator(params, cfg, feats)
+    text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
+                                    dtype=vis_tokens.dtype)
+    embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
+                                       vis_index)
+    hidden = llm_lib.forward(params["llm"], cfg.llm, embeds, positions,
+                             valid_len, remat=remat)
+    logits = llm_lib.lm_logits(params["llm"], cfg.llm, hidden)  # fp32
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    mask = shift_labels != IGNORE_INDEX
+    safe_labels = torch.where(mask, shift_labels, 0)
+    logp = F.log_softmax(shift_logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    num_tokens = mask.sum()
+    denom = torch.clamp(num_tokens, min=1)
+    loss = -torch.where(mask, token_ll, 0.0).sum() / denom
+    correct = ((shift_logits.argmax(-1) == safe_labels) & mask).sum()
+    metrics = {"loss": loss.detach(), "num_tokens": num_tokens,
+               "accuracy": correct / denom}
+    return loss, metrics
