@@ -10,7 +10,12 @@ int4 serving, `load_4bit` (folded int4 LLM layers, int8 head and tower,
 W4A8 prefill, int8 KV cache, decode on the layered int4 kernels). It checks
 that each run went through its kernels, the exact launch counts, and the
 first-token (bf16) and decode (int8, int4) logits against the plain
-versions.
+versions. Last, the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
+only the connector trains) runs two optimizer steps of 16 videos
+(grad_accum 2 x 8) at seq 2048 through Trainer.train, twice, with the
+flash-attention LSE forward (K2) and backward kernels (K8, K9), and one
+microbatch's loss and connector gradient are held against the plain
+attention.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -29,6 +34,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -42,6 +48,18 @@ K3_TOL = 2e-2   # the same; q is scaled so each softmax is peaked, |o| ~ 1
 MATMUL_REL_TOL = 1e-2  # of max|out|: bf16 output (and the FFNs' h) rounding
 TIMING_ITERS = 10
 SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clocks, longer than any enqueue
+TRAIN_B, TRAIN_S, GRAD_ACCUM, TRAIN_STEPS = 8, 2048, 2, 2
+TRAIN_MIN_VALID = 1400  # valid_len spreads over [TRAIN_MIN_VALID, TRAIN_S]
+LSE_TOL = 1e-3      # absolute, on lse values of ~8: fp32 sums, fast exp
+# K8/K9, of max|grad|: they round p and ds to bf16 (2^-9 relative) for the
+# dq, dk and dv products and round their outputs to bf16
+BWD_REL_TOL = 2e-2
+# kernel vs plain attention through the whole training slice (one
+# microbatch of 2 rows): see check_training_against_plain
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_COS = 0.99
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
 NEW_TOKENS = 32
 BUCKET = 1664
 MAX_LEN = 1696      # the bucket plus 32 tokens (1792 under kv8)
@@ -71,6 +89,52 @@ def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the bf16 tensor-core rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_pairs(Sq: int, valid, causal: bool) -> int:
+    """Visible (query, key) pairs of one head, summed over the batch: key
+    j < valid_len[b] and, causal, j <= i; the work the data needs."""
+    i = np.arange(Sq)
+    return int(sum((np.minimum(i + 1, v) if causal else np.full(Sq, v))
+                   .sum() for v in np.asarray(valid)))
+
+
+def attention_bound(q, k, valid, causal: bool, products: int, extra_bytes):
+    """bound() of an attention pass over q [B, Sq, Hq, D], k/v [B, Sk, Hkv,
+    D]: `products` matrix products of 2 * D FLOPs per visible pair and head;
+    bytes: q, k and v read once plus `extra_bytes`."""
+    B, Sq, Hq, D = q.shape
+    if valid is None:
+        valid = [k.shape[1]] * B
+    flops = products * 2 * D * Hq * attention_pairs(Sq, valid.cpu()
+                                                     if torch.is_tensor(valid)
+                                                     else valid, causal)
+    return bound(flops, q.nbytes + 2 * k.nbytes + extra_bytes)
+
+
+def sdpa_args(q, k, v, valid, causal):
+    """q/k/v [B, S, H, D] as torch SDPA's [B, H, S, D] (k/v heads repeated
+    to q's) and the boolean mask of the same attention."""
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    Sq, Sk = q.shape[1], k.shape[1]
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    mask = (j <= i) if causal else torch.ones_like(j <= i)
+    mask = mask[None, None]
+    if valid is not None:
+        mask = mask & (j < valid[:, None, None, None])
+    return qt, kt, vt, mask
 
 
 def rand_bf16(gen, shape, scale=1.0):
@@ -138,7 +202,21 @@ def attention_cases(gen):
                          device="cuda")
     k2 = [qkv_case("q[4,1664,32,128] kv[4,1664,8,128] causal", prefill,
                    {"valid_len": valid, "causal": True})]
-    return k1, k2
+    # bound and library yardstick of each kernel's timed (first) case
+    cq, ck, cv = sdpa_args(*clip, None, False)[:3]
+    pq, pk, pv, pmask = sdpa_args(*prefill, valid, True)
+    extras = {
+        "encoder_attention": (
+            attention_bound(clip[0], clip[1], None, False, 2,
+                            clip[0].nbytes),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                cq, ck, cv)),
+        "flash_attention": (
+            attention_bound(prefill[0], prefill[1], valid, True, 2,
+                            prefill[0].nbytes),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                pq, pk, pv, attn_mask=pmask))}
+    return k1, k2, extras
 
 
 def decode_attention_cases(gen, quantize_rows):
@@ -159,6 +237,21 @@ def decode_attention_cases(gen, quantize_rows):
     caches = {"int8": (kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)),
               "bf16": tuple(r.reshape(L, B, M, -1).bfloat16() for r in rows)}
     del rows
+    # bound of the timed (int8) case: the cache rows K3 reads (prompt rows
+    # below valid_len, the generated rows) with their scales, q, the new
+    # k/v rows and the output; the yardstick is SDPA over the same rows of
+    # the bf16 cache, the new row read from the cache
+    rows_read = (valid.long() + write_pos - BUCKET).sum().item()
+    k3_bound = bound(4 * 32 * hd * rows_read,
+                     rows_read * 2 * K * (hd + 4) + 2 * q.nbytes
+                     + k_new.nbytes + v_new.nbytes)
+    bk, bv = (t[1].reshape(B, M, K, hd) for t in caches["bf16"])
+    sq, sk, sv, _ = sdpa_args(q[:, None], bk, bv, None, False)
+    j = torch.arange(M, device="cuda")
+    smask = ((j[None] < valid[:, None])
+             | ((j[None] >= BUCKET) & (j[None] <= write_pos)))[:, None, None]
+    k3_extra = (k3_bound, lambda: torch.nn.functional
+                .scaled_dot_product_attention(sq, sk, sv, attn_mask=smask))
     cases = []
     for label, cache, kw in (
             ("int8 cache", "int8", int8),
@@ -175,7 +268,7 @@ def decode_attention_cases(gen, quantize_rows):
             lambda f, ck=ck, cv=cv, kw=kw, cyc=cyc: (
                 lambda: f(q, k_new, v_new, ck, cv, cyc(), valid, write_pos,
                           BUCKET, **kw))))
-    return cases
+    return cases, k3_extra
 
 
 def matmul_cases(gen, quantize, mm_layers):
@@ -188,10 +281,12 @@ def matmul_cases(gen, quantize, mm_layers):
         q, s = quantize(rand_bf16(gen, (L, din, dout), 0.02))
         return q, s.bfloat16()
     x = rand_bf16(gen, (16, 4096))
-    k4 = []
+    k4, extras = [], []
     for label, dout in ((f"qkv x[16,4096] [{mm_layers},4096,6144]", 6144),
                         (f"o x[16,4096] [{mm_layers},4096,4096]", 4096)):
         q, s = pack(mm_layers, 4096, dout)
+        extras.append(bound(2 * 16 * 4096 * dout, q[0].nbytes + s[0].nbytes
+                            + x.nbytes + 16 * dout * 2))
         cyc = layer_cycle(mm_layers)
         k4.append((label, ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
                    lambda f, q=q, s=s, cyc=cyc: (
@@ -202,7 +297,12 @@ def matmul_cases(gen, quantize, mm_layers):
     k5 = [("x[16,4096] gate/up[2,4096,14336] down[2,14336,4096]",
            ((x, *g, *u, *d, 1), {}), ((x.float(), *g, *u, *d, 1), {}),
            lambda f: (lambda: f(x, *g, *u, *d, cyc())))]
-    return k4, k5
+    # bounds of the timed cases: each weight byte read once (h, the FFN's
+    # intermediate, stays inside the kernel's work)
+    ffn_bound = bound(2 * 16 * 3 * 4096 * 14336,
+                      sum(t[0].nbytes for t in (*g, *u, *d))
+                      + 2 * x.nbytes)
+    return k4, k5, extras[0], ffn_bound
 
 
 def head_matmul_case(gen, quantize_int8):
@@ -212,7 +312,9 @@ def head_matmul_case(gen, quantize_int8):
     p = quantize_int8(rand_bf16(gen, (4096, 32000), 0.02), axis=-2)
     q, s = p["q"], p["scale"][0]
     return [("x[16,4096] q[4096,32000]", ((x, q, s), {}),
-             ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)))]
+             ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)))], \
+        bound(2 * 16 * 4096 * 32000,
+              q.nbytes + s.nbytes + x.nbytes + 16 * 32000 * 2)
 
 
 def _leaves(tree):
@@ -396,6 +498,340 @@ def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
                    "teacher-forced steps", fast, plain)
 
 
+def ptxas_report(path) -> None:
+    """Registers and spills of the flash-attention kernels, from the
+    ptxas report the build wrote beside the library."""
+    if not path.exists():
+        log(f"[ptxas] no report at {path}")
+        return
+    name = None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = next((n for n in ("flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel",
+                                     "flash_attention_kernel") if n in line),
+                        None)
+            if name:
+                tmpl = line.split(name, 1)[1]
+                name += (" D" + tmpl.split("ILi", 1)[1].split("E", 1)[0]
+                         + (" causal" if "Lb1" in tmpl else ""))
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            log(f"[ptxas] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+
+
+def check_training_attention(gen, k2) -> dict:
+    """K2 with its LSE, K8 and K9 at the training slice's shape (q
+    [8, 2048, 32, 128], k/v [8, 2048, 8, 128] bf16, causal, valid_len
+    spread over 1400-2048) against their plain versions on the fp32 values
+    (the same o and lse feed both backward versions), with CUDA-event
+    times, bounds and the torch SDPA forward and backward as yardsticks."""
+    F = torch.nn.functional
+    B, S = TRAIN_B, TRAIN_S
+    q = rand_bf16(gen, (B, S, 32, 128))
+    k, v = rand_bf16(gen, (B, S, 8, 128)), rand_bf16(gen, (B, S, 8, 128))
+    do = rand_bf16(gen, (B, S, 32, 128))
+    valid = torch.tensor(np.linspace(TRAIN_MIN_VALID, S, B).round(),
+                         dtype=torch.int32, device="cuda")
+    label = f"q[{B},{S},32,128] kv[{B},{S},8,128] causal, valid_len " \
+        f"{valid.tolist()}"
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = {}
+
+    def report(name, errs, fn, plain_fn, bnd, library_ms):
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain_fn, iters=3)
+        worst = max(e for e, _ in errs)
+        log(f"[{name}] {label}: max_abs_err "
+            + ", ".join(f"{e:.3e} (bound {b:.3e})" for e, b in errs)
+            + f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), torch SDPA {library_ms:.4f} ms")
+        for e, b in errs:
+            if not e <= b:
+                raise RuntimeError(f"{name}: max_abs_err {e} > {b}")
+        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": library_ms}
+
+    def err(got, ref, tol):
+        return ((got.float() - ref.float()).abs().max().item(),
+                tol * ref.abs().max().item())
+
+    o, lse = k2.flash_attention(q, k, v, valid, True, return_lse=True)
+    ro, rlse = k2.flash_attention_plain(qf, kf, vf, valid, True,
+                                        return_lse=True)
+    errs = [(err(o, ro, 1)[0], K2_TOL), (err(lse, rlse, 1)[0], LSE_TOL)]
+    del ro, rlse
+    sq, sk, sv, smask = sdpa_args(q, k, v, valid, True)
+    sq, sk, sv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
+    report("flash_attention +lse", errs,
+           lambda: k2.flash_attention(q, k, v, valid, True, return_lse=True),
+           lambda: k2.flash_attention_plain(q, k, v, valid, True,
+                                            return_lse=True),
+           attention_bound(q, k, valid, True, 2, q.nbytes + lse.nbytes),
+           cuda_ms(lambda: F.scaled_dot_product_attention(
+               sq, sk, sv, attn_mask=smask)))
+    sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask)
+    sdo = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (sq, sk, sv), sdo, retain_graph=True))
+    del sdpa_out, sq, sk, sv, smask
+
+    dq, delta = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, True)
+    rdq, rdelta = k2.flash_attention_bwd_dq_plain(qf, kf, vf, o.float(), lse,
+                                                  do.float(), valid, True)
+    errs = [err(dq, rdq, BWD_REL_TOL), err(delta, rdelta, 1e-5)]
+    again = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, True)[0]
+    if not torch.equal(dq, again):
+        raise RuntimeError("flash_attention_bwd_dq: two runs differ")
+    del rdq, rdelta, again
+    row_bytes = lse.nbytes  # lse and delta: fp32 [B, Hq, S]
+    report("flash_attention_bwd_dq", errs,
+           lambda: k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid,
+                                             True),
+           lambda: k2.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                   valid, True),
+           attention_bound(q, k, valid, True, 3,
+                           3 * q.nbytes + 2 * row_bytes),
+           sdpa_bwd_ms)
+
+    dk, dv = k2.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid, True)
+    rdk, rdv = k2.flash_attention_bwd_dkv_plain(qf, kf, vf, do.float(), lse,
+                                                delta, valid, True)
+    errs = [err(dk, rdk, BWD_REL_TOL), err(dv, rdv, BWD_REL_TOL)]
+    again = k2.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid, True)
+    if not (torch.equal(dk, again[0]) and torch.equal(dv, again[1])):
+        raise RuntimeError("flash_attention_bwd_dkv: two runs differ")
+    del rdk, rdv, again
+    report("flash_attention_bwd_dkv", errs,
+           lambda: k2.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid,
+                                              True),
+           lambda: k2.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                    valid, True),
+           attention_bound(q, k, valid, True, 4,
+                           q.nbytes + 2 * k.nbytes + 2 * row_bytes),
+           sdpa_bwd_ms)
+    log("[training attention] K8 and K9 gave bit-identical results in two "
+        "runs each")
+    return out
+
+
+def training_batches(cfg, rng, n_steps):
+    """n_steps Batches of GRAD_ACCUM x TRAIN_B videos of uint8 RGB frames:
+    prompt [1, VIDEO] + random text, whose lengths spread the spliced
+    valid_len over 1400-2048; labels IGNORE on the first two positions."""
+    from videollama2_tpu_torch.constants import (IGNORE_INDEX,
+                                                  VIDEO_TOKEN_INDEX)
+    from videollama2_tpu_torch.multimodal.splice import plan_batch
+    from videollama2_tpu_torch.train.data import Batch
+    n, H = GRAD_ACCUM * TRAIN_B, cfg.vision.image_size
+    tpv = cfg.tokens_per_video
+    out = []
+    for _ in range(n_steps):
+        valid = rng.permutation(np.linspace(TRAIN_MIN_VALID, TRAIN_S, n)
+                                .round().astype(int))
+        ids, labels = [], []
+        for v in valid:
+            text = [int(x) for x in rng.integers(10, cfg.llm.vocab_size,
+                                                 v - 1 - tpv)]
+            ids.append([1, VIDEO_TOKEN_INDEX] + text)
+            labels.append([IGNORE_INDEX, IGNORE_INDEX] + text)
+        plan = plan_batch(ids, tpv, TRAIN_S, batch_labels=labels)
+        assert sorted(plan.valid_len.tolist()) == sorted(valid.tolist())
+        out.append(Batch(rng.integers(0, 256, (n, cfg.num_frames, H, H, 3),
+                                      dtype=np.uint8),
+                         plan.text_ids, plan.is_visual, plan.vis_index,
+                         plan.positions, plan.valid_len, plan.labels))
+    return out
+
+
+def _checksums(tensors) -> list:
+    """Exact checksums: each tensor's bits summed as integers."""
+    ints = {2: torch.int16, 4: torch.int32, 1: torch.int8}
+    return [torch.sum(t.detach().view(ints[t.element_size()]),
+                      dtype=torch.int64).item() for t in tensors]
+
+
+def run_training(cfg, params, batches, counters, want, out_dir) -> dict:
+    """Two runs of TRAIN_STEPS optimizer steps through Trainer.train from
+    the same params; checks launch counts, losses (finite, equal in both
+    runs), that the connector changed and that no frozen tensor did."""
+    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                       flatten)
+    from videollama2_tpu_torch.train.trainer import Trainer, TrainerConfig
+    flat = flatten(params)
+    conn = {p: t for p, t in flat.items() if p[0] == "connector"}
+    conn0 = {p: t.detach().clone() for p, t in conn.items()}
+    frozen = [t for p, t in flat.items() if p[0] != "connector"]
+    frozen0 = _checksums(frozen)
+    valid_tokens = [int(b.valid_len.sum()) for b in batches]
+    runs = []
+    for run in range(2):
+        with torch.no_grad():
+            for p, t in conn.items():
+                t.copy_(conn0[p])
+        trainer = Trainer(
+            cfg, params,
+            OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0,
+                            weight_decay=0.0, tune_mm_mlp_adapter=True),
+            TrainerConfig(output_dir=out_dir,
+                          gradient_accumulation_steps=GRAD_ACCUM,
+                          max_steps=TRAIN_STEPS, log_steps=1,
+                          save_steps=10 ** 9))
+        inner, steps = trainer.step_fn, []
+
+        def timed(state, batch, inner=inner, steps=steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = inner(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0,
+                          "loss": float(metrics["loss"]),
+                          "num_tokens": int(metrics["num_tokens"]),
+                          "accuracy": float(metrics["accuracy"]),
+                          "peak_gb": torch.cuda.max_memory_allocated()
+                          / 1e9})
+            return state, metrics
+        trainer.step_fn = timed
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.train(iter(batches))
+        t_train = time.perf_counter() - t0
+        counts = {n: fn.launches for n, fn in counters.items()}
+        for i, st in enumerate(steps):
+            log(f"[training slice] run {run + 1} step {i + 1}: "
+                f"{st['s']:.3f} s, {valid_tokens[i] / st['s']:.0f} valid "
+                f"tokens/s ({valid_tokens[i]} tokens, {st['num_tokens']} "
+                f"supervised), loss {st['loss']:.6f}, accuracy "
+                f"{st['accuracy']:.4f}, peak {st['peak_gb']:.1f} GB")
+        log(f"[training slice] run {run + 1}: Trainer.train {t_train:.1f} s "
+            f"with the projector save; launches {counts} (want {want})")
+        if counts != want:
+            raise RuntimeError(f"training: launch counts {counts} != {want}")
+        if not all(np.isfinite(st["loss"]) for st in steps):
+            raise RuntimeError("training: non-finite loss")
+        if run == 0 and all(torch.equal(t, conn0[p])
+                            for p, t in conn.items()):
+            raise RuntimeError("training: the connector did not change")
+        runs.append([st["loss"] for st in steps])
+        stats = steps
+    if runs[0] != runs[1]:
+        raise RuntimeError(f"training: the two runs' losses differ: {runs}")
+    if _checksums(frozen) != frozen0:
+        raise RuntimeError("training: a frozen tensor changed")
+    log(f"[training slice] losses identical in both runs {runs[1]}; the "
+        f"connector changed; all {len(frozen)} frozen tensors unchanged "
+        "(bit checksums)")
+    return {"steps": stats, "valid_tokens": valid_tokens}
+
+
+def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
+    """One microbatch of 2 rows through forward_train and its backward,
+    with the flash kernels, with FlashAttention's halves swapped for their
+    plain versions, and with the kernels' attention outputs and gradients
+    each moved by up to one bf16 ulp (x (1 + 2^-8 u), u uniform in
+    [-1, 1), seeded). The tower's K1 runs in all three.
+
+    Bounds: the kernel and plain runs compute the same bf16 model and
+    differ by where attention rounds (bf16 P and dS inside the kernels'
+    products, fp32 sums in another order, fast exp; the plain backward has
+    no bf16 intermediates), which is of the size of one more bf16 rounding
+    of each attention output and gradient, and the 32 layers carry it
+    forward and back to the connector. The jittered run measures how far
+    exactly that moves the connector gradient on this batch (the rounding
+    floor), so the kernel-vs-plain difference is held to twice the floor's
+    relative L2; besides, cosine >= TRAIN_GRAD_COS and the loss to
+    TRAIN_LOSS_REL_TOL."""
+    from videollama2_tpu_torch.train.data import Batch
+    from videollama2_tpu_torch.train.optimizer import flatten
+    from videollama2_tpu_torch.train.step import loss_fn
+    mb = Batch(*(a[:2] for a in batch))
+    conn = list(flatten(params["connector"]).values())
+
+    def loss_and_grad():
+        for t in conn:
+            t.grad = None
+        loss, _ = loss_fn(params, cfg, mb, torch.bfloat16, conn[0].device)
+        loss.backward()
+        g = torch.cat([t.grad.float().flatten() for t in conn])
+        for t in conn:
+            t.grad = None
+        return loss.item(), g
+
+    def swapped(**attrs):
+        saved = {n: getattr(k2, n) for n in attrs}
+        for n, fn in attrs.items():
+            setattr(k2, n, fn)
+        try:
+            return loss_and_grad()
+        finally:
+            for n, fn in saved.items():
+                setattr(k2, n, fn)
+
+    names = ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    before = [counters[n].launches for n in names]
+    loss_k, g_k = loss_and_grad()
+    added = [counters[n].launches - b for n, b in zip(names, before)]
+    L = cfg.llm.num_layers
+    if added != [2 * L, L, L]:
+        raise RuntimeError(f"kernel microbatch launches {added}")
+    before = [counters[n].launches for n in names]
+    loss_p, g_p = swapped(flash_attention=k2.flash_attention_plain,
+                          flash_attention_bwd=k2.flash_attention_bwd_plain)
+    if [counters[n].launches for n in names] != before:
+        raise RuntimeError("the plain microbatch launched a kernel")
+
+    noise = torch.Generator(device=g_k.device).manual_seed(0)
+
+    def jitter(t):
+        if t is None:
+            return None
+        u = torch.rand(t.shape, generator=noise, device=t.device) * 2 - 1
+        return (t.float() * (1 + 2.0 ** -8 * u)).to(t.dtype)
+    kernels = k2.FlashAttention
+
+    class Jittered(torch.autograd.Function):
+        """FlashAttention on the kernels, its output and gradients each
+        moved by up to one bf16 ulp."""
+        @staticmethod
+        def forward(ctx, *args):
+            return jitter(kernels.forward(ctx, *args))
+
+        @staticmethod
+        def backward(ctx, do):
+            return tuple(jitter(g) for g in kernels.backward(ctx, do))
+    before = [counters[n].launches for n in names]
+    loss_j, g_j = swapped(FlashAttention=Jittered)
+    if [counters[n].launches - b for n, b in zip(names, before)] \
+            != [2 * L, L, L]:
+        raise RuntimeError("the jittered microbatch skipped the kernels")
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    cos = torch.nn.functional.cosine_similarity
+    res = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_l2": rel_l2(g_k, g_p),
+           "grad_cosine": cos(g_k, g_p, dim=0).item(),
+           "floor_loss_rel_diff": abs(loss_j - loss_k) / abs(loss_k),
+           "floor_grad_rel_l2": rel_l2(g_j, g_k),
+           "floor_grad_cosine": cos(g_j, g_k, dim=0).item()}
+    log(f"[training vs plain attention] {json.dumps(res)} (bounds: loss "
+        f"{TRAIN_LOSS_REL_TOL}, rel L2 2 x floor = "
+        f"{2 * res['floor_grad_rel_l2']:.4f}, cosine >= {TRAIN_GRAD_COS})")
+    if not (res["loss_rel_diff"] <= TRAIN_LOSS_REL_TOL
+            and res["grad_rel_l2"] <= 2 * res["floor_grad_rel_l2"]
+            and res["grad_cosine"] >= TRAIN_GRAD_COS):
+        raise RuntimeError("training: kernel and plain-attention loss or "
+                           "connector gradient differ beyond the bounds")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -433,10 +869,11 @@ def main() -> None:
     log(f"[build] nvcc sm_90a build of csrc/*.cu (one process a source) "
         f"{'(found built already) ' if cached else ''}and load: "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas_report(_build.library_path().parent / _build.BUILD_LOG)
 
     # -- every kernel against its plain version at main-path shapes ---------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1_cases, k2_cases = attention_cases(gen)
+    k1_cases, k2_cases, yard = attention_cases(gen)
     k1_err, k1_times = check_kernel(
         "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
         k1_cases, K1_TOL)
@@ -444,10 +881,18 @@ def main() -> None:
         "flash_attention", k2.flash_attention, k2.flash_attention_plain,
         k2_cases, K2_TOL)
     del k1_cases, k2_cases
+    k3_cases, yard["decode_attention_layered"] = decode_attention_cases(
+        gen, _quantize_kv_rows)
     k3_err, k3_times = check_kernel(
         "decode_attention", k3.decode_attention_layered,
-        k3.decode_attention_plain, decode_attention_cases(
-            gen, _quantize_kv_rows), K3_TOL)
+        k3.decode_attention_plain, k3_cases, K3_TOL)
+    del k3_cases
+    for name in ("encoder_attention", "flash_attention",
+                 "decode_attention_layered"):
+        bnd, lib_fn = yard[name]
+        yard[name] = (bnd, cuda_ms(lib_fn))
+        log(f"[{name}] bound {bnd[0]:.4f} ms ({bnd[1]}), torch SDPA "
+            f"yardstick {yard[name][1]:.4f} ms")
     errs, times = {}, {}
     for mm, ffn, mm_layers, quantize in (
             ("matmul_q8_layered", "ffn_q8_layered", 4,
@@ -455,15 +900,23 @@ def main() -> None:
             ("matmul_q4_layered", "ffn_q4_layered", 8,
              lambda w: tuple(quantize_int4(w, axis=-2)[k]
                              for k in ("q4", "scale")))):
-        mm_cases, ffn_cases = matmul_cases(gen, quantize, mm_layers)
+        mm_cases, ffn_cases, yard[mm], yard[ffn] = matmul_cases(
+            gen, quantize, mm_layers)
+        yard[mm], yard[ffn] = (yard[mm], None), (yard[ffn], None)
         for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
             errs[name], times[name] = check_kernel(
                 name, getattr(dk, name), getattr(dk, name + "_plain"),
                 cases, MATMUL_REL_TOL, rel=True)
         del mm_cases, ffn_cases
+    head_cases, head_bound = head_matmul_case(gen, quantize_int8)
+    yard["matmul_q8"] = (head_bound, None)
     errs["matmul_q8"], times["matmul_q8"] = check_kernel(
-        "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain,
-        head_matmul_case(gen, quantize_int8), MATMUL_REL_TOL, rel=True)
+        "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain, head_cases,
+        MATMUL_REL_TOL, rel=True)
+    del head_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_kernels = check_training_attention(gen, k2)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -488,7 +941,9 @@ def main() -> None:
                 "ffn_q8_layered": dk.ffn_q8_layered,
                 "matmul_q4_layered": dk.matmul_q4_layered,
                 "ffn_q4_layered": dk.ffn_q4_layered,
-                "matmul_q8": qm.matmul_q8}
+                "matmul_q8": qm.matmul_q8,
+                "flash_attention_bwd_dq": k2.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": k2.flash_attention_bwd_dkv}
     stages, slice_counts = {}, {}
 
     for slice_name, bits in (("bf16 slice", None), ("int8 slice", 8),
@@ -526,22 +981,71 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
     log(json.dumps({"stages": stages}))
 
-    def entry(name, source, replaces, launches, err, times):
+    # -- the stage-1 training slice at full width ----------------------------
+    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=8)
+    # cuDNN's convolution backward may pick algorithms that sum with
+    # atomics; the two training runs must agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
+                              seed=0)
+    torch.cuda.synchronize()
+    log(f"[training slice] weights made on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({sum(t.nbytes for t in _leaves(params)) / 1e9:.2f} GB, "
+        f"connector {sum(t.numel() for t in _leaves(params['connector'])) / 1e6:.1f} M params); "
+        f"{cfg.tokens_per_video} visual tokens a video")
+    batches = training_batches(cfg, np.random.default_rng(1), TRAIN_STEPS)
+    micro = GRAD_ACCUM * TRAIN_STEPS
+    per_mb = {"encoder_attention": n_layers_vit * (TRAIN_B * cfg.num_frames
+                                                   // 128 or 1),
+              "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+              "flash_attention_bwd_dkv": L}
+    want = dict.fromkeys(counters, 0)
+    want.update({n: c * micro for n, c in per_mb.items()})
+    log(f"[training slice] launches a microbatch wanted: {per_mb} (x "
+        f"{micro} microbatches a run)")
+    with tempfile.TemporaryDirectory() as out_dir:
+        train = run_training(cfg, params, batches, counters, want, out_dir)
+    train["vs_plain"] = check_training_against_plain(cfg, params, batches[0],
+                                                     k2, counters)
+    log(json.dumps({"training": train}))
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, launches, err, times, **extra):
+        (bound_ms, bound_by), library_ms = yard[name]
         return {"name": name, "route": "cuda",
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
                 "launches": launches, "max_abs_err": err,
-                "ms": times[0][0], "plain_ms": times[0][1]}
+                "ms": times[0][0], "plain_ms": times[0][1],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, **extra}
 
-    # launches: each kernel's count in the generate of the slice whose path
-    # runs it (matmul_q8 is on no path: 0, checked in every slice)
+    def train_entry(name, key, replaces):
+        return {"name": name, "route": "cuda",
+                "source": "videollama2_tpu_torch/csrc/flash_attention_bwd.cu",
+                "replaces": f"videollama2_tpu/ops/{replaces}",
+                "launches": want[name], **train_kernels[key]}
+
+    lse = train_kernels["flash_attention +lse"]
+    # launches: each kernel's count in the run of the slice whose path runs
+    # it (matmul_q8 is on no path: 0, checked in every slice)
     kernels = [
         entry("encoder_attention", "encoder_attention.cu",
               "encoder_attention.py:230",
               slice_counts[None]["encoder_attention"], k1_err, k1_times),
         entry("flash_attention", "flash_attention.cu",
               "flash_attention.py:179", slice_counts[None]["flash_attention"],
-              k2_err, k2_times),
+              k2_err, k2_times,
+              note=f"bf16 serving prefill; with the LSE in the training "
+              f"slice: {want['flash_attention']} launches a run, "
+              f"{lse['ms']:.4f} ms (plain {lse['plain_ms']:.3f}, bound "
+              f"{lse['bound_ms']:.4f}, SDPA {lse['library_ms']:.4f}) at "
+              f"q[{TRAIN_B},{TRAIN_S},32,128], max_abs_err "
+              f"{lse['max_abs_err']:.3e}"),
         entry("decode_attention_layered", "decode_attention.cu",
               "decode_attention.py:249", slice_counts[8]["decode_attention"],
               k3_err, k3_times),
@@ -556,7 +1060,11 @@ def main() -> None:
               "decode_matmul.py:164", 4),
              ("ffn_q4_layered", "decode_matmul_q4.cu",
               "decode_matmul.py:297", 4),
-             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51", 4))]
+             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51", 4))] + [
+        train_entry("flash_attention_bwd_dq", "flash_attention_bwd_dq",
+                    "flash_attention.py:352"),
+        train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
+                    "flash_attention.py:383")]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

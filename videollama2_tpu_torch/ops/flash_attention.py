@@ -66,16 +66,20 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(-1).transpose(1, 2)
 
 
-def _bwd_plain(q, k, v, lse, do, delta, valid_len, causal, scale):
+def _bwd_plain(q, k, v, lse, do, delta, valid_len, causal, scale,
+               dq_part=True, dkv_part=True):
     """FlashAttention-2's backward with the explicit mask, in fp32, one
-    batch row at a time (bounds the [Hq, Sq, Sk] intermediates)."""
+    batch row at a time (bounds the [Hq, Sq, Sk] intermediates). Returns
+    (dq, dk, dv), None for a part not asked for."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+
+    def empty(t):
+        return torch.empty(t.shape, dtype=torch.float32, device=q.device)
+    dq = empty(q) if dq_part else None
+    dk, dv = (empty(k), empty(v)) if dkv_part else (None, None)
     for b in range(B):
         vl = None if valid_len is None else valid_len[b:b + 1]
         qb = q[b].float().reshape(Sq, Hkv, rep, D)
@@ -89,10 +93,28 @@ def _bwd_plain(q, k, v, lse, do, delta, valid_len, causal, scale):
                         torch.zeros((), device=q.device))
         dp = torch.einsum("qhrd,khd->hrqk", dob, vb)
         ds = p * (dp - delta[b].reshape(Hkv, rep, Sq, 1)) * scale
-        dq[b] = torch.einsum("hrqk,khd->qhrd", ds, kb).reshape(Sq, Hq, D)
-        dk[b] = torch.einsum("hrqk,qhrd->khd", ds, qb)
-        dv[b] = torch.einsum("hrqk,qhrd->khd", p, dob)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        if dq_part:
+            dq[b] = torch.einsum("hrqk,khd->qhrd", ds, kb).reshape(Sq, Hq, D)
+        if dkv_part:
+            dk[b] = torch.einsum("hrqk,qhrd->khd", ds, qb)
+            dv[b] = torch.einsum("hrqk,qhrd->khd", p, dob)
+    return tuple(None if t is None else t.to(ref.dtype)
+                 for t, ref in ((dq, q), (dk, k), (dv, v)))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, valid_len=None,
+                                 causal=True, scale=None):
+    """Plain version of K8: (dq, delta)."""
+    delta = attention_delta(o, do)
+    return _bwd_plain(q, k, v, lse, do, delta, valid_len, causal, scale,
+                      dkv_part=False)[0], delta
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, valid_len=None,
+                                  causal=True, scale=None):
+    """Plain version of K9: (dk, dv) from K8's delta."""
+    return _bwd_plain(q, k, v, lse, do, delta, valid_len, causal, scale,
+                      dq_part=False)[1:]
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, valid_len=None,
@@ -193,9 +215,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, valid_len=None, causal=True,
                            scale=None):
     """K8: (dq [B, Sq, Hq, D], delta fp32 [B, Hq, Sq]); K9 reads delta."""
     if q.device.type == "cpu":
-        delta = attention_delta(o, do)
-        return _bwd_plain(q, k, v, lse, do, delta, valid_len, causal,
-                          scale)[0], delta
+        return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, valid_len,
+                                            causal, scale)
     _on_cuda("flash_attention_bwd_dq", q)
     B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len, True)
     o = _check_rows("o", o, q.shape, q.device)
@@ -219,8 +240,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid_len=None,
                             causal=True, scale=None):
     """K9: (dk, dv) [B, Sk, Hkv, D], each query group summed in fp32."""
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, lse, do, delta, valid_len, causal,
-                          scale)[1:]
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             valid_len, causal, scale)
     _on_cuda("flash_attention_bwd_dkv", q)
     B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len, True)
     do = _check_rows("do", do, q.shape, q.device)
