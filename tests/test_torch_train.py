@@ -25,6 +25,7 @@ from videollama2_tpu.core import config as cfglib
 from videollama2_tpu.models import videollama2 as jvl2
 from videollama2_tpu.train import data as jdata
 from videollama2_tpu.train import optimizer as jopt
+from videollama2_tpu.train import step as jstep
 from videollama2_tpu_torch.checkpoint import projector_io
 from videollama2_tpu_torch.checkpoint.from_jax import params_from_jax
 from videollama2_tpu_torch.train import data as tdata
@@ -245,3 +246,44 @@ def test_projector_files_cross_read(tiny, tmp_path):
     for path, t in topt.flatten(back).items():
         assert t.dtype == torch.bfloat16
         assert torch.equal(t, bf16[path].bfloat16()), path
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_moment_dtypes_follow_jax_in_bf16(tiny, grad_accum):
+    """With bf16 params optax's moments take the gradient's dtype: bf16
+    for grad_accum 1, fp32 for grad_accum 2 (fp32 gradient sums); the
+    port's step ends with the same dtypes and params stay bf16."""
+    cfg, jparams = tiny
+    batch = tdata.Collator(cfg, SEQ)(_instances(cfg, n=2, seed=5))
+    kw = dict(learning_rate=1e-3, warmup_ratio=0.0,
+              tune_mm_mlp_adapter=True)
+    bf16 = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jparams)
+    jcfg = jopt.OptimizerConfig(**kw)
+    jtx = jopt.build_optimizer(bf16, jcfg)
+    jfn = jstep.make_train_step(cfg, jtx, compute_dtype=jnp.bfloat16,
+                                grad_accum=grad_accum, remat=False,
+                                trainable=jopt.trainable_mask(bf16, jcfg))
+    jstate, _ = jfn(jstep.init_state(bf16, jtx), _jbatch(batch))
+    adam = jstate.opt_state.inner_states["projector"].inner_state[1][0]
+    jmu = {str(a.dtype) for a in jax.tree.leaves(adam.mu)}
+    jnu = {str(a.dtype) for a in jax.tree.leaves(adam.nu)}
+
+    def to_bf16(tree):
+        return {k: to_bf16(v) if isinstance(v, dict) else v.bfloat16()
+                for k, v in tree.items()}
+    tparams = to_bf16(_tparams(cfg, jparams))
+    tcfg = topt.OptimizerConfig(**kw)
+    ttx = topt.build_optimizer(tparams, tcfg)
+    tfn = tstep.make_train_step(cfg, ttx, compute_dtype=torch.bfloat16,
+                                grad_accum=grad_accum,
+                                trainable=topt.trainable_mask(tparams, tcfg))
+    state, _ = tfn(tstep.init_state(tparams, ttx), batch)
+    tmu = {str(t.dtype).replace("torch.", "")
+           for t in state.opt_state["mu"].values()}
+    tnu = {str(t.dtype).replace("torch.", "")
+           for t in state.opt_state["nu"].values()}
+    want = {"bfloat16"} if grad_accum == 1 else {"float32"}
+    assert jmu == jnu == want
+    assert tmu == tnu == want
+    assert {t.dtype for t in topt.flatten(state.params).values()} \
+        == {torch.bfloat16}

@@ -8,7 +8,10 @@ connector convs, 1/sqrt(fan_in) readout). Random values, unlike constant
 fills, give every attention row a different softmax, so a kernel bug shows
 up in the output. The quantized variants (int8 or folded int4 LLM layers,
 an int8 head and tower) quantize that same tree on the device with
-ops/quant, one layer at a time.
+ops/quant, one layer at a time. The bf16 tree is also the training
+slice's: the stage-1 step trains its connector in bf16 (fp32 gradient
+sums and Adam moments beside it, as the JAX step trains a bf16 tree) and
+leaves the rest frozen.
 """
 
 from __future__ import annotations
