@@ -618,35 +618,6 @@ def check_training_attention(gen, k2) -> dict:
     return out
 
 
-def training_batches(cfg, rng, n_steps):
-    """n_steps Batches of GRAD_ACCUM x TRAIN_B videos of uint8 RGB frames:
-    prompt [1, VIDEO] + random text, whose lengths spread the spliced
-    valid_len over 1400-2048; labels IGNORE on the first two positions."""
-    from videollama2_tpu_torch.constants import (IGNORE_INDEX,
-                                                  VIDEO_TOKEN_INDEX)
-    from videollama2_tpu_torch.multimodal.splice import plan_batch
-    from videollama2_tpu_torch.train.data import Batch
-    n, H = GRAD_ACCUM * TRAIN_B, cfg.vision.image_size
-    tpv = cfg.tokens_per_video
-    out = []
-    for _ in range(n_steps):
-        valid = rng.permutation(np.linspace(TRAIN_MIN_VALID, TRAIN_S, n)
-                                .round().astype(int))
-        ids, labels = [], []
-        for v in valid:
-            text = [int(x) for x in rng.integers(10, cfg.llm.vocab_size,
-                                                 v - 1 - tpv)]
-            ids.append([1, VIDEO_TOKEN_INDEX] + text)
-            labels.append([IGNORE_INDEX, IGNORE_INDEX] + text)
-        plan = plan_batch(ids, tpv, TRAIN_S, batch_labels=labels)
-        assert sorted(plan.valid_len.tolist()) == sorted(valid.tolist())
-        out.append(Batch(rng.integers(0, 256, (n, cfg.num_frames, H, H, 3),
-                                      dtype=np.uint8),
-                         plan.text_ids, plan.is_visual, plan.vis_index,
-                         plan.positions, plan.valid_len, plan.labels))
-    return out
-
-
 def _checksums(tensors) -> list:
     """Exact checksums: each tensor's bits summed as integers."""
     ints = {2: torch.int16, 4: torch.int32, 1: torch.int8}
@@ -755,7 +726,7 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
     def loss_and_grad():
         for t in conn:
             t.grad = None
-        loss, _ = loss_fn(params, cfg, mb, torch.bfloat16, conn[0].device)
+        loss, _ = loss_fn(params, cfg, mb)
         loss.backward()
         g = torch.cat([t.grad.float().flatten() for t in conn])
         for t in conn:
@@ -849,7 +820,8 @@ def main() -> None:
     from videollama2_tpu_torch.ops import flash_attention as k2
     from videollama2_tpu_torch.ops import quant_matmul as qm
     from videollama2_tpu_torch.ops.quant import quantize_int4, quantize_int8
-    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    from videollama2_tpu_torch.utils.synthetic import (synthetic_params,
+                                                       synthetic_train_batch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -995,7 +967,10 @@ def main() -> None:
         f"{time.perf_counter() - t0:.2f} s ({sum(t.nbytes for t in _leaves(params)) / 1e9:.2f} GB, "
         f"connector {sum(t.numel() for t in _leaves(params['connector'])) / 1e6:.1f} M params); "
         f"{cfg.tokens_per_video} visual tokens a video")
-    batches = training_batches(cfg, np.random.default_rng(1), TRAIN_STEPS)
+    rng = np.random.default_rng(1)
+    batches = [synthetic_train_batch(cfg, rng, GRAD_ACCUM * TRAIN_B, TRAIN_S,
+                                     TRAIN_MIN_VALID)
+               for _ in range(TRAIN_STEPS)]
     micro = GRAD_ACCUM * TRAIN_STEPS
     per_mb = {"encoder_attention": n_layers_vit * (TRAIN_B * cfg.num_frames
                                                    // 128 or 1),

@@ -58,13 +58,11 @@ def busy_ms(intervals) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs an NVIDIA GPU")
-    from videollama2_tpu_torch.constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
     from videollama2_tpu_torch.core import config as cfglib
-    from videollama2_tpu_torch.multimodal.splice import plan_batch
-    from videollama2_tpu_torch.train.data import Batch
     from videollama2_tpu_torch.train.optimizer import flatten
     from videollama2_tpu_torch.train.step import loss_fn
-    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    from videollama2_tpu_torch.utils.synthetic import (synthetic_params,
+                                                       synthetic_train_batch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -77,21 +75,11 @@ def main() -> None:
                               seed=0)
     for t in flatten(params["connector"]).values():
         t.requires_grad_(True)
-    rng = np.random.default_rng(1)
-    B, S, tpv = 8, 2048, cfg.tokens_per_video
-    valid = np.linspace(1400, S, B).round().astype(int)
-    ids = [[1, VIDEO_TOKEN_INDEX] + [int(x) for x in rng.integers(
-        10, cfg.llm.vocab_size, v - 1 - tpv)] for v in valid]
-    labels = [[IGNORE_INDEX, IGNORE_INDEX] + i[2:] for i in ids]
-    plan = plan_batch(ids, tpv, S, batch_labels=labels)
-    H = cfg.vision.image_size
-    batch = Batch(rng.integers(0, 256, (B, cfg.num_frames, H, H, 3),
-                               dtype=np.uint8), plan.text_ids,
-                  plan.is_visual, plan.vis_index, plan.positions,
-                  plan.valid_len, plan.labels)
+    B, S = 8, 2048
+    batch = synthetic_train_batch(cfg, np.random.default_rng(1), B, S, 1400)
 
     def microbatch():
-        loss, _ = loss_fn(params, cfg, batch, torch.bfloat16, "cuda")
+        loss, _ = loss_fn(params, cfg, batch)
         loss.backward()
         for t in flatten(params["connector"]).values():
             t.grad = None
@@ -123,7 +111,7 @@ def main() -> None:
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy = busy_ms(intervals)
     out = {"device": smi, "microbatch": f"{B} videos x {cfg.num_frames} "
-           f"frames, seq {S}, valid_len {valid.tolist()}",
+           f"frames, seq {S}, valid_len {sorted(batch.valid_len.tolist())}",
            "wall_ms_unprofiled": wall_plain, "wall_ms_profiled": wall,
            "device_busy_ms": busy, "busy_share": busy / wall,
            "kernels": n, "device_ms_by_class": dict(sorted(

@@ -109,7 +109,7 @@ def _jax_loss(jparams, cfg, batch):
 
 
 def _port_loss(tparams, cfg, batch):
-    return tstep.loss_fn(tparams, cfg, batch, torch.float32, "cpu")
+    return tstep.loss_fn(tparams, cfg, batch)
 
 
 @pytest.fixture(scope="module")
@@ -187,7 +187,7 @@ def test_trainer_loss_decreases_and_logs(tiny, tmp_path):
     out = str(tmp_path / "run")
     trainer = Trainer(cfg, _tparams(cfg, jparams), ocfg,
                       TrainerConfig(output_dir=out, max_steps=12,
-                                    log_steps=1, compute_dtype="float32"))
+                                    log_steps=1))
     state = trainer.train(iter([batch] * 20))
     assert state.step == 12
     with open(os.path.join(out, "train_log.jsonl")) as f:
@@ -206,7 +206,7 @@ def test_pretrain_trainer_saves_a_projector_jax_reads(tiny, tmp_path):
                       topt.OptimizerConfig(learning_rate=1e-3,
                                            tune_mm_mlp_adapter=True),
                       TrainerConfig(output_dir=out, max_steps=2,
-                                    save_steps=1, compute_dtype="float32"))
+                                    save_steps=1))
     trainer.train([batch, batch])
     assert sorted(os.listdir(out)) == ["adapter-1", "adapter-2",
                                        "train_log.jsonl"]
@@ -274,9 +274,8 @@ def test_moment_dtypes_follow_jax_in_bf16(tiny, grad_accum):
     tparams = to_bf16(_tparams(cfg, jparams))
     tcfg = topt.OptimizerConfig(**kw)
     ttx = topt.build_optimizer(tparams, tcfg)
-    tfn = tstep.make_train_step(cfg, ttx, compute_dtype=torch.bfloat16,
-                                grad_accum=grad_accum,
-                                trainable=topt.trainable_mask(tparams, tcfg))
+    tfn = tstep.make_train_step(cfg, ttx, topt.trainable_mask(tparams, tcfg),
+                                grad_accum=grad_accum)
     state, _ = tfn(tstep.init_state(tparams, ttx), batch)
     tmu = {str(t.dtype).replace("torch.", "")
            for t in state.opt_state["mu"].values()}

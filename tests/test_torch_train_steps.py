@@ -61,8 +61,7 @@ def test_train_steps_match_jax(tiny, mask, grad_accum, steps):
     tcfg = topt.OptimizerConfig(**kw)
     ttx = topt.build_optimizer(tparams, tcfg)
     trainable = topt.trainable_mask(tparams, tcfg)
-    tfn = tstep.make_train_step(cfg, ttx, compute_dtype=torch.float32,
-                                grad_accum=grad_accum, trainable=trainable)
+    tfn = tstep.make_train_step(cfg, ttx, trainable, grad_accum=grad_accum)
     tstate = tstep.init_state(tparams, ttx)
     before = {p: t.detach().clone() for p, t in topt.flatten(tparams).items()}
 

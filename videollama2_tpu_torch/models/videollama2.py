@@ -139,16 +139,16 @@ def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,
 def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                   text_ids: torch.Tensor, is_visual: torch.Tensor,
                   vis_index: torch.Tensor, positions: torch.Tensor,
-                  valid_len: torch.Tensor, labels: torch.Tensor,
-                  remat: bool = True) -> Tuple[torch.Tensor, dict]:
+                  valid_len: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, dict]:
     """Training forward (JAX `forward_train`): (mean masked CE loss,
     metrics {"loss", "num_tokens", "accuracy"}).
 
     The tower runs under torch.no_grad (frozen, as JAX's stop_gradient on
-    its features); the connector, splice, LLM (each layer checkpointed
-    with remat) and fp32 head carry gradients. Labels use IGNORE_INDEX for
-    unsupervised positions; the loss is next-token CE over the supervised
-    ones (HF causal-LM shift)."""
+    its features); the connector, splice, LLM (each layer checkpointed, as
+    JAX's remat=True) and fp32 head carry gradients. Labels use
+    IGNORE_INDEX for unsupervised positions; the loss is next-token CE over
+    the supervised ones (HF causal-LM shift)."""
     with torch.no_grad():
         feats = frame_features(params, cfg, frames)
     vis_tokens = temporal_aggregator(params, cfg, feats)
@@ -157,7 +157,7 @@ def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
                                        vis_index)
     hidden = llm_lib.forward(params["llm"], cfg.llm, embeds, positions,
-                             valid_len, remat=remat)
+                             valid_len, remat=True)
     logits = llm_lib.lm_logits(params["llm"], cfg.llm, hidden)  # fp32
     shift_logits = logits[:, :-1]
     shift_labels = labels[:, 1:].long()

@@ -126,9 +126,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, valid_len=None,
                       causal, scale)
 
 
-def _check_qkv(q, k, v, valid_len, needs_grad_ok: bool = False):
+def _check_qkv(q, k, v, valid_len):
     """Checks shared by the three kernels; returns the dims and valid_len
-    (int32 [B] contiguous, or None)."""
+    (int32 [B] contiguous, or None). A kernel call is not differentiable:
+    it refuses inputs that need a gradient (FlashAttention calls the
+    kernels with grad mode off)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_operand(name, t, q.device)
     B, Sq, Hq, D = q.shape
@@ -140,8 +142,7 @@ def _check_qkv(q, k, v, valid_len, needs_grad_ok: bool = False):
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention takes D in {SUPPORTED_HEAD_DIMS},"
                          f" got {D}")
-    if not needs_grad_ok and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the kernel call is not "
                            "differentiable; use FlashAttention.apply")
     if valid_len is not None:
@@ -218,7 +219,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, valid_len=None, causal=True,
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, valid_len,
                                             causal, scale)
     _on_cuda("flash_attention_bwd_dq", q)
-    B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len, True)
+    B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len)
     o = _check_rows("o", o, q.shape, q.device)
     do = _check_rows("do", do, q.shape, q.device)
     _check_rowstat("lse", lse, (B, Hq, Sq), q.device)
@@ -243,7 +244,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid_len=None,
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                              valid_len, causal, scale)
     _on_cuda("flash_attention_bwd_dkv", q)
-    B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len, True)
+    B, Sq, Sk, Hq, Hkv, D, valid_len = _check_qkv(q, k, v, valid_len)
     do = _check_rows("do", do, q.shape, q.device)
     _check_rowstat("lse", lse, (B, Hq, Sq), q.device)
     _check_rowstat("delta", delta, (B, Hq, Sq), q.device)

@@ -27,7 +27,6 @@ trainable tree).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -49,7 +48,6 @@ class OptimizerConfig:
     max_grad_norm: float = 1.0
     tune_mm_mlp_adapter: bool = False  # pretrain: projector-only
     freeze_backbone: bool = False
-    lora_enable: bool = False          # not ported yet: raises
 
 
 Path = Tuple[str, ...]
@@ -122,12 +120,10 @@ def _decay_mask(params: dict) -> Dict[Path, bool]:
     return {p: t.dim() > 1 for p, t in flatten(params).items()}
 
 
-def param_labels(params: dict, lora_enable: bool = False) -> Dict[Path, str]:
+def param_labels(params: dict) -> Dict[Path, str]:
     """{path: "frozen" | "projector" | "llm"}: the vision tower and integer
     (quantized) leaves are frozen, the connector is the projector, the rest
-    is the LLM."""
-    if lora_enable:
-        raise NotImplementedError("LoRA training is not ported yet")
+    is the LLM. (LoRA's adapter labels are not ported yet.)"""
 
     def label(path, leaf):
         if path[0] == "vision":
@@ -144,7 +140,7 @@ def trainable_mask(params: dict, cfg: OptimizerConfig) -> Dict[Path, bool]:
     """{path: True where gradients are needed}, mirroring the labels."""
     frozen_llm = cfg.tune_mm_mlp_adapter or cfg.freeze_backbone
     return {p: lb == "projector" or (lb == "llm" and not frozen_llm)
-            for p, lb in param_labels(params, cfg.lora_enable).items()}
+            for p, lb in param_labels(params).items()}
 
 
 class GroupedAdamW:
@@ -153,8 +149,7 @@ class GroupedAdamW:
 
     def __init__(self, params: dict, cfg: OptimizerConfig):
         self.cfg = cfg
-        labels = param_labels(params, cfg.lora_enable)
-        decay = _decay_mask(params)
+        labels = param_labels(params)
         frozen_llm = cfg.tune_mm_mlp_adapter or cfg.freeze_backbone
         lrs = {"projector": cfg.mm_projector_lr or cfg.learning_rate,
                "llm": None if frozen_llm else cfg.learning_rate}
@@ -162,7 +157,7 @@ class GroupedAdamW:
             g: [p for p, lb in labels.items() if lb == g]
             for g, lr in lrs.items() if lr is not None}
         self.schedules = {g: _schedule(lrs[g], cfg) for g in self.groups}
-        self.decay = decay
+        self.decay = _decay_mask(params)
 
     def init(self, params: dict) -> dict:
         """{"count": {group: 0}, "mu"/"nu": {path: zeros in p's dtype}}."""
@@ -171,9 +166,6 @@ class GroupedAdamW:
         return {"count": dict.fromkeys(self.groups, 0),
                 "mu": {p: torch.zeros_like(flat[p]) for p in paths},
                 "nu": {p: torch.zeros_like(flat[p]) for p in paths}}
-
-    def learning_rate(self, group: str, count: int) -> float:
-        return float(self.schedules[group](count))
 
     @torch.no_grad()
     def step(self, params: dict, grads: Dict[Path, torch.Tensor],
@@ -210,8 +202,4 @@ class GroupedAdamW:
 
 
 def build_optimizer(params: dict, cfg: OptimizerConfig) -> GroupedAdamW:
-    if cfg.lora_enable:
-        raise NotImplementedError("LoRA training is not ported yet")
-    if not math.isfinite(cfg.max_grad_norm):
-        raise ValueError("max_grad_norm must be finite")
     return GroupedAdamW(params, cfg)

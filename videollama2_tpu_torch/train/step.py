@@ -15,7 +15,7 @@ optimizer then updates the params in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -54,44 +54,38 @@ def microbatches(batch: Batch, grad_accum: int):
         yield Batch(*(a[i * mb:(i + 1) * mb] for a in batch))
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: Batch, compute_dtype,
-            device, remat: bool = True):
-    """forward_train on one microbatch moved to `device`; floating frames
-    are cast to the compute dtype, uint8 frames are normalized on the
-    device (JAX `_loss_fn`)."""
+def loss_fn(params: dict, cfg: ModelConfig, batch: Batch):
+    """forward_train on one microbatch, moved to the params' device;
+    floating frames are cast to the params' dtype (JAX's compute dtype),
+    uint8 frames are normalized on the device (JAX `_loss_fn`)."""
+    ref = params["vision"]["patch_embed"]["kernel"]
+    device = ref.device
     frames = _to_device(batch.frames, device)
     if frames.is_floating_point():
-        frames = frames.to(compute_dtype)
+        frames = frames.to(ref.dtype)
     return vl2.forward_train(
         params, cfg, frames, _to_device(batch.text_ids, device, torch.long),
         _to_device(batch.is_visual, device),
         _to_device(batch.vis_index, device),
         _to_device(batch.positions, device),
         _to_device(batch.valid_len, device, torch.int32),
-        _to_device(batch.labels, device), remat=remat)
+        _to_device(batch.labels, device))
 
 
 def make_train_step(cfg: ModelConfig, tx: GroupedAdamW,
-                    compute_dtype=torch.bfloat16, grad_accum: int = 1,
-                    trainable: Optional[Dict[Path, bool]] = None,
-                    remat: bool = True, device=None):
+                    trainable: Dict[Path, bool], grad_accum: int = 1):
     """Build step(state, batch) -> (state, metrics). `trainable` ({path:
-    bool}, optimizer.trainable_mask) sets requires_grad on the params at
-    the first step; None trains every floating param."""
+    bool}, optimizer.trainable_mask) sets requires_grad on the params."""
 
     def step_fn(state: TrainState, batch: Batch):
         flat = flatten(state.params)
-        flags = trainable or {p: t.is_floating_point()
-                              for p, t in flat.items()}
         for p, t in flat.items():
-            t.requires_grad_(bool(flags[p]))
-        dev = device or next(iter(flat.values())).device
-        trained = [p for p in flat if flags[p]]
+            t.requires_grad_(bool(trainable[p]))
+        trained = [p for p in flat if trainable[p]]
         acc: Dict[Path, torch.Tensor] = {}
         msum: Dict[str, Any] = {}
         for mb in microbatches(batch, grad_accum):
-            loss, metrics = loss_fn(state.params, cfg, mb, compute_dtype,
-                                    dev, remat)
+            loss, metrics = loss_fn(state.params, cfg, mb)
             loss.backward()
             for p in trained:
                 g = flat[p].grad

@@ -18,8 +18,6 @@ import time
 from dataclasses import dataclass
 from typing import Iterable
 
-import torch
-
 from ..checkpoint import projector_io
 from ..core.config import ModelConfig
 from . import optimizer as opt_lib
@@ -34,8 +32,6 @@ class TrainerConfig:
     max_steps: int = 1
     save_steps: int = 500
     log_steps: int = 10
-    compute_dtype: str = "bfloat16"
-    remat: bool = True
 
 
 class Trainer:
@@ -49,11 +45,8 @@ class Trainer:
         self.tx = opt_lib.build_optimizer(params, self.opt_cfg)
         self.state = step_lib.init_state(params, self.tx)
         self.step_fn = step_lib.make_train_step(
-            model_cfg, self.tx,
-            compute_dtype=getattr(torch, trainer_cfg.compute_dtype),
-            grad_accum=trainer_cfg.gradient_accumulation_steps,
-            trainable=opt_lib.trainable_mask(params, self.opt_cfg),
-            remat=trainer_cfg.remat)
+            model_cfg, self.tx, opt_lib.trainable_mask(params, self.opt_cfg),
+            grad_accum=trainer_cfg.gradient_accumulation_steps)
         self._last_saved = -1
 
     def train(self, batches: Iterable[Batch]) -> step_lib.TrainState:

@@ -19,10 +19,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
 from ..models import videollama2 as vl2
+from ..multimodal.splice import plan_batch
 from ..ops import quant
+from ..train.data import Batch
 
 
 def _init(path, shape, dtype, device, generator) -> torch.Tensor:
@@ -93,3 +97,25 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
         _quantize_in_place(params["vision"]["layers"],
                            quant.VISION_PROJECTIONS, 8)
     return params
+
+
+def synthetic_train_batch(cfg, rng: np.random.Generator, n: int,
+                          seq_len: int, min_valid: int) -> Batch:
+    """A training Batch of n videos of random uint8 RGB frames: prompts
+    [1, VIDEO_TOKEN_INDEX] + random text whose lengths spread the spliced
+    valid_len evenly over [min_valid, seq_len] (rows in a random order),
+    labels IGNORE_INDEX on the first two positions and the text
+    supervised."""
+    tpv, H = cfg.tokens_per_video, cfg.vision.image_size
+    ids, labels = [], []
+    for v in rng.permutation(np.linspace(min_valid, seq_len, n).round()
+                             .astype(int)):
+        text = [int(x) for x in rng.integers(10, cfg.llm.vocab_size,
+                                             v - 1 - tpv)]
+        ids.append([1, VIDEO_TOKEN_INDEX] + text)
+        labels.append([IGNORE_INDEX, IGNORE_INDEX] + text)
+    plan = plan_batch(ids, tpv, seq_len, batch_labels=labels)
+    frames = rng.integers(0, 256, (n, cfg.num_frames, H, H, 3),
+                          dtype=np.uint8)
+    return Batch(frames, plan.text_ids, plan.is_visual, plan.vis_index,
+                 plan.positions, plan.valid_len, plan.labels)
