@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Mutation check of the flash-attention kernels (K2's LSE, K8, K9), on an
-NVIDIA GPU: each mutant is a copy of the repository in the system's
-temporary directory with one deliberate fault in a CUDA source, and the
-flash tests of tests/test_torch_cuda.py must fail on every mutant. Prints
-one line per mutant with pytest's summary. The repository itself is not
-modified. Usage, from the repository root:
+NVIDIA GPU: each mutant is a copy of the port and its tests in the
+system's temporary directory with one deliberate fault in a CUDA source,
+and the flash tests of tests/test_torch_cuda.py must fail on every mutant.
+Prints one line per mutant with pytest's summary and exits non-zero if a
+mutant survives. The repository itself is not modified. Usage, from the
+repository root:
 
     python3 scripts/mutation_check_flash.py
 """
@@ -39,8 +40,11 @@ def main() -> int:
     for name, (fname, old, new) in MUTANTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             dst = Path(tmp) / "repo"
-            shutil.copytree(".", dst, ignore=shutil.ignore_patterns(
-                "build", ".git", "chiprun_out", ".scratch", "__pycache__"))
+            for part in ("videollama2_tpu_torch", "tests"):
+                shutil.copytree(part, dst / part,
+                                ignore=shutil.ignore_patterns(
+                                    "build", "__pycache__"))
+            shutil.copy("pyproject.toml", dst)
             f = dst / SRC / fname
             text = f.read_text()
             if text.count(old) != 1:
