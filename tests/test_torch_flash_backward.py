@@ -169,7 +169,7 @@ def test_attend_routes_to_flash_attention_when_grads_are_needed(
     assert calls == ["fa", "k2+lse", "k2", "k2"]
 
 
-def test_kernel_calls_refuse_grads_and_wrong_devices():
+def test_kernel_calls_refuse_other_devices():
     x = torch.zeros(1, 128, 2, 64, device="meta")
     with pytest.raises(ValueError):
         k2.flash_attention_bwd(x, x, x, x, x, x)

@@ -63,6 +63,11 @@ def _tparams(cfg, jparams):
     return params_from_jax(jparams, cfg)
 
 
+def _to_bf16(tree):
+    return {k: _to_bf16(v) if isinstance(v, dict) else v.bfloat16()
+            for k, v in tree.items()}
+
+
 def _jax_view(tparams, jparams):
     """The port's tree as the JAX tree's {path: numpy} (the fused qkv split
     back into q, k, v along the output axis)."""
@@ -73,15 +78,15 @@ def _jax_view(tparams, jparams):
             out[path] = flat[path]
             continue
         i = next(j for j, n in enumerate(path) if n in ("q", "k", "v"))
-        sizes = [jparams_leaf(jparams, path[:i] + (n,) + path[i + 1:])
-                 .shape[-1] for n in ("q", "k", "v")]
+        sizes = [_leaf(jparams, path[:i] + (n,) + path[i + 1:]).shape[-1]
+                 for n in ("q", "k", "v")]
         start = sum(sizes[:("q", "k", "v").index(path[i])])
         fused = flat[path[:i] + ("qkv",) + path[i + 1:]]
         out[path] = fused[..., start:start + leaf.shape[-1]]
     return out
 
 
-def jparams_leaf(tree, path):
+def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
@@ -108,10 +113,6 @@ def _jax_loss(jparams, cfg, batch):
                               b.valid_len, b.labels)
 
 
-def _port_loss(tparams, cfg, batch):
-    return tstep.loss_fn(tparams, cfg, batch)
-
-
 @pytest.fixture(scope="module")
 def jax_loss_and_grads(tiny):
     """JAX's loss, metrics and connector gradients on one batch."""
@@ -130,7 +131,7 @@ def test_forward_train_matches_jax(tiny, jax_loss_and_grads):
     cfg, jparams = tiny
     batch, jl, jm, _ = jax_loss_and_grads
     with torch.no_grad():
-        tl, tm = _port_loss(_tparams(cfg, jparams), cfg, batch)
+        tl, tm = tstep.loss_fn(_tparams(cfg, jparams), cfg, batch)
     np.testing.assert_allclose(tl.item(), jl, rtol=1e-5)
     assert set(tm) == set(jm) == {"loss", "num_tokens", "accuracy"}
     assert int(tm["num_tokens"]) == int(jm["num_tokens"]) > 0
@@ -147,7 +148,7 @@ def test_connector_grads_match_jax(tiny, jax_loss_and_grads):
     conn = topt.flatten(tparams["connector"])
     for t in conn.values():
         t.requires_grad_(True)
-    loss, _ = _port_loss(tparams, cfg, batch)
+    loss, _ = tstep.loss_fn(tparams, cfg, batch)
     loss.backward()
     assert set(conn) == set(jgrads)
     for path, t in conn.items():
@@ -228,24 +229,18 @@ def test_projector_files_cross_read(tiny, tmp_path):
     for path, t in topt.flatten(got).items():
         assert torch.equal(t, topt.flatten(tconn)[path]), path
 
-    bf16 = {k: v for k, v in topt.flatten(tconn).items()}
-    half = jax.tree.map(lambda a: a, tconn)
-    for path, t in bf16.items():
-        node = half
-        for k in path[:-1]:
-            node = node[k]
-        node[path[-1]] = t.bfloat16()
+    half = _to_bf16(tconn)
+    flat = topt.flatten(half)
     projector_io.save_projector_only(tdir, half)
     with open(os.path.join(tdir, "mm_projector.json")) as f:
-        assert json.load(f) == sorted("/".join(p) for p in bf16)
+        assert json.load(f) == sorted("/".join(p) for p in flat)
     loaded = jorbax.load_projector_only(tdir, jparams["connector"])
     for path, leaf in topt.flatten(jax.tree.map(np.asarray, loaded)).items():
-        np.testing.assert_array_equal(leaf, bf16[path].bfloat16().float()
-                                      .numpy())
+        np.testing.assert_array_equal(leaf, flat[path].float().numpy())
     back = projector_io.load_projector_only(tdir, half)
     for path, t in topt.flatten(back).items():
         assert t.dtype == torch.bfloat16
-        assert torch.equal(t, bf16[path].bfloat16()), path
+        assert torch.equal(t, flat[path]), path
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
@@ -267,11 +262,7 @@ def test_moment_dtypes_follow_jax_in_bf16(tiny, grad_accum):
     adam = jstate.opt_state.inner_states["projector"].inner_state[1][0]
     jmu = {str(a.dtype) for a in jax.tree.leaves(adam.mu)}
     jnu = {str(a.dtype) for a in jax.tree.leaves(adam.nu)}
-
-    def to_bf16(tree):
-        return {k: to_bf16(v) if isinstance(v, dict) else v.bfloat16()
-                for k, v in tree.items()}
-    tparams = to_bf16(_tparams(cfg, jparams))
+    tparams = _to_bf16(_tparams(cfg, jparams))
     tcfg = topt.OptimizerConfig(**kw)
     ttx = topt.build_optimizer(tparams, tcfg)
     tfn = tstep.make_train_step(cfg, ttx, topt.trainable_mask(tparams, tcfg),
