@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (videollama2_tpu_torch) on one NVIDIA
 H100: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes the main path gives it, then drives the
-full-width VideoLLaMA2-7B-16F video-QA path (CLIP-L/336 + STC + Mistral-7B,
-seeded random weights) through Engine.generate twice in each of three
-slices: bf16 (bf16 weights and KV cache), int8 serving (int8 LLM and tower
-packs, W8A8 prefill, int8 KV cache, decode on the layered int8 kernels) and
-int4 serving, `load_4bit` (folded int4 LLM layers, int8 head and tower,
-W4A8 prefill, int8 KV cache, decode on the layered int4 kernels). It checks
-that each run went through its kernels, the exact launch counts, and the
+PyTorch version at the shapes the main paths give it (and K10, the
+head-pair tower attention, against K1 as well; its own path, the
+`pack_pairs=True` entry of scripts/profile_torch_vit_attn.py, is driven
+once with every counter at 0), then drives two full-width video-QA models
+(seeded random weights) through Engine.generate twice in each of five
+slices. VideoLLaMA2-7B-16F (CLIP-L/336 + STC + Mistral-7B): bf16 (bf16
+weights and KV cache), int8 serving (int8 LLM and tower packs, W8A8
+prefill, int8 KV cache, decode on the layered int8 kernels) and int4
+serving, `load_4bit` (folded int4 LLM layers, int8 head and tower, W4A8
+prefill, int8 KV cache, decode on the layered int4 kernels).
+VideoLLaMA2.1-7B-16F (SigLIP-SO400M/384 + STCv35 + Qwen2-7B, 28 query
+heads on 4 kv heads): bf16, and bench.py's BENCH_MODEL=qwen2 serving tree
+(int8 layers, head, tower and embedding, int8 KV cache). It checks that
+each run went through its kernels, the exact launch counts, and the
 first-token (bf16) and decode (int8, int4) logits against the plain
 versions. Last, the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
 only the connector trains) runs two optimizer steps of 16 videos
@@ -28,9 +34,11 @@ is non-zero; without a CUDA device it exits non-zero before printing
 anything on stdout.
 """
 
+import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,8 +69,12 @@ TRAIN_GRAD_COS = 0.99
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 NEW_TOKENS = 32
+# bench.py's prompt (40 + 12 text tokens around the video) splices to 1574
+# tokens with Mistral's 1536 visual tokens and to 1405 with Qwen2's 1352;
+# the bucket is the next multiple of 128 and max_len adds the 32 new
+# tokens (rounded to 256 under kv8: 1792 and 1536)
 BUCKET = 1664
-MAX_LEN = 1696      # the bucket plus 32 tokens (1792 under kv8)
+QWEN2_BUCKET = 1408
 DECODE_CHECK_STEPS = 3
 
 
@@ -154,14 +166,16 @@ def layer_cycle(n_layers):
 
 
 def check_kernel(name, kernel, plain, cases, tol, rel=False):
-    """cases: (label, (args, kwargs), (ref_args, ref_kwargs), timed). The
-    kernel on args is compared with the plain version on ref_args (fp32
-    values of the same inputs); `timed(fn)` returns a zero-argument launch
-    of fn on the kernel's inputs, which times both. With rel, the bound is
-    tol * max|ref|."""
-    worst = 0.0
-    times = []
-    for label, (args, kw), (rargs, rkw), timed in cases:
+    """cases: (label, (args, kwargs), (ref_args, ref_kwargs), timed,
+    yard). The kernel on args is compared with the plain version on
+    ref_args (fp32 values of the same inputs); `timed(fn)` returns a
+    zero-argument launch of fn on the kernel's inputs, which times both;
+    yard is (bound(), library) with `library` a zero-argument call of one
+    PyTorch function computing the same (None where there is none), timed
+    as a yardstick. With rel, the error bound is tol * max|ref|. Returns
+    {"max_abs_err": the worst, "cases": a row per case}."""
+    worst, rows = 0.0, []
+    for label, (args, kw), (rargs, rkw), timed, yard in cases:
         got = kernel(*args, **kw).float()
         ref = plain(*rargs, **rkw).float()
         torch.cuda.synchronize()
@@ -170,139 +184,168 @@ def check_kernel(name, kernel, plain, cases, tol, rel=False):
         err = (got - ref).abs().max().item()
         bound = tol * ref.abs().max().item() if rel else tol
         del got, ref
-        ms = cuda_ms(timed(kernel))
-        plain_ms = cuda_ms(timed(plain), iters=3)
+        (bound_ms, bound_by), library = yard
+        row = {"case": label, "max_abs_err": err,
+               "ms": cuda_ms(timed(kernel)),
+               "plain_ms": cuda_ms(timed(plain), iters=3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": cuda_ms(library) if library else None}
         log(f"[{name}] {label}: max_abs_err {err:.3e} (bound {bound:.3e}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), library "
+            + (f"{row['library_ms']:.4f} ms" if library else "none"))
         if not err <= bound:
             raise RuntimeError(f"{name} {label}: max_abs_err {err} > {bound}")
         worst = max(worst, err)
-        times.append((ms, plain_ms))
+        rows.append(row)
         torch.cuda.empty_cache()
-    return worst, times
+    return {"max_abs_err": worst, "cases": rows}
 
 
 def attention_cases(gen):
-    """K1 at tower shapes, K2 at prefill shapes (q/k/v, same for both)."""
+    """K1 and K10 (the same tensors) at the towers' shapes, K2 at both
+    prefills' shapes; each case's bound and the torch SDPA yardstick with
+    the same mask (k/v heads repeated; no mask where every key counts)."""
+    F = torch.nn.functional
+
     def qkv_case(label, qkv, kw):
+        valid, causal = kw.get("valid_len"), kw.get("causal", False)
+        sq, sk, sv, mask = sdpa_args(*qkv, valid, causal)
+        if valid is None and not causal:
+            mask = None
+        yard = (attention_bound(qkv[0], qkv[1], valid, causal, 2,
+                                qkv[0].nbytes),
+                lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                       attn_mask=mask))
         return (label, (qkv, kw), (tuple(t.float() for t in qkv), kw),
-                lambda f: (lambda: f(*qkv, **kw)))
+                lambda f: (lambda: f(*qkv, **kw)), yard)
     clip = tuple(rand_bf16(gen, (64, 577, 16, 64)) for _ in range(3))
     ragged = torch.randint(300, 578, (64,), generator=gen, device="cuda",
                            dtype=torch.int32)
-    siglip = tuple(rand_bf16(gen, (16, 729, 16, 72)) for _ in range(3))
-    k1 = [qkv_case("[64,577,16,64]", clip, {}),
-          qkv_case("[64,577,16,64] ragged valid_len", clip,
-                   {"valid_len": ragged}),
-          qkv_case("[16,729,16,72]", siglip, {})]
-    prefill = (rand_bf16(gen, (4, BUCKET, 32, 128)),
-               rand_bf16(gen, (4, BUCKET, 8, 128)),
-               rand_bf16(gen, (4, BUCKET, 8, 128)))
-    valid = torch.tensor([1574, 1200, 1664, 900], dtype=torch.int32,
-                         device="cuda")
-    k2 = [qkv_case("q[4,1664,32,128] kv[4,1664,8,128] causal", prefill,
-                   {"valid_len": valid, "causal": True})]
-    # bound and library yardstick of each kernel's timed (first) case
-    cq, ck, cv = sdpa_args(*clip, None, False)[:3]
-    pq, pk, pv, pmask = sdpa_args(*prefill, valid, True)
-    extras = {
-        "encoder_attention": (
-            attention_bound(clip[0], clip[1], None, False, 2,
-                            clip[0].nbytes),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                cq, ck, cv)),
-        "flash_attention": (
-            attention_bound(prefill[0], prefill[1], valid, True, 2,
-                            prefill[0].nbytes),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                pq, pk, pv, attn_mask=pmask))}
-    return k1, k2, extras
+    siglip = tuple(rand_bf16(gen, (128, 729, 16, 72)) for _ in range(3))
+    tower = [qkv_case("[64,577,16,64]", clip, {}),
+             qkv_case("[64,577,16,64] ragged valid_len", clip,
+                      {"valid_len": ragged}),
+             qkv_case("[128,729,16,72]", siglip, {})]
+    prefill = []
+    for B, S, H, K, valid in ((4, BUCKET, 32, 8, [1574, 1200, 1664, 900]),
+                              (4, QWEN2_BUCKET, 28, 4,
+                               [1405, 1000, 1408, 700])):
+        qkv = (rand_bf16(gen, (B, S, H, 128)), rand_bf16(gen, (B, S, K, 128)),
+               rand_bf16(gen, (B, S, K, 128)))
+        prefill.append(qkv_case(
+            f"q[{B},{S},{H},128] kv[{B},{S},{K},128] causal, valid_len "
+            f"{valid}", qkv, {"causal": True, "valid_len": torch.tensor(
+                valid, dtype=torch.int32, device="cuda")}))
+    return tower, prefill
 
 
-def decode_attention_cases(gen, quantize_rows):
-    """K3 at the slice's decode shape: B 16, 32 query on 8 kv heads, hd
-    128, M 1792, prompt bucket 1664, the 32nd token (write_pos 1695), four
-    cache layers rotated in timing."""
-    L, B, M, K, hd = 4, 16, 1792, 8, 128
-    write_pos = BUCKET + NEW_TOKENS - 1
-    valid = torch.randint(1200, BUCKET + 1, (B,), generator=gen,
+def check_pairs_against_k1(k1, cases) -> dict:
+    """K10 against K1 on each tower case (the same function, the same tile
+    step per head): within K1_TOL, and whether the two are bit-equal."""
+    out = {}
+    for label, (args, kw), _, _, _ in cases:
+        pairs = k1.encoder_attention(*args, pack_pairs=True, **kw)
+        single = k1.encoder_attention(*args, **kw)
+        diff = (pairs.float() - single.float()).abs().max().item()
+        equal = torch.equal(pairs, single)
+        log(f"[encoder_attention_pairs] {label}: vs K1 max abs diff "
+            f"{diff:.3e} (bound {K1_TOL}), bit-equal {equal}")
+        if not diff <= K1_TOL:
+            raise RuntimeError(f"K10 and K1 differ by {diff} at {label}")
+        out[label] = {"max_abs_diff": diff, "bit_equal": equal}
+    return out
+
+
+def decode_attention_cases(gen, quantize_rows, k3, H, K, bucket, variants):
+    """K3 at a slice's decode shape: B 16, H query heads on K kv heads of
+    128, M the kv8 max_len, the prompt bucket, the 32nd token (write_pos
+    bucket + 31), valid_len ragged over [bucket - 464, bucket], four cache
+    layers rotated in timing. variants: (cache "int8" or "bf16", window).
+    Each case's bound counts the cache rows K3 reads (prompt rows below
+    valid_len and the generated rows, inside the window) with their
+    scales, q, the new k/v rows and the output; the yardstick is SDPA over
+    the same rows of a bf16 cache, the new row read from the cache."""
+    F = torch.nn.functional
+    L, B, hd = 4, 16, 128
+    M = -(-(bucket + NEW_TOKENS) // 256) * 256
+    write_pos = bucket + NEW_TOKENS - 1
+    valid = torch.randint(bucket - 464, bucket + 1, (B,), generator=gen,
                           device="cuda", dtype=torch.int32)
-    q = rand_bf16(gen, (B, 32, hd), 4.0)
+    q = rand_bf16(gen, (B, H, hd), 4.0)
     k_new, v_new = rand_bf16(gen, (B, K, hd)), rand_bf16(gen, (B, K, hd))
     rows = [torch.randn((L, B, M, K, hd), generator=gen, device="cuda")
             for _ in range(2)]
     (kq, ks), (vq, vs) = quantize_rows(rows[0]), quantize_rows(rows[1])
-    int8 = dict(k_scale=ks.transpose(2, 3).contiguous(),
-                v_scale=vs.transpose(2, 3).contiguous())
-    caches = {"int8": (kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)),
-              "bf16": tuple(r.reshape(L, B, M, -1).bfloat16() for r in rows)}
+    caches = {"int8": ((kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)),
+                       dict(k_scale=ks.transpose(2, 3).contiguous(),
+                            v_scale=vs.transpose(2, 3).contiguous()))}
+    if any(cache == "bf16" for cache, _ in variants):
+        caches["bf16"] = (tuple(r.reshape(L, B, M, -1).bfloat16()
+                                for r in rows), {})
+    sq, sk, sv, _ = sdpa_args(q[:, None], rows[0][1].bfloat16(),
+                              rows[1][1].bfloat16(), None, False)
     del rows
-    # bound of the timed (int8) case: the cache rows K3 reads (prompt rows
-    # below valid_len, the generated rows) with their scales, q, the new
-    # k/v rows and the output; the yardstick is SDPA over the same rows of
-    # the bf16 cache, the new row read from the cache
-    rows_read = (valid.long() + write_pos - BUCKET).sum().item()
-    k3_bound = bound(4 * 32 * hd * rows_read,
-                     rows_read * 2 * K * (hd + 4) + 2 * q.nbytes
-                     + k_new.nbytes + v_new.nbytes)
-    bk, bv = (t[1].reshape(B, M, K, hd) for t in caches["bf16"])
-    sq, sk, sv, _ = sdpa_args(q[:, None], bk, bv, None, False)
     j = torch.arange(M, device="cuda")
-    smask = ((j[None] < valid[:, None])
-             | ((j[None] >= BUCKET) & (j[None] <= write_pos)))[:, None, None]
-    k3_extra = (k3_bound, lambda: torch.nn.functional
-                .scaled_dot_product_attention(sq, sk, sv, attn_mask=smask))
     cases = []
-    for label, cache, kw in (
-            ("int8 cache", "int8", int8),
-            ("bf16 cache", "bf16", {}),
-            ("int8 cache, window 1024", "int8", dict(int8, window=1024))):
-        ck, cv = caches[cache]
-        args = (q, k_new, v_new, ck, cv, 1, valid, write_pos, BUCKET)
-        ref_args = (q.float(),) + args[1:]
+    for cache, window in variants:
+        (ck, cv), kw = caches[cache]
+        if window is not None:
+            kw = dict(kw, window=window)
+        keep = k3._keep(valid, write_pos, bucket, window, M)
+        rows_read = keep.sum().item()
+        row_bytes = K * (hd + 4) if cache == "int8" else K * hd * 2
+        mask = (keep | (j[None] == write_pos))[:, None, None]
+        yard = (bound(4 * H * hd * rows_read,
+                      rows_read * 2 * row_bytes + 2 * q.nbytes
+                      + k_new.nbytes + v_new.nbytes),
+                lambda mask=mask: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask))
+        args = (q, k_new, v_new, ck, cv, 1, valid, write_pos, bucket)
         cyc = layer_cycle(L)
         cases.append((
-            f"q[16,32,128] {cache}[{L},16,1792,1024] ragged valid_len, "
-            f"write_pos {write_pos}{', window 1024' if 'window' in kw else ''}",
-            (args, kw), (ref_args, kw),
+            f"q[{B},{H},{hd}] {cache}[{L},{B},{M},{K * hd}] ragged "
+            f"valid_len, write_pos {write_pos}"
+            + (f", window {window}" if window else ""),
+            (args, kw), ((q.float(),) + args[1:], kw),
             lambda f, ck=ck, cv=cv, kw=kw, cyc=cyc: (
                 lambda: f(q, k_new, v_new, ck, cv, cyc(), valid, write_pos,
-                          BUCKET, **kw))))
-    return cases, k3_extra
+                          bucket, **kw)), yard))
+    return cases
 
 
-def matmul_cases(gen, quantize, mm_layers):
-    """K4 (K6 with int4 packs) at the fused qkv [4096 -> 6144] and o
-    [4096 -> 4096], K5 (K7) at [4096, 14336], R = 16 rows, bf16 scales as
-    the Engine casts them; `mm_layers` (K4/K6: enough that the rotated
-    layers overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
-    `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel."""
+def matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_):
+    """K4 (K6 with int4 packs) at the fused qkv [D -> qkv_out] and o
+    [D -> D], K5 (K7) at [D, F_], R = 16 rows, bf16 scales as the Engine
+    casts them; `mm_layers` (K4/K6: enough that the rotated layers
+    overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
+    `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel.
+    Bounds: each weight byte read once (h, the FFN's intermediate, stays
+    inside the kernel's work); no PyTorch call multiplies by int8 or int4
+    weights, so there is no library yardstick."""
     def pack(L, din, dout):
         q, s = quantize(rand_bf16(gen, (L, din, dout), 0.02))
         return q, s.bfloat16()
-    x = rand_bf16(gen, (16, 4096))
-    k4, extras = [], []
-    for label, dout in ((f"qkv x[16,4096] [{mm_layers},4096,6144]", 6144),
-                        (f"o x[16,4096] [{mm_layers},4096,4096]", 4096)):
-        q, s = pack(mm_layers, 4096, dout)
-        extras.append(bound(2 * 16 * 4096 * dout, q[0].nbytes + s[0].nbytes
-                            + x.nbytes + 16 * dout * 2))
+    x = rand_bf16(gen, (16, D))
+    k4 = []
+    for label, dout in ((f"qkv x[16,{D}] [{mm_layers},{D},{qkv_out}]",
+                         qkv_out),
+                        (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)):
+        q, s = pack(mm_layers, D, dout)
+        yard = (bound(2 * 16 * D * dout, q[0].nbytes + s[0].nbytes
+                      + x.nbytes + 16 * dout * 2), None)
         cyc = layer_cycle(mm_layers)
         k4.append((label, ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
                    lambda f, q=q, s=s, cyc=cyc: (
-                       lambda: f(x, q, s, cyc()))))
-    g, u, d = pack(2, 4096, 14336), pack(2, 4096, 14336), \
-        pack(2, 14336, 4096)
+                       lambda: f(x, q, s, cyc())), yard))
+    g, u, d = pack(2, D, F_), pack(2, D, F_), pack(2, F_, D)
     cyc = layer_cycle(2)
-    k5 = [("x[16,4096] gate/up[2,4096,14336] down[2,14336,4096]",
+    yard = (bound(2 * 16 * 3 * D * F_, sum(t[0].nbytes for t in (*g, *u, *d))
+                  + 2 * x.nbytes), None)
+    k5 = [(f"x[16,{D}] gate/up[2,{D},{F_}] down[2,{F_},{D}]",
            ((x, *g, *u, *d, 1), {}), ((x.float(), *g, *u, *d, 1), {}),
-           lambda f: (lambda: f(x, *g, *u, *d, cyc())))]
-    # bounds of the timed cases: each weight byte read once (h, the FFN's
-    # intermediate, stays inside the kernel's work)
-    ffn_bound = bound(2 * 16 * 3 * 4096 * 14336,
-                      sum(t[0].nbytes for t in (*g, *u, *d))
-                      + 2 * x.nbytes)
-    return k4, k5, extras[0], ffn_bound
+           lambda f: (lambda: f(x, *g, *u, *d, cyc())), yard)]
+    return k4, k5
 
 
 def head_matmul_case(gen, quantize_int8):
@@ -311,10 +354,10 @@ def head_matmul_case(gen, quantize_int8):
     x = rand_bf16(gen, (16, 4096))
     p = quantize_int8(rand_bf16(gen, (4096, 32000), 0.02), axis=-2)
     q, s = p["q"], p["scale"][0]
+    yard = (bound(2 * 16 * 4096 * 32000,
+                  q.nbytes + s.nbytes + x.nbytes + 16 * 32000 * 2), None)
     return [("x[16,4096] q[4096,32000]", ((x, q, s), {}),
-             ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)))], \
-        bound(2 * 16 * 4096 * 32000,
-              q.nbytes + s.nbytes + x.nbytes + 16 * 32000 * 2)
+             ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)), yard)]
 
 
 def _leaves(tree):
@@ -376,10 +419,10 @@ def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want):
     return counts, stage
 
 
-def _plan_args(cfg, frames, prompt, dev):
+def _plan_args(cfg, frames, prompt, dev, bucket):
     from videollama2_tpu_torch.multimodal import splice as splice_lib
     plan = splice_lib.plan_batch([prompt] * frames.shape[0],
-                                 cfg.tokens_per_video, BUCKET)
+                                 cfg.tokens_per_video, bucket)
     return (torch.from_numpy(frames).to(dev),
             torch.from_numpy(plan.text_ids).to(dev).long(),
             torch.from_numpy(plan.is_visual).to(dev),
@@ -406,19 +449,20 @@ def compare_logits(name, fast, plain) -> None:
                            "plain path beyond the bounds")
 
 
-def check_against_plain(eng, cfg, frames, prompt, attn, k1, k2) -> None:
+def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
+                        k2) -> None:
     """First-token logits of two videos through the kernels and through
     the plain attention path (attend swapped for attend_plain), both at
     full width in bf16. The two differ only by rounding inside attention
-    (the order of the fp32 sums, exp), which 23 + 32 bf16 layers amplify.
-    """
+    (the order of the fp32 sums, exp), which the tower's and the LLM's
+    bf16 layers amplify."""
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
 
-    args = _plan_args(cfg, frames, prompt, eng.device)
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
 
     def first_logits():
-        cache = llm_lib.init_cache(cfg.llm, frames.shape[0], BUCKET,
+        cache = llm_lib.init_cache(cfg.llm, frames.shape[0], bucket,
                                    torch.bfloat16, device=eng.device)
         with torch.inference_mode():
             last, _ = vl2.prefill_multimodal(eng.params, cfg, *args, cache)
@@ -440,7 +484,8 @@ def check_against_plain(eng, cfg, frames, prompt, attn, k1, k2) -> None:
     compare_logits("bf16 first-token logits", fast, plain)
 
 
-def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
+def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
+                               bits) -> None:
     """Decode logits of two videos over the int8 (bits 8) or int4 (bits 4)
     packs and the int8 cache: a W8A8/W4A8 prefill fills the cache, then
     DECODE_CHECK_STEPS teacher-forced decode steps run once on K3 and
@@ -449,7 +494,7 @@ def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
 
-    args = _plan_args(cfg, frames, prompt, eng.device)
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
     valid = args[-1]
     B, L = frames.shape[0], cfg.llm.num_layers
     cache = llm_lib.init_cache(cfg.llm, B, eng.max_len, kv_bits=8,
@@ -469,7 +514,7 @@ def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
                 te = llm_lib.embed_tokens(eng.params["llm"],
                                           tokens[s][:, None], eng.dtype)
                 logits, c = llm_lib.decode_step(
-                    eng.params["llm"], cfg.llm, te, c, valid, BUCKET, s,
+                    eng.params["llm"], cfg.llm, te, c, valid, bucket, s,
                     w8a8=True)
                 out.append(logits)
         return torch.stack(out)
@@ -498,8 +543,15 @@ def check_decode_against_plain(eng, cfg, frames, prompt, k3, dk, bits) -> None:
                    "teacher-forced steps", fast, plain)
 
 
+PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                 "flash_attention_kernel", "encoder_attention_pairs_kernel",
+                 "encoder_attention_kernel", "decode_split_kernel")
+
+
 def ptxas_report(path) -> None:
-    """Registers and spills of the flash-attention kernels, from the
+    """Registers and spills of the attention kernels (each template
+    instance by its integer arguments: head dim, then causal flag or query
+    heads a kv head; decode_split_kernel's cache type a = int8), from the
     ptxas report the build wrote beside the library."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")
@@ -507,14 +559,12 @@ def ptxas_report(path) -> None:
     name = None
     for line in path.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((n for n in ("flash_bwd_dq_kernel",
-                                     "flash_bwd_dkv_kernel",
-                                     "flash_attention_kernel") if n in line),
-                        None)
+            name = next((n for n in PTXAS_KERNELS if n in line), None)
             if name:
-                tmpl = line.split(name, 1)[1]
-                name += (" D" + tmpl.split("ILi", 1)[1].split("E", 1)[0]
-                         + (" causal" if "Lb1" in tmpl else ""))
+                tmpl = line.split(name, 1)[1].split("'", 1)[0]
+                args = re.findall(r"L[ib](\d+)E", tmpl)
+                name += f" <{', '.join(args)}>" + (
+                    " int8" if "EaE" in tmpl else "")
             spill = ""
         elif name and "spill" in line:
             spill = line.strip()
@@ -803,11 +853,31 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
     return res
 
 
+def vit_layers(cfg) -> int:
+    """Encoder layers the tower runs (select_layer -2: all but the last)."""
+    return cfg.vision.select_layer % (cfg.vision.num_layers + 1)
+
+
+def slice_inputs(cfg, B: int):
+    """bench.py's inputs for B videos: seeded uint8 I420 frames and its
+    prompt (40 text tokens, the video, 12 more), and the bucket: the
+    spliced length rounded up to a multiple of 128."""
+    H = cfg.vision.image_size
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (B, cfg.num_frames, H + H // 2, H),
+                          dtype=np.uint8)
+    from videollama2_tpu_torch.constants import VIDEO_TOKEN_INDEX
+    prompt = ([1] + [int(x) for x in rng.integers(10, 1000, 40)]
+              + [VIDEO_TOKEN_INDEX]
+              + [int(x) for x in rng.integers(10, 1000, 12)])
+    spliced = len(prompt) - 1 + cfg.tokens_per_video
+    return frames, prompt, -(-spliced // 128) * 128
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
-    from videollama2_tpu_torch.constants import VIDEO_TOKEN_INDEX
     from videollama2_tpu_torch.core import config as cfglib
     from videollama2_tpu_torch.inference.engine import (Engine,
                                                         GenerationConfig)
@@ -843,70 +913,10 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     ptxas_report(_build.library_path().parent / _build.BUILD_LOG)
 
-    # -- every kernel against its plain version at main-path shapes ---------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    k1_cases, k2_cases, yard = attention_cases(gen)
-    k1_err, k1_times = check_kernel(
-        "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
-        k1_cases, K1_TOL)
-    k2_err, k2_times = check_kernel(
-        "flash_attention", k2.flash_attention, k2.flash_attention_plain,
-        k2_cases, K2_TOL)
-    del k1_cases, k2_cases
-    k3_cases, yard["decode_attention_layered"] = decode_attention_cases(
-        gen, _quantize_kv_rows)
-    k3_err, k3_times = check_kernel(
-        "decode_attention", k3.decode_attention_layered,
-        k3.decode_attention_plain, k3_cases, K3_TOL)
-    del k3_cases
-    for name in ("encoder_attention", "flash_attention",
-                 "decode_attention_layered"):
-        bnd, lib_fn = yard[name]
-        yard[name] = (bnd, cuda_ms(lib_fn))
-        log(f"[{name}] bound {bnd[0]:.4f} ms ({bnd[1]}), torch SDPA "
-            f"yardstick {yard[name][1]:.4f} ms")
-    errs, times = {}, {}
-    for mm, ffn, mm_layers, quantize in (
-            ("matmul_q8_layered", "ffn_q8_layered", 4,
-             lambda w: tuple(quantize_int8(w, axis=-2).values())),
-            ("matmul_q4_layered", "ffn_q4_layered", 8,
-             lambda w: tuple(quantize_int4(w, axis=-2)[k]
-                             for k in ("q4", "scale")))):
-        mm_cases, ffn_cases, yard[mm], yard[ffn] = matmul_cases(
-            gen, quantize, mm_layers)
-        yard[mm], yard[ffn] = (yard[mm], None), (yard[ffn], None)
-        for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
-            errs[name], times[name] = check_kernel(
-                name, getattr(dk, name), getattr(dk, name + "_plain"),
-                cases, MATMUL_REL_TOL, rel=True)
-        del mm_cases, ffn_cases
-    head_cases, head_bound = head_matmul_case(gen, quantize_int8)
-    yard["matmul_q8"] = (head_bound, None)
-    errs["matmul_q8"], times["matmul_q8"] = check_kernel(
-        "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain, head_cases,
-        MATMUL_REL_TOL, rel=True)
-    del head_cases
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_kernels = check_training_attention(gen, k2)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # -- the three slices at full width -------------------------------------
-    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=16)
-    B, T, H = 16, cfg.num_frames, cfg.vision.image_size
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (B, T, H + H // 2, H), dtype=np.uint8)
-    prompt = ([1] + [int(x) for x in rng.integers(10, 1000, 40)]
-              + [VIDEO_TOKEN_INDEX]
-              + [int(x) for x in rng.integers(10, 1000, 12)])
-    n_layers_vit = cfg.vision.select_layer % (cfg.vision.num_layers + 1)
-    L = cfg.llm.num_layers
-    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
-    steps = NEW_TOKENS - 1
-    # every kernel's counter, checked in every slice: a kernel off the
-    # slice's path must launch no time
+    # every kernel's counter, checked in every run of a path: a kernel off
+    # the path must launch no time
     counters = {"encoder_attention": k1.encoder_attention,
+                "encoder_attention_pairs": k1.encoder_attention_pairs,
                 "flash_attention": k2.flash_attention,
                 "decode_attention": k3.decode_attention_layered,
                 "matmul_q8_layered": dk.matmul_q8_layered,
@@ -916,12 +926,102 @@ def main() -> None:
                 "matmul_q8": qm.matmul_q8,
                 "flash_attention_bwd_dq": k2.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": k2.flash_attention_bwd_dkv}
-    stages, slice_counts = {}, {}
 
-    for slice_name, bits in (("bf16 slice", None), ("int8 slice", 8),
-                             ("int4 slice", 4)):
+    # -- every kernel against its plain version at main-path shapes ---------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    tower_cases, prefill_cases = attention_cases(gen)
+    res["encoder_attention"] = check_kernel(
+        "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
+        tower_cases, K1_TOL)
+    res["encoder_attention_pairs"] = check_kernel(
+        "encoder_attention_pairs",
+        functools.partial(k1.encoder_attention, pack_pairs=True),
+        k1.encoder_attention_pairs_plain, tower_cases, K1_TOL)
+    pairs_vs_k1 = check_pairs_against_k1(k1, tower_cases)
+    res["flash_attention"] = check_kernel(
+        "flash_attention", k2.flash_attention, k2.flash_attention_plain,
+        prefill_cases, K2_TOL)
+    del tower_cases, prefill_cases
+    res["decode_attention_layered"] = check_kernel(
+        "decode_attention", k3.decode_attention_layered,
+        k3.decode_attention_plain,
+        decode_attention_cases(gen, _quantize_kv_rows, k3, 32, 8, BUCKET,
+                               (("int8", None), ("bf16", None),
+                                ("int8", 1024)))
+        + decode_attention_cases(gen, _quantize_kv_rows, k3, 28, 4,
+                                 QWEN2_BUCKET, (("int8", None),)),
+        K3_TOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K4/K5 at Mistral-7B's and Qwen2-7B's widths; K6/K7 (int4, a Mistral
+    # slice only) at Mistral-7B's
+    for mm, ffn, mm_layers, quantize, widths in (
+            ("matmul_q8_layered", "ffn_q8_layered", 4,
+             lambda w: tuple(quantize_int8(w, axis=-2).values()),
+             ((4096, 6144, 14336), (3584, 4608, 18944))),
+            ("matmul_q4_layered", "ffn_q4_layered", 8,
+             lambda w: tuple(quantize_int4(w, axis=-2)[k]
+                             for k in ("q4", "scale")),
+             ((4096, 6144, 14336),))):
+        mm_cases, ffn_cases = [], []
+        for D, qkv_out, F_ in widths:
+            k4, k5 = matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_)
+            mm_cases += k4
+            ffn_cases += k5
+        for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
+            res[name] = check_kernel(
+                name, getattr(dk, name), getattr(dk, name + "_plain"),
+                cases, MATMUL_REL_TOL, rel=True)
+        del mm_cases, ffn_cases, k4, k5
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["matmul_q8"] = check_kernel(
+        "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain,
+        head_matmul_case(gen, quantize_int8), MATMUL_REL_TOL, rel=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_kernels = check_training_attention(gen, k2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K10's path: the pack_pairs entry (profile_torch_vit_attn.py) -------
+    # at both towers' chunk shapes, every counter at 0 before
+    want = dict.fromkeys(counters, 0)
+    want["encoder_attention_pairs"] = 2
+    for fn in counters.values():
+        fn.launches = 0
+    for S, D in ((577, 64), (729, 72)):
+        qkv = [rand_bf16(gen, (128, S, 16, D)) for _ in range(3)]
+        out = k1.encoder_attention(*qkv, pack_pairs=True)
+        torch.cuda.synchronize()
+        if out.shape != qkv[0].shape or not torch.isfinite(out).all():
+            raise RuntimeError(f"K10 path at S {S}: bad output")
+        del qkv, out
+    pairs_counts = {n: fn.launches for n, fn in counters.items()}
+    log(f"[K10 path] encoder_attention(..., pack_pairs=True) at "
+        f"[128,577,16,64] and [128,729,16,72]: launches {pairs_counts}")
+    if pairs_counts != want:
+        raise RuntimeError(f"K10 path: launch counts {pairs_counts} != {want}")
+    torch.cuda.empty_cache()
+
+    # -- the five serving slices at full width ------------------------------
+    B = 16
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    steps = NEW_TOKENS - 1
+    stages, slice_counts = {}, {}
+    for slice_name, preset, bits, int8_embed in (
+            ("bf16 slice", "videollama2_mistral", None, False),
+            ("int8 slice", "videollama2_mistral", 8, False),
+            ("int4 slice", "videollama2_mistral", 4, False),
+            ("2.1 bf16 slice", "videollama2_qwen2", None, False),
+            ("2.1 int8 slice", "videollama2_qwen2", 8, True)):
+        cfg = cfglib.preset(preset).replace(num_frames=16)
+        frames, prompt, bucket = slice_inputs(cfg, B)
+        L = cfg.llm.num_layers
         want = dict.fromkeys(counters, 0)
-        want.update(encoder_attention=n_layers_vit * (B * T // 128),
+        want.update(encoder_attention=vit_layers(cfg)
+                    * (B * cfg.num_frames // 128),
                     flash_attention=L)
         if bits is not None:
             want.update({"decode_attention": steps * L,
@@ -929,24 +1029,31 @@ def main() -> None:
                          f"ffn_q{bits}_layered": steps * L})
         t0 = time.perf_counter()
         params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                                  seed=0, llm_bits=bits)
+                                  seed=0, llm_bits=bits,
+                                  quantize_embed=int8_embed)
         torch.cuda.synchronize()
-        log(f"[{slice_name}] weights made on the card in "
+        log(f"[{slice_name}] {preset}: {cfg.tokens_per_video} visual tokens "
+            f"a video, prompt {len(prompt) - 1 + cfg.tokens_per_video} "
+            f"tokens, bucket {bucket}; weights made on the card in "
             f"{time.perf_counter() - t0:.1f} s "
-            f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB)")
-        eng = Engine(cfg, params, dtype=torch.bfloat16, max_len=MAX_LEN,
-                     buckets=(BUCKET,), decode_chunk=NEW_TOKENS,
+            f"({sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB, "
+            f"embed {sorted(params['llm']['embed'])})")
+        eng = Engine(cfg, params, dtype=torch.bfloat16,
+                     max_len=bucket + NEW_TOKENS, buckets=(bucket,),
+                     decode_chunk=NEW_TOKENS,
                      kv_bits=16 if bits is None else 8, device="cuda")
         del params
-        slice_counts[bits], stages[slice_name] = run_slice(
+        slice_counts[slice_name], stages[slice_name] = run_slice(
             slice_name, eng, cfg, frames, prompt, gcfg, counters, want)
         if bits is None:
-            check_against_plain(eng, cfg, frames[:2], prompt, attn, k1, k2)
+            check_against_plain(eng, cfg, frames[:2], prompt, bucket, attn,
+                                k1, k2)
         else:
-            check_decode_against_plain(eng, cfg, frames[:2], prompt, k3, dk,
-                                       bits)
+            check_decode_against_plain(eng, cfg, frames[:2], prompt, bucket,
+                                       k3, dk, bits)
+        stages[slice_name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{slice_name}] peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+            f"{stages[slice_name]['peak_gb']:.1f} GB")
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -955,6 +1062,7 @@ def main() -> None:
 
     # -- the stage-1 training slice at full width ----------------------------
     cfg = cfglib.preset("videollama2_mistral").replace(num_frames=8)
+    L = cfg.llm.num_layers
     # cuDNN's convolution backward may pick algorithms that sum with
     # atomics; the two training runs must agree bit for bit
     torch.backends.cudnn.deterministic = True
@@ -972,8 +1080,8 @@ def main() -> None:
                                      TRAIN_MIN_VALID)
                for _ in range(TRAIN_STEPS)]
     micro = GRAD_ACCUM * TRAIN_STEPS
-    per_mb = {"encoder_attention": n_layers_vit * (TRAIN_B * cfg.num_frames
-                                                   // 128 or 1),
+    per_mb = {"encoder_attention": vit_layers(cfg)
+              * (TRAIN_B * cfg.num_frames // 128 or 1),
               "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
               "flash_attention_bwd_dkv": L}
     want = dict.fromkeys(counters, 0)
@@ -989,15 +1097,21 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, launches, err, times, **extra):
-        (bound_ms, bound_by), library_ms = yard[name]
+    def by_slice(name):
+        return {s: c[name] for s, c in slice_counts.items()}
+
+    def entry(name, source, replaces, launches, **extra):
+        """The kernel's line: the numbers of its first (timed) case at the
+        top, every case's numbers, and its launches in each slice."""
+        r = res[name]
+        first = r["cases"][0]
         return {"name": name, "route": "cuda",
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
-                "launches": launches, "max_abs_err": err,
-                "ms": times[0][0], "plain_ms": times[0][1],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, **extra}
+                "launches": launches, "max_abs_err": r["max_abs_err"],
+                **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "cases": r["cases"], **extra}
 
     def train_entry(name, key, replaces):
         return {"name": name, "route": "cuda",
@@ -1006,15 +1120,26 @@ def main() -> None:
                 "launches": want[name], **train_kernels[key]}
 
     lse = train_kernels["flash_attention +lse"]
-    # launches: each kernel's count in the run of the slice whose path runs
-    # it (matmul_q8 is on no path: 0, checked in every slice)
+    # launches: each kernel's count in the run of the first slice whose
+    # path runs it (K10: its own path; matmul_q8 is on no path: 0, checked
+    # in every slice); launches_by_slice: every serving slice's counts
     kernels = [
         entry("encoder_attention", "encoder_attention.cu",
               "encoder_attention.py:230",
-              slice_counts[None]["encoder_attention"], k1_err, k1_times),
+              slice_counts["bf16 slice"]["encoder_attention"],
+              launches_by_slice=by_slice("encoder_attention")),
+        entry("encoder_attention_pairs", "encoder_attention_pairs.cu",
+              "encoder_attention.py:164",
+              pairs_counts["encoder_attention_pairs"],
+              launches_by_slice=by_slice("encoder_attention_pairs"),
+              vs_k1=pairs_vs_k1,
+              note="reached through encoder_attention(..., "
+              "pack_pairs=True), the entry of scripts/profile_torch_vit_"
+              "attn.py; 0 launches on every model path, as in JAX"),
         entry("flash_attention", "flash_attention.cu",
-              "flash_attention.py:179", slice_counts[None]["flash_attention"],
-              k2_err, k2_times,
+              "flash_attention.py:179",
+              slice_counts["bf16 slice"]["flash_attention"],
+              launches_by_slice=by_slice("flash_attention"),
               note=f"bf16 serving prefill; with the LSE in the training "
               f"slice: {want['flash_attention']} launches a run, "
               f"{lse['ms']:.4f} ms (plain {lse['plain_ms']:.3f}, bound "
@@ -1022,20 +1147,22 @@ def main() -> None:
               f"q[{TRAIN_B},{TRAIN_S},32,128], max_abs_err "
               f"{lse['max_abs_err']:.3e}"),
         entry("decode_attention_layered", "decode_attention.cu",
-              "decode_attention.py:249", slice_counts[8]["decode_attention"],
-              k3_err, k3_times),
-    ] + [entry(name, source, replaces, slice_counts[bits][name],
-               errs[name], times[name])
-         for name, source, replaces, bits in (
+              "decode_attention.py:249",
+              slice_counts["int8 slice"]["decode_attention"],
+              launches_by_slice=by_slice("decode_attention")),
+    ] + [entry(name, source, replaces, slice_counts[first][name],
+               launches_by_slice=by_slice(name))
+         for name, source, replaces, first in (
              ("matmul_q8_layered", "decode_matmul.cu",
-              "decode_matmul.py:89", 8),
+              "decode_matmul.py:89", "int8 slice"),
              ("ffn_q8_layered", "decode_matmul.cu", "decode_matmul.py:346",
-              8),
+              "int8 slice"),
              ("matmul_q4_layered", "decode_matmul_q4.cu",
-              "decode_matmul.py:164", 4),
+              "decode_matmul.py:164", "int4 slice"),
              ("ffn_q4_layered", "decode_matmul_q4.cu",
-              "decode_matmul.py:297", 4),
-             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51", 4))] + [
+              "decode_matmul.py:297", "int4 slice"),
+             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51",
+              "int4 slice"))] + [
         train_entry("flash_attention_bwd_dq", "flash_attention_bwd_dq",
                     "flash_attention.py:352"),
         train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",

@@ -57,6 +57,42 @@ def test_encoder_attention_cuda_matches_plain(cuda_device, S, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,H,D", [(577, 16, 64), (729, 16, 72),
+                                   (130, 4, 64)])
+def test_encoder_attention_pairs_cuda_matches_plain_and_k1(cuda_device, S,
+                                                           H, D):
+    """K10 (pack_pairs=True) against its plain version and against K1: the
+    two kernels run the same tile step per head, so they agree bit for
+    bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + H)
+    q, k, v = _bf16_qkv(gen, 3, S, H, H, D, cuda_device)
+    valid = torch.tensor([S, S - 100, 1], dtype=torch.int32,
+                         device=cuda_device)
+    before = (k1.encoder_attention.launches,
+              k1.encoder_attention_pairs.launches)
+    got = k1.encoder_attention(q, k, v, valid, pack_pairs=True)
+    assert (k1.encoder_attention.launches,
+            k1.encoder_attention_pairs.launches) == (before[0],
+                                                     before[1] + 1)
+    ref = k1.encoder_attention_pairs_plain(q.float(), k.float(), v.float(),
+                                           valid)
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=2e-2)
+    assert torch.equal(got, k1.encoder_attention(q, k, v, valid))
+
+
+@pytest.mark.cuda
+def test_encoder_attention_pairs_cuda_refuses_odd_heads_and_dims(
+        cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    before = k1.encoder_attention_pairs.launches
+    for H, D in ((3, 64), (4, 80)):
+        q, k, v = _bf16_qkv(gen, 1, 128, H, H, D, cuda_device)
+        with pytest.raises(ValueError):
+            k1.encoder_attention(q, k, v, pack_pairs=True)
+    assert k1.encoder_attention_pairs.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_cuda_matches_plain(cuda_device, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -187,6 +223,42 @@ def test_decode_attention_cuda_matches_plain(cuda_device, cache, window, hd,
     ref = k3.decode_attention_plain(q.float(), k_new, v_new, *args,
                                     window=window, **kw)
     torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache,window", [("int8", None), ("bf16", None),
+                                          ("int8", 100)])
+def test_decode_attention_cuda_group_7(cuda_device, cache, window):
+    """Qwen2-7B's grouping: 28 query heads on 4 kv heads of 128."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    B, H, K, hd, L, M, prompt_len, step = 3, 28, 4, 128, 2, 512, 300, 37
+    valid = torch.tensor([300, 211, 1], dtype=torch.int32,
+                         device=cuda_device)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device)
+    q = r(B, H, hd).bfloat16()
+    k_new, v_new = r(B, K, hd).bfloat16(), r(B, K, hd).bfloat16()
+    ck, cv = r(L, B, M, K, hd), r(L, B, M, K, hd)
+    kw = {}
+    if cache == "int8":
+        (ck, ks), (cv, vs) = _quantize_kv_rows(ck), _quantize_kv_rows(cv)
+        kw = dict(k_scale=ks.transpose(2, 3).contiguous(),
+                  v_scale=vs.transpose(2, 3).contiguous())
+    dtype = torch.int8 if cache == "int8" else torch.bfloat16
+    ck, cv = (t.reshape(L, B, M, K * hd).to(dtype) for t in (ck, cv))
+    args = (ck, cv, 1, valid, prompt_len + step, prompt_len)
+    before = k3.decode_attention_layered.launches
+    got = k3.decode_attention_layered(q, k_new, v_new, *args, window=window,
+                                      **kw).float()
+    assert k3.decode_attention_layered.launches == before + 1
+    ref = k3.decode_attention_plain(q.float(), k_new, v_new, *args,
+                                    window=window, **kw)
+    torch.testing.assert_close(got, ref.float(), rtol=0, atol=2e-2)
+    with pytest.raises(ValueError):        # 3 query heads a kv head
+        k3.decode_attention_layered(q[:, :12].contiguous(), k_new, v_new,
+                                    *args, **kw)
+    assert k3.decode_attention_layered.launches == before + 1
 
 
 @pytest.mark.cuda

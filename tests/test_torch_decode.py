@@ -46,6 +46,29 @@ def _t(x):
 
 # -- K3 ------------------------------------------------------------------------
 
+def _caches(ck, cv, cache: str, K: int, hd: int):
+    """fp32 cache values [L, B, M, K * hd] as the JAX and the port cache of
+    kind `cache` (fp32, bf16, or int8 rows through each package's row
+    quantizer with [L, B, K, M] scales): ((k, v, kwargs), (k, v, kwargs))."""
+    if cache == "int8":
+        L, B, M, _ = ck.shape
+        kq, ks = jllm._quantize_kv_rows(jnp.asarray(ck).reshape(L, B, M, K,
+                                                                hd))
+        vq, vs = jllm._quantize_kv_rows(jnp.asarray(cv).reshape(L, B, M, K,
+                                                                hd))
+        jck, jcv = kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)
+        jargs = dict(k_scale=ks.transpose(0, 1, 3, 2),
+                     v_scale=vs.transpose(0, 1, 3, 2))
+        targs = {n: _t(np.asarray(a)) for n, a in jargs.items()}
+        return (jck, jcv, jargs), (_t(np.asarray(jck)), _t(np.asarray(jcv)),
+                                   targs)
+    if cache == "bf16":
+        return ((jnp.asarray(ck).astype(jnp.bfloat16),
+                 jnp.asarray(cv).astype(jnp.bfloat16), {}),
+                (_t(ck).bfloat16(), _t(cv).bfloat16(), {}))
+    return (jnp.asarray(ck), jnp.asarray(cv), {}), (_t(ck), _t(cv), {})
+
+
 @pytest.mark.parametrize("cache,window,block_m", [
     ("fp32", None, 32),     # blocks of 32 split M = 256
     ("bf16", None, 256),    # p rounded to bf16 before the PV product
@@ -64,23 +87,7 @@ def test_decode_attention_plain_matches_pallas(cache, window, block_m):
     v_new = rng.standard_normal((B, K, hd), dtype=np.float32)
     ck = rng.standard_normal((L, B, M, K * hd), dtype=np.float32)
     cv = rng.standard_normal((L, B, M, K * hd), dtype=np.float32)
-    jargs, targs = {}, {}
-    if cache == "int8":
-        kq, ks = jllm._quantize_kv_rows(jnp.asarray(ck).reshape(L, B, M, K,
-                                                                hd))
-        vq, vs = jllm._quantize_kv_rows(jnp.asarray(cv).reshape(L, B, M, K,
-                                                                hd))
-        jck, jcv = kq.reshape(L, B, M, -1), vq.reshape(L, B, M, -1)
-        jargs = dict(k_scale=ks.transpose(0, 1, 3, 2),
-                     v_scale=vs.transpose(0, 1, 3, 2))
-        targs = {n: _t(np.asarray(a)) for n, a in jargs.items()}
-        tck, tcv = _t(np.asarray(jck)), _t(np.asarray(jcv))
-    elif cache == "bf16":
-        jck = jnp.asarray(ck).astype(jnp.bfloat16)
-        jcv = jnp.asarray(cv).astype(jnp.bfloat16)
-        tck, tcv = _t(ck).bfloat16(), _t(cv).bfloat16()
-    else:
-        jck, jcv, tck, tcv = jnp.asarray(ck), jnp.asarray(cv), _t(ck), _t(cv)
+    (jck, jcv, jargs), (tck, tcv, targs) = _caches(ck, cv, cache, K, hd)
     want = jax_decode_attention(
         jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jck, jcv,
         jnp.int32(li), jnp.asarray(valid), jnp.int32(write_pos), prompt_len,
@@ -89,6 +96,34 @@ def test_decode_attention_plain_matches_pallas(cache, window, block_m):
         _t(q), _t(k_new), _t(v_new), tck, tcv, li, _t(valid), write_pos,
         prompt_len, window=window, **targs)
     assert got.shape == (B, H, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("cache,window", [("bf16", None), ("bf16", 24),
+                                          ("int8", None), ("int8", 24)])
+def test_decode_attention_plain_matches_pallas_at_group_7(cache, window):
+    """Qwen2-7B's grouping, 7 query heads a kv head (here 14 on 2, so the
+    kv head of query head h is h // 7), bf16 and int8 caches, with and
+    without a sliding window."""
+    rng = np.random.default_rng(7)
+    B, H, K, hd, L, M = 2, 14, 2, 16, 2, 256
+    li, prompt_len, step = 1, 96, 5
+    write_pos = prompt_len + step
+    valid = np.array([96, 41], np.int32)
+    q = rng.standard_normal((B, H, hd), dtype=np.float32)
+    k_new = rng.standard_normal((B, K, hd), dtype=np.float32)
+    v_new = rng.standard_normal((B, K, hd), dtype=np.float32)
+    ck = rng.standard_normal((L, B, M, K * hd), dtype=np.float32)
+    cv = rng.standard_normal((L, B, M, K * hd), dtype=np.float32)
+    (jck, jcv, jargs), (tck, tcv, targs) = _caches(ck, cv, cache, K, hd)
+    want = jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jck, jcv,
+        jnp.int32(li), jnp.asarray(valid), jnp.int32(write_pos), prompt_len,
+        window=window, block_m=128, interpret=True, **jargs)
+    got = k3.decode_attention_layered(
+        _t(q), _t(k_new), _t(v_new), tck, tcv, li, _t(valid), write_pos,
+        prompt_len, window=window, **targs)
+    assert 7 in k3.SUPPORTED_GROUPS
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

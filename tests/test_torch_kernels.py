@@ -1,6 +1,7 @@
 """The PyTorch port's attention kernels: plain versions against the JAX
-package's Pallas kernels (interpret mode on the CPU), the dispatch in
-`attend` and the wrappers' checks. The CUDA kernels themselves are held
+package's Pallas kernels (interpret mode on the CPU; K10 against the packed
+head-pair kernel, `pack_pairs=True`), the dispatch in `attend` and the
+wrappers' checks. The CUDA kernels themselves are held
 against the plain versions on a GPU by tests/test_torch_cuda.py.
 
 Same inputs, made with numpy, go through both packages in fp32; the
@@ -45,6 +46,34 @@ def test_encoder_attention_plain_matches_pallas(S, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("B,H,D,valid", [(2, 16, 64, [128, 77]),
+                                         (1, 4, 72, [93])])
+def test_encoder_attention_pairs_plain_matches_pallas(B, H, D, valid):
+    """K10's plain version (pack_pairs=True) against the block-diagonal
+    head-pair Pallas kernel at CLIP's and SigLIP's head dims, ragged
+    valid_len."""
+    rng = np.random.default_rng(H + D)
+    S = 128
+    q, k, v = _qkv(rng, B, S, H, H, D)
+    valid = np.array(valid, np.int32)
+    ref = jax_encoder_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(valid),
+                                interpret=True, pack_pairs=True)
+    got = k1.encoder_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(valid),
+                               pack_pairs=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_encoder_attention_pairs_needs_an_even_head_count():
+    x = torch.zeros(1, 128, 3, 64)
+    with pytest.raises(ValueError, match="even H"):
+        k1.encoder_attention(x, x, x, pack_pairs=True)
+    with pytest.raises(ValueError, match="even H"):
+        k1.encoder_attention_pairs(x.to("meta"), x.to("meta"), x.to("meta"))
+    assert k1.encoder_attention_pairs.launches == 0
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hkv", [2, 4])
 def test_flash_attention_plain_matches_pallas(causal, hkv):
@@ -75,17 +104,21 @@ def test_attend_routes_like_the_tpu_rule(monkeypatch):
     # CLIP tower: 577 tokens, unpadded, non-causal -> K1
     attn.attend(z(1, 577, 2, 64), z(1, 577, 2, 64), z(1, 577, 2, 64),
                 causal=False)
+    # SigLIP tower: 729 tokens at head dim 72 (JAX: XLA) -> K1
+    attn.attend(z(1, 729, 2, 72), z(1, 729, 2, 72), z(1, 729, 2, 72),
+                causal=False)
     # Mistral prefill: causal GQA -> K2
     attn.attend(z(1, 256, 4, 128), z(1, 256, 2, 128), z(1, 256, 2, 128),
                 causal=True)
-    assert calls == ["k1", "k2"]
-    # sliding window, short sequences and odd head dims stay plain
+    assert calls == ["k1", "k1", "k2"]
+    # sliding window, short sequences and head dims no kernel takes stay
+    # plain
     for args, kw in (((z(1, 256, 2, 128),) * 3, dict(window=64)),
                      ((z(1, 64, 2, 128),) * 3, {}),
-                     ((z(1, 256, 2, 72),) * 3, dict(causal=False))):
+                     ((z(1, 256, 2, 80),) * 3, dict(causal=False))):
         out = attn.attend(*args, **kw)
         assert out.shape == args[0].shape
-    assert calls == ["k1", "k2"]
+    assert calls == ["k1", "k1", "k2"]
 
 
 def test_wrappers_reject_unsupported_devices():
@@ -93,14 +126,19 @@ def test_wrappers_reject_unsupported_devices():
     with pytest.raises(ValueError):
         k1.encoder_attention(x, x, x)
     with pytest.raises(ValueError):
+        k1.encoder_attention(x, x, x, pack_pairs=True)
+    with pytest.raises(ValueError):
         k2.flash_attention(x, x, x)
     assert k1.encoder_attention.launches == 0
+    assert k1.encoder_attention_pairs.launches == 0
     assert k2.flash_attention.launches == 0
 
 
 def test_plain_kernels_do_not_count_launches():
     q = torch.randn(1, 128, 2, 64)
     k1.encoder_attention(q, q, q)
+    k1.encoder_attention(q, q, q, pack_pairs=True)
     k2.flash_attention(q, q, q)
     assert k1.encoder_attention.launches == 0
+    assert k1.encoder_attention_pairs.launches == 0
     assert k2.flash_attention.launches == 0

@@ -8,9 +8,11 @@ biases alongside). Weight packs, int8 ("kernel_q8": {"q", "scale"}) and
 folded int4 ("kernel_q4": {"q4", "scale"}), come across the same way,
 split (ops/quant.quantize_llm_params, quantize_vision_params) or already
 fused (ops/quant.fuse_qkv); the int4 fold is over the input axis, so the
-output-axis concatenation fuses them unchanged. It raises if a JAX leaf is
-left unused or a port parameter is left unfilled, so both packages compute
-the same function.
+output-axis concatenation fuses them unchanged; an int8 embedding
+("weight_q8", quantize_llm_params(include_embed=True)) is taken as it is.
+The tower is CLIP's or SigLIP's, as `cfg.vision` says. It raises if a JAX
+leaf is left unused or a port parameter is left unfilled, so both packages
+compute the same function.
 """
 
 from __future__ import annotations
@@ -61,9 +63,10 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
         return src[path]
 
     out: dict = {}
-    shapes = vl2.param_shapes(cfg, llm_bits=_pack_bits(jax_params, "llm"),
-                              int8_vision=_pack_bits(jax_params,
-                                                     "vision") == 8)
+    shapes = vl2.param_shapes(
+        cfg, llm_bits=_pack_bits(jax_params, "llm"),
+        int8_vision=_pack_bits(jax_params, "vision") == 8,
+        int8_embed="weight_q8" in jax_params.get("llm", {}).get("embed", {}))
     for path, shape in _flatten(shapes):
         if "qkv" in path and path not in src:
             i = path.index("qkv")

@@ -24,6 +24,12 @@
 // states with the seed and normalises. Scale rows are read with the cache
 // rows' stride M; the output rounding matches the Pallas kernel's.
 //
+// The group G (query heads a kv head: 1, 2, 4, 7 or 8) is a template
+// argument and need not be a power of two: it sizes per-thread registers
+// (qr[G][hd / 8], 112 floats at G 7 and hd 128) and shared arrays (s_p[G],
+// s_red[G * HD]), the softmax phase gives warp w heads w, w + 4, ..., and
+// the PV phase's row split and the merge loop do not depend on it.
+//
 // Known limit (later work): measured on an H100 at 700 W, a call at the
 // slice's shape takes ~0.29 ms, ~0.2 TB/s. The PV phase reads V one byte (a
 // bf16 cache: two) a thread, 32 bytes a warp request, so too few bytes are
@@ -288,6 +294,7 @@ int launch_hd(const DecodeParams& p, int G, bool int8, cudaStream_t st) {
     case 1: launch<HD, 1>(p, int8, st); break;
     case 2: launch<HD, 2>(p, int8, st); break;
     case 4: launch<HD, 4>(p, int8, st); break;
+    case 7: launch<HD, 7>(p, int8, st); break;  // Qwen2-7B: 28 on 4
     case 8: launch<HD, 8>(p, int8, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,6 +14,7 @@ With int8 weights every `kernel` above (the head's included) is a
 `kernel_q8` pack {q int8 [.., in, out], scale [.., 1, out]} (ops/quant);
 with int4 weights the layers' kernels are `kernel_q4` packs {q4 int8
 [.., in/2, out], scale [.., 1, out]} and the head stays a `kernel_q8` pack.
+An int8 embedding is embed.weight_q8 {q int8 [V, D], scale [V, 1]}.
 """
 
 from __future__ import annotations
@@ -124,17 +125,21 @@ def _read_kv(cache: KVCache, i: int, rows: slice, kv_heads: int, dtype):
     return out
 
 
-def param_shapes(cfg: LLMConfig, bits: Optional[int] = None) -> dict:
+def param_shapes(cfg: LLMConfig, bits: Optional[int] = None,
+                 int8_embed: bool = False) -> dict:
     """Shapes of the decoder's params; with weight bits 8 or 4, the layout
-    of ops/quant.quantize_llm_params(bits) with the (int8) head included."""
+    of ops/quant.quantize_llm_params(bits) with the (int8) head included;
+    with int8_embed, its include_embed pack of the embedding."""
     _check_supported(cfg)
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qkv = kernel_shapes((L, D, (H + 2 * K) * hd), bits)
     if cfg.qkv_bias:
         qkv["bias"] = (L, (H + 2 * K) * hd)
+    V = cfg.vocab_size
     return {
-        "embed": {"weight": (cfg.vocab_size, D)},
+        "embed": ({"weight_q8": {"q": (V, D), "scale": (V, 1)}}
+                  if int8_embed else {"weight": (V, D)}),
         "layers": {
             "attn_norm": {"scale": (L, D)},
             "qkv": qkv,
@@ -151,7 +156,17 @@ def param_shapes(cfg: LLMConfig, bits: Optional[int] = None) -> dict:
 
 def embed_tokens(params: dict, token_ids: torch.Tensor,
                  dtype=None) -> torch.Tensor:
-    w = params["embed"]["weight"]
+    """Embedding rows of token_ids in dtype. An int8 table ("weight_q8",
+    per-row scales) gathers only the looked-up int8 rows and their scales
+    and multiplies them in fp32 before the cast (JAX `embed_tokens`; fp32
+    when dtype is None)."""
+    emb = params["embed"]
+    if "weight_q8" in emb:
+        pack = emb["weight_q8"]
+        rows = F.embedding(token_ids, pack["q"]).float()
+        out = rows * F.embedding(token_ids, pack["scale"]).float()
+        return out.to(dtype if dtype is not None else torch.float32)
+    w = emb["weight"]
     if dtype is not None:
         w = w.to(dtype)
     return F.embedding(token_ids, w)

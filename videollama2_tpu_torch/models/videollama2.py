@@ -1,6 +1,6 @@
 """Multimodal assembly, video path (port of
-videollama2_tpu/models/videollama2.py): frames -> CLIP tower -> STC
-connector -> splice -> LLM prefill (serving) or LLM forward, head and
+videollama2_tpu/models/videollama2.py): frames -> CLIP or SigLIP tower ->
+STC connector -> splice -> LLM prefill (serving) or LLM forward, head and
 shifted cross-entropy (training, `forward_train`).
 
 Params tree: {"llm": ..., "vision": ..., "connector": ...}.
@@ -25,13 +25,15 @@ VIT_ENCODE_CHUNK = 128  # frames per tower pass (bounds tower activations)
 
 
 def param_shapes(cfg: ModelConfig, llm_bits: Optional[int] = None,
-                 int8_vision: bool = False) -> dict:
-    """Shapes of the whole tree; llm_bits (8 or 4) / int8_vision give the
-    layouts of ops/quant.quantize_llm_params(bits) (int8 head included) and
-    quantize_vision_params."""
+                 int8_vision: bool = False,
+                 int8_embed: bool = False) -> dict:
+    """Shapes of the whole tree; llm_bits (8 or 4) / int8_vision /
+    int8_embed give the layouts of ops/quant.quantize_llm_params(bits)
+    (int8 head included; include_embed) and quantize_vision_params."""
     if cfg.audio is not None:
         raise NotImplementedError("the audio branch is not ported yet")
-    return {"llm": llm_lib.param_shapes(cfg.llm, bits=llm_bits),
+    return {"llm": llm_lib.param_shapes(cfg.llm, bits=llm_bits,
+                                        int8_embed=int8_embed),
             "vision": vit_lib.param_shapes(cfg.vision, int8=int8_vision),
             "connector": connector_lib.param_shapes(cfg.connector)}
 

@@ -1,14 +1,19 @@
-"""CLIP ViT-L/14-336 feature tower (port of the CLIP path of
-videollama2_tpu/models/vit.py).
+"""Vision feature towers: CLIP ViT-L/14-336 and SigLIP-SO400M/14-384 (port
+of videollama2_tpu/models/vit.py).
 
 The tower is frozen: it runs only the first `select_layer % (L + 1)` encoder
-layers (23 of CLIP-L's 24 for the default -2) and drops CLS for 'patch'
-features. Attention goes through `ops.attention.attend(causal=False)`, which
-sends CLIP's 577 tokens to the encoder-attention kernel without padding them.
+layers (23 of CLIP-L's 24, 26 of SigLIP's 27 for the default -2) and drops
+CLS for CLIP's 'patch' features. The two variants differ only at the
+embedding: CLIP prepends a CLS token and applies a pre-LayerNorm, SigLIP
+adds a bias to its patch projection and has neither. Attention goes through
+`ops.attention.attend(causal=False)`, which sends CLIP's 577 tokens (head dim
+64) and SigLIP's 729 (head dim 72) to the encoder-attention kernel without
+padding them.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
-  patch_embed.kernel [P, P, 3, D] (HWIO)   pos_embed.weight [S, D]
-  cls_token.weight [D]   pre_ln/post_ln {scale, bias} [D]
+  patch_embed.kernel [P, P, 3, D] (HWIO) (+ .bias [D], SigLIP)
+  pos_embed.weight [S, D]   post_ln {scale, bias} [D]
+  CLIP only: cls_token.weight [D]   pre_ln {scale, bias} [D]
   layers: ln1/ln2 {scale, bias} [L, D]; qkv {kernel [L, D, 3D], bias [L, 3D]}
           o, fc1, fc2 {kernel, bias}
 """
@@ -30,8 +35,6 @@ def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
     int8 packs (ops/quant.quantize_vision_params)."""
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     P = cfg.patch_size
-    if cfg.variant != "clip":
-        raise NotImplementedError("only the CLIP tower is ported")
 
     def ln(lead=(L,)):
         return {"scale": lead + (D,), "bias": lead + (D,)}
@@ -40,11 +43,9 @@ def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
         return dict(kernel_shapes((L, d_in, d_out), 8 if int8 else None),
                     bias=(L, d_out))
 
-    return {
+    shapes = {
         "patch_embed": {"kernel": (P, P, 3, D)},
         "pos_embed": {"weight": (cfg.seq_len, D)},
-        "cls_token": {"weight": (D,)},
-        "pre_ln": ln(()),
         "post_ln": ln(()),
         "layers": {
             "ln1": ln(), "ln2": ln(),
@@ -54,17 +55,27 @@ def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
             "fc2": linear(F_, D),
         },
     }
+    if cfg.variant == "clip":
+        shapes["cls_token"] = {"weight": (D,)}
+        shapes["pre_ln"] = ln(())
+    else:
+        shapes["patch_embed"]["bias"] = (D,)
+    return shapes
 
 
 def embeddings(params: dict, cfg: VisionConfig,
                pixels: torch.Tensor) -> torch.Tensor:
-    """pixels [N, H, W, 3] -> [N, 1 + patches, D] (CLS + patches + pos)."""
+    """pixels [N, H, W, 3] -> [N, tokens, D]: the patch projection (plus
+    its bias, SigLIP), CLS prepended (CLIP), position embeddings added."""
     P = cfg.patch_size
     x = conv2d(pixels, params["patch_embed"]["kernel"], stride=P)
+    if "bias" in params["patch_embed"]:
+        x = x + params["patch_embed"]["bias"].to(x.dtype)
     n, h, w, d = x.shape
     x = x.reshape(n, h * w, d)
-    cls = params["cls_token"]["weight"].to(x.dtype).expand(n, 1, d)
-    x = torch.cat([cls, x], dim=1)
+    if cfg.use_cls_token:
+        cls = params["cls_token"]["weight"].to(x.dtype).expand(n, 1, d)
+        x = torch.cat([cls, x], dim=1)
     return x + params["pos_embed"]["weight"].to(x.dtype)[None]
 
 
@@ -90,17 +101,19 @@ def _encoder_layer(cfg: VisionConfig, x: torch.Tensor, lp: dict,
 
 def features(params: dict, cfg: VisionConfig, pixels: torch.Tensor,
              w8a8: bool = False) -> torch.Tensor:
-    """hidden_states[select_layer] without CLS: [N, H, W, 3] -> [N, P, D].
-    w8a8 selects the serving branch of int8 packs (ops/layers.dense)."""
+    """hidden_states[select_layer] (CLS dropped for CLIP's 'patch'):
+    [N, H, W, 3] -> [N, tokens, D]. w8a8 selects the serving branch of int8
+    packs (ops/layers.dense)."""
+    if cfg.select_feature not in ("patch", "cls_patch"):
+        raise ValueError(f"Unexpected select feature: {cfg.select_feature}")
     x = embeddings(params, cfg, pixels)
-    x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
-                   cfg.layer_norm_eps)
+    if cfg.variant == "clip":
+        x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
+                       cfg.layer_norm_eps)
     n_layers = cfg.select_layer % (cfg.num_layers + 1)
     for i in range(n_layers):
         x = _encoder_layer(cfg, x, layer_params(params["layers"], i),
                            w8a8)
-    if cfg.select_feature == "patch":
+    if cfg.select_feature == "patch" and cfg.use_cls_token:
         return x[:, 1:]
-    if cfg.select_feature == "cls_patch":
-        return x
-    raise ValueError(f"Unexpected select feature: {cfg.select_feature}")
+    return x

@@ -41,6 +41,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vl2_encoder_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vl2_encoder_attention_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
+                                    _P],
     "vl2_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     "vl2_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [_L] * 9

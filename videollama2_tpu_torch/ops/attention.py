@@ -70,26 +70,31 @@ def attend(q, k, v, valid_len=None, causal: bool = True,
            scale: Optional[float] = None) -> torch.Tensor:
     """Attention entry point of every full-sequence forward.
 
-    The routing follows the JAX package's TPU rule without its padding: a
-    call without a sliding window, with a head dim that is a multiple of 64
-    and at least 128 queries goes to a kernel (the encoder kernel for
-    non-causal square calls up to 1024 tokens with equal heads, the flash
-    kernel otherwise); everything else takes the plain path, as JAX sends it
-    to XLA. Each kernel's wrapper then runs the CUDA kernel for CUDA tensors
-    and its plain version for CPU tensors. When a gradient is needed (grad
-    mode on and q, k or v requiring one), the flash route goes through
+    The routing follows the JAX package's TPU rule without its padding, and
+    with the tower's head dims: a call without a sliding window and with at
+    least 128 queries goes to a kernel when one takes its head dim. A
+    non-causal square call of up to 1024 tokens with equal heads and a head
+    dim K1 takes (64 for CLIP, 72 for SigLIP, which JAX leaves to XLA) goes
+    to the encoder kernel; another with a head dim that is a multiple of 64
+    to the flash kernel. Everything else takes the plain path, as JAX sends
+    it to XLA. Each kernel's wrapper then runs the CUDA kernel for CUDA
+    tensors and its plain version for CPU tensors. When a gradient is needed
+    (grad mode on and q, k or v requiring one), the flash route goes through
     `FlashAttention`, whose backward runs the K8/K9 kernels; the encoder
     route is never differentiated (the towers are frozen).
     """
-    Sq, Sk = q.shape[1], k.shape[1]
-    if window is None and q.shape[-1] % 64 == 0 and Sq >= 128:
-        if not causal and Sq == Sk and Sq <= 1024 and q.shape[2] == k.shape[2]:
-            from .encoder_attention import encoder_attention
-            return encoder_attention(q, k, v, valid_len, scale)
-        from .flash_attention import FlashAttention, flash_attention
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            return FlashAttention.apply(q, k, v, valid_len, causal, scale)
-        return flash_attention(q, k, v, valid_len, causal, scale)
+    from . import encoder_attention as enc
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    if window is None and Sq >= 128:
+        if (not causal and Sq == Sk and Sq <= enc.MAX_SEQ
+                and q.shape[2] == k.shape[2]
+                and D in enc.SUPPORTED_HEAD_DIMS):
+            return enc.encoder_attention(q, k, v, valid_len, scale)
+        if D % 64 == 0:
+            from .flash_attention import FlashAttention, flash_attention
+            if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad):
+                return FlashAttention.apply(q, k, v, valid_len, causal, scale)
+            return flash_attention(q, k, v, valid_len, causal, scale)
     return attend_plain(q, k, v, valid_len=valid_len, causal=causal,
                         window=window, scale=scale)

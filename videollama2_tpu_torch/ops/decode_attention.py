@@ -18,7 +18,7 @@ from . import _build
 from .attention import NEG_INF
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (1, 2, 4, 8)   # query heads per kv head
+SUPPORTED_GROUPS = (1, 2, 4, 7, 8)   # query heads per kv head
 CHUNK = 128                       # cache rows a block (csrc kChunk)
 
 

@@ -132,13 +132,22 @@ def _quantize_entries(layers: dict, names, bits: int) -> dict:
     return out
 
 
+def quantize_embed(embed: dict) -> dict:
+    """The embedding {"weight" [V, D]} -> {"weight_q8": int8 pack with one
+    scale a row ([V, 1])}: embed_tokens gathers int8 rows and their scales
+    (JAX's include_embed)."""
+    return {"weight_q8": quantize_int8(embed["weight"], axis=-1)}
+
+
 def quantize_llm_params(llm_params: dict, bits: int = 8,
-                        include_head: bool = True) -> dict:
+                        include_head: bool = True,
+                        include_embed: bool = False) -> dict:
     """int8 (bits 8) or folded int4 (bits 4) packs for the LLM's stacked
     projections (q/k/v or the fused qkv, o, gate, up, down) and, with
     include_head, an int8 lm_head whatever `bits` (as in JAX: the head is a
-    single-matmul consumer, not a folded-nibble kernel); norms and the
-    embedding stay floating point."""
+    single-matmul consumer, not a folded-nibble kernel); with
+    include_embed, an int8 embedding with per-row scales (the 152k-vocab
+    families' option). Norms stay floating point."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     out = dict(llm_params)
@@ -148,6 +157,8 @@ def quantize_llm_params(llm_params: dict, bits: int = 8,
         head = dict(out["lm_head"])
         head.update(quantize_kernel(head.pop("kernel"), 8))
         out["lm_head"] = head
+    if include_embed:
+        out["embed"] = quantize_embed(out["embed"])
     return out
 
 

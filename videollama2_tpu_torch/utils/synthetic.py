@@ -24,6 +24,7 @@ import torch
 
 from ..constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
 from ..models import videollama2 as vl2
+from ..models import vit
 from ..multimodal.splice import plan_batch
 from ..ops import quant
 from ..train.data import Batch
@@ -79,24 +80,41 @@ def _quantize_in_place(entries: dict, names, bits: int) -> None:
 
 
 def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
-                     seed: int = 0, llm_bits: Optional[int] = None) -> dict:
+                     seed: int = 0, llm_bits: Optional[int] = None,
+                     quantize_embed: bool = False) -> dict:
     """Full parameter tree for `cfg` on `device` in `dtype`. With llm_bits
     8 or 4 (bench.py's BENCH_BITS), the LLM's projections become int8 or
     folded int4 packs, its head and the tower's linears int8 packs (the
     layout of ops/quant.quantize_llm_params(bits) and
     quantize_vision_params, the JAX package's quantized serving tree),
-    quantized from the seeded floating weights."""
+    quantized from the seeded floating weights. With quantize_embed, the
+    embedding becomes an int8 pack with per-row scales (include_embed:
+    bench.py quantizes it for BENCH_MODEL=qwen2, whose 152k-row table is
+    1.1 GB in bf16)."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     params = _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
                     generator)
+    llm = params["llm"]
     if llm_bits is not None:
-        llm = params["llm"]
         _quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS, llm_bits)
         _quantize_in_place(llm, ("lm_head",), 8)
         _quantize_in_place(params["vision"]["layers"],
                            quant.VISION_PROJECTIONS, 8)
+    if quantize_embed:
+        llm["embed"] = quant.quantize_embed(llm["embed"])
     return params
+
+
+def synthetic_vision_params(vision_cfg, dtype=torch.bfloat16,
+                            device="cuda", seed: int = 0) -> dict:
+    """The tower's parameter tree alone (models/vit.param_shapes), seeded
+    and initialised as in synthetic_params, for runs of the tower without
+    the LLM."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return _build(vit.param_shapes(vision_cfg), ("vision",), dtype,
+                  torch.device(device), generator)
 
 
 def synthetic_train_batch(cfg, rng: np.random.Generator, n: int,
