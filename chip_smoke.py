@@ -545,13 +545,14 @@ def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
 
 PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                  "flash_attention_kernel", "encoder_attention_pairs_kernel",
-                 "encoder_attention_kernel", "decode_split_kernel")
+                 "encoder_attention_pipelined_kernel", "decode_chunk_kernel",
+                 "decode_combine_kernel")
 
 
 def ptxas_report(path) -> None:
     """Registers and spills of the attention kernels (each template
     instance by its integer arguments: head dim, then causal flag or query
-    heads a kv head; decode_split_kernel's cache type a = int8), from the
+    heads a kv head; decode_chunk_kernel's cache type a = int8), from the
     ptxas report the build wrote beside the library."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of the attention kernels (K2's LSE, K8, K9, K10), on an
-NVIDIA GPU: each mutant is a copy of the port and its tests in the
+"""Mutation check of the attention kernels (K1, K2's LSE, K3, K8, K9,
+K10), on an NVIDIA GPU: each mutant is a copy of the port and its tests in the
 system's temporary directory with one deliberate fault in a CUDA source,
 and the kernel's tests in tests/test_torch_cuda.py (those whose names
 match the mutant's filter) must fail on every mutant. Prints one line per
@@ -44,6 +44,19 @@ MUTANTS = {
         "encoder_attention_pairs.cu",
         "key_tiles<false>(p.Sk, valid, q0)",
         "key_tiles<false>(p.Sk - 1, valid, q0)", "pairs"),
+    "K1 multiplies the ring stage after the one that landed": (
+        "encoder_attention.cu", "const int stage = kt % kStages;",
+        "const int stage = (kt + 1) % kStages;", "encoder_attention_cuda"),
+    "K1 drops the ragged edge's last key": (
+        "encoder_attention.cu", "key_tiles(p.S, valid)",
+        "key_tiles(p.S - 1, valid)", "encoder_attention_cuda"),
+    "K3 leaves the v scale out of p": (
+        "decode_attention.cu", "pin = pe * s_vs[j];", "pin = pe;",
+        "decode_attention"),
+    "K3 skips the last row of a chunk": (
+        "decode_attention.cu", "const int rows = min(kChunk, p.write_pos - r0);",
+        "const int rows = min(kChunk - 1, p.write_pos - r0);",
+        "decode_attention"),
 }
 
 

@@ -8,8 +8,9 @@ every key valid, it times four versions of the same attention with CUDA
 events behind a spin kernel (chip_smoke.cuda_ms): the plain PyTorch
 version, K1 (`encoder_attention`), K10 (`encoder_attention(...,
 pack_pairs=True)`, the head-pair kernel) and one
-`torch.nn.functional.scaled_dot_product_attention` call as a yardstick,
-beside the bound (chip_smoke.attention_bound: q/k/v read and the output
+`torch.nn.functional.scaled_dot_product_attention` call as a yardstick
+(its default backend, and its FlashAttention-2 and cuDNN backends each
+forced with `torch.nn.attention.sdpa_kernel`), beside the bound (chip_smoke.attention_bound: q/k/v read and the output
 written once at 3.35 TB/s, or the FLOPs at 989 TFLOP/s), and checks K1 and
 K10 against the plain version (chip_smoke.K1_TOL).
 
@@ -48,6 +49,18 @@ def _fields(row: dict) -> str:
                      if key != "shape")
 
 
+def sdpa_backend_ms(backend: str, q, k, v):
+    """scaled_dot_product_attention's time with one backend forced, or the
+    reason it does not run (a yardstick only)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    try:
+        with sdpa_kernel([getattr(SDPBackend, backend)]):
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    except RuntimeError as e:
+        return f"unavailable: {str(e)[:80]}"
+
+
 def kernels(gen) -> dict:
     """plain / K1 / K10 / SDPA at both towers' chunk shapes."""
     from videollama2_tpu_torch.ops import encoder_attention as k1
@@ -76,6 +89,9 @@ def kernels(gen) -> dict:
                 q, k, v, pack_pairs=True)),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 sq, sk, sv)),
+            **{f"sdpa_{name}_ms": sdpa_backend_ms(backend, sq, sk, sv)
+               for name, backend in (("flash", "FLASH_ATTENTION"),
+                                     ("cudnn", "CUDNN_ATTENTION"))},
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "k1_max_abs_err": errs["k1"], "k10_max_abs_err": errs["k10"]}
         print(f"[{name}] q/k/v {row['shape']}: " + _fields(row), flush=True)

@@ -38,6 +38,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
+K1_TOL = 2e-2       # attention outputs: bf16 P and bf16 output rounding
+K3_TOL = 2e-2
+
+
 def _bf16_qkv(gen, B, S, Hq, Hkv, D, device):
     def r(*shape):
         return torch.randn(shape, generator=gen, device=device).bfloat16()
@@ -53,7 +57,34 @@ def test_encoder_attention_cuda_matches_plain(cuda_device, S, D):
                          device=cuda_device)
     got = k1.encoder_attention(q, k, v, valid).float()
     ref = k1.encoder_attention_plain(q.float(), k.float(), v.float(), valid)
-    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+    torch.testing.assert_close(got, ref, rtol=0, atol=K1_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 577, 729, 1024])
+def test_encoder_attention_cuda_fused_strided(cuda_device, S, D):
+    """K1 on q/k/v as strided views of one fused [B, S, 3 * H * D] tensor,
+    as the towers pass them: S on both sides of the 64-key tiles and the
+    128-row query tiles, valid_len S, 1 and 0 (every key masked: mean(v)
+    over all S keys)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S * 100 + D)
+    B, H = 3, 4
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen,
+                      device=cuda_device).bfloat16()
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))
+               for i in range(3))
+    assert q.stride(0) == S * 3 * H * D and q.stride(2) == D
+    valid = torch.tensor([S, 1, 0], dtype=torch.int32, device=cuda_device)
+    before = k1.encoder_attention.launches
+    got = k1.encoder_attention(q, k, v, valid)
+    assert k1.encoder_attention.launches == before + 1
+    ref = k1.encoder_attention_plain(q.float(), k.float(), v.float(), valid)
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=K1_TOL)
+    torch.testing.assert_close(got[2].float(),
+                               v[2].float().mean(0, keepdim=True).expand(
+                                   S, H, D), rtol=0, atol=K1_TOL)
+    assert torch.equal(got, k1.encoder_attention(q, k, v, valid))
 
 
 @pytest.mark.cuda
@@ -61,9 +92,9 @@ def test_encoder_attention_cuda_matches_plain(cuda_device, S, D):
                                    (130, 4, 64)])
 def test_encoder_attention_pairs_cuda_matches_plain_and_k1(cuda_device, S,
                                                            H, D):
-    """K10 (pack_pairs=True) against its plain version and against K1: the
-    two kernels run the same tile step per head, so they agree bit for
-    bit."""
+    """K10 (pack_pairs=True) against its plain version and against K1
+    (the same function; K1's pipelined tiles round differently from K10's
+    tile step, so the two agree within K1_TOL, not bit for bit)."""
     gen = torch.Generator(device=cuda_device).manual_seed(S + H)
     q, k, v = _bf16_qkv(gen, 3, S, H, H, D, cuda_device)
     valid = torch.tensor([S, S - 100, 1], dtype=torch.int32,
@@ -76,8 +107,9 @@ def test_encoder_attention_pairs_cuda_matches_plain_and_k1(cuda_device, S,
                                                      before[1] + 1)
     ref = k1.encoder_attention_pairs_plain(q.float(), k.float(), v.float(),
                                            valid)
-    torch.testing.assert_close(got.float(), ref, rtol=0, atol=2e-2)
-    assert torch.equal(got, k1.encoder_attention(q, k, v, valid))
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=K1_TOL)
+    single = k1.encoder_attention(q, k, v, valid).float()
+    torch.testing.assert_close(got.float(), single, rtol=0, atol=K1_TOL)
 
 
 @pytest.mark.cuda
@@ -259,6 +291,56 @@ def test_decode_attention_cuda_group_7(cuda_device, cache, window):
         k3.decode_attention_layered(q[:, :12].contiguous(), k_new, v_new,
                                     *args, **kw)
     assert k3.decode_attention_layered.launches == before + 1
+
+
+def _decode_inputs(gen, device, B, H, K, hd, L, M, cache):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q = (r(B, H, hd) * 2).bfloat16()
+    k_new, v_new = r(B, K, hd).bfloat16(), r(B, K, hd).bfloat16()
+    ck, cv = r(L, B, M, K, hd), r(L, B, M, K, hd)
+    kw = {}
+    if cache == "int8":
+        (ck, ks), (cv, vs) = _quantize_kv_rows(ck), _quantize_kv_rows(cv)
+        kw = dict(k_scale=ks.transpose(2, 3).contiguous(),
+                  v_scale=vs.transpose(2, 3).contiguous())
+    dtype = torch.int8 if cache == "int8" else torch.bfloat16
+    ck, cv = (t.reshape(L, B, M, K * hd).to(dtype) for t in (ck, cv))
+    return q, k_new, v_new, ck, cv, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["int8", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+def test_decode_attention_cuda_chunk_edges(cuda_device, cache, hd, G):
+    """K3 at every group and head dim, both caches, with and without a
+    window, with write_pos at 1 and on both sides of the 128-row chunk
+    edges (the last chunk holding 1, 127 or 128 rows; the chunks past
+    write_pos exit at once); two runs bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(G * 1000 + hd)
+    B, K, L, M = 3, 2, 2, 384
+    q, k_new, v_new, ck, cv, kw = _decode_inputs(
+        gen, cuda_device, B, G * K, K, hd, L, M, cache)
+    for write_pos in (1, 127, 128, 129, 255, 256, 257, 383):
+        prompt_len = min(write_pos, 200)
+        valid = torch.tensor([prompt_len, prompt_len // 2, 0],
+                             dtype=torch.int32, device=cuda_device)
+        for window in (None, 60):
+            args = (ck, cv, 1, valid, write_pos, prompt_len)
+            before = k3.decode_attention_layered.launches
+            got = k3.decode_attention_layered(q, k_new, v_new, *args,
+                                              window=window, **kw)
+            assert k3.decode_attention_layered.launches == before + 1
+            ref = k3.decode_attention_plain(q.float(), k_new, v_new, *args,
+                                            window=window, **kw)
+            torch.testing.assert_close(
+                got.float(), ref.float(), rtol=0, atol=K3_TOL,
+                msg=lambda m, w=write_pos, win=window:
+                f"write_pos {w} window {win}: {m}")
+            again = k3.decode_attention_layered(q, k_new, v_new, *args,
+                                                window=window, **kw)
+            assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

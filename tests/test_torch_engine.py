@@ -160,6 +160,29 @@ def test_top_p_sampling_is_seeded(tiny):
     assert all(0 <= t < cfg.llm.vocab_size for row in a for t in row)
 
 
+def test_sampled_request_ignores_speculative_k(tiny):
+    """As in the JAX Engine, speculation is for greedy requests: a sampled
+    one decodes plainly whatever speculative_k says, so its seeded tokens
+    are those of speculative_k=0."""
+    cfg, jp, tp = tiny
+    frames = _videos(cfg, "rgb")
+    eng = Engine(cfg, tp, dtype=torch.float32, max_len=128, buckets=(64,),
+                 device="cpu")
+    kw = dict(do_sample=True, temperature=1.0, top_p=0.9, max_new_tokens=6,
+              seed=3)
+    plain = eng.generate(PROMPTS, frames=frames,
+                         gen=GenerationConfig(**kw), eos_token_id=-1)
+    spec = eng.generate(PROMPTS, frames=frames,
+                        gen=GenerationConfig(speculative_k=4, **kw),
+                        eos_token_id=-1)
+    assert spec == plain
+    jeng = JaxEngine(cfg, jp, dtype=jnp.float32, max_len=128, buckets=(64,))
+    jout = jeng.generate(PROMPTS, frames=frames,
+                         gen=JaxGenerationConfig(speculative_k=4, **kw),
+                         eos_token_id=-1)
+    assert [len(o) for o in jout] == [len(o) for o in spec] == [6, 6]
+
+
 def test_unported_options_raise(tiny):
     cfg, _, tp = tiny
     eng = Engine(cfg, tp, dtype=torch.float32, max_len=128, buckets=(64,),

@@ -225,3 +225,23 @@ def test_from_jax_checks_every_leaf(tiny):
                               if k != "final_norm"})
     with pytest.raises(KeyError):
         params_from_jax(missing, cfg)
+
+
+@pytest.mark.parametrize("ptype", ["mlp2x_gelu", "stc_connector"])
+def test_temporal_aggregator_pools_like_jax(ptype, monkeypatch):
+    """The projector-type dispatch before the connector: mean over T for
+    linear and mlp* projectors, [B, T, N, D] passed on for STC. The
+    connector is replaced by the identity in both packages, so only the
+    dispatch is compared (1e-6: a mean of four fp32 values)."""
+    cfg = cfglib.tiny_model(projector_type=ptype)
+    monkeypatch.setattr(jconn, "apply", lambda p, c, x: x)
+    monkeypatch.setattr(tconn, "apply", lambda p, c, x: x)
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((2, cfg.num_frames, 6,
+                                 cfg.vision.hidden_size), dtype=np.float32)
+    want = _np(jvl2.temporal_aggregator({"connector": {}}, cfg,
+                                        jnp.asarray(feats)))
+    got = tvl2.temporal_aggregator({"connector": {}}, cfg, _t(feats)).numpy()
+    assert got.shape == want.shape
+    assert want.ndim == (3 if ptype == "mlp2x_gelu" else 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -19,8 +19,9 @@
 // vectorized pass over those runs (16 bytes a thread), the tile count and
 // the key-column bound (valid_len) are taken once for both heads, and warps
 // 0-3 run head 2p's online softmax while warps 4-7 run head 2p + 1's
-// (attention_tile.cuh: the same tile step as K1, so both kernels round
-// alike). D 72 (SigLIP) is computed at a zero-padded 80, as in K1.
+// (attention_tile.cuh's tile step, which K1 used before its pipelined
+// redesign; the two now round differently and agree within K1's tolerance).
+// D 72 (SigLIP) is computed at a zero-padded 80, as in K1.
 //
 // What bounds it on the H100: the same work as K1 (4 * S^2 * D FLOPs a head
 // against 4 * S * D bytes, near the tensor-core ridge at tower shapes); a
@@ -29,10 +30,10 @@
 // 256-thread block at ~130 registers a thread leaves room for one block an
 // SM's 65,536 registers, so the kernel is bounded to two blocks an SM (128
 // registers; at DK 80 ptxas spills 20 bytes), which on an H100 at 700 W
-// took [128,729,16,72] from 7.19 to 3.82 ms. It stays slower than K1 (its
-// 8 warps wait at each barrier for a load pass of twice the bytes, and two
-// blocks an SM overlap less than K1's three): the tiles load synchronously,
-// and an asynchronous load pipeline is the next step for both kernels.
+// took [128,729,16,72] from 7.19 to 3.82 ms. Its 8 warps wait at each
+// barrier for a synchronous load pass of twice the bytes; K1's
+// asynchronous load ring (encoder_attention.cu) is the model for its
+// redesign.
 
 #include "attention_tile.cuh"
 

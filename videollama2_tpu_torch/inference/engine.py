@@ -149,7 +149,8 @@ class Engine:
             raise NotImplementedError("grouped media is not ported yet")
         if return_session:
             raise NotImplementedError("sessions are not ported yet")
-        if gen.speculative_k >= 2:
+        if gen.speculative_k >= 2 and not gen.do_sample:
+            # as the JAX Engine, a sampled request ignores speculative_k
             raise NotImplementedError("speculative decoding is not ported")
         cfg = self.cfg
         eos = eos_token_id if eos_token_id is not None else cfg.llm.eos_token_id

@@ -116,7 +116,11 @@ def _tower_features(params: dict, cfg: ModelConfig, flat: torch.Tensor,
 
 def temporal_aggregator(params: dict, cfg: ModelConfig,
                         frame_feats: torch.Tensor) -> torch.Tensor:
-    """[B, T, N, D_vision] -> [B, tokens, D_llm] through the connector."""
+    """[B, T, N, D_vision] -> [B, tokens, D_llm] through the connector;
+    the linear and mlp* projectors take the mean over T first."""
+    pt = cfg.connector.projector_type
+    if pt in ("mlp2x_gelu", "linear") or pt.startswith("mlp"):
+        frame_feats = frame_feats.mean(dim=1)
     return connector_lib.apply(params["connector"], cfg.connector,
                                frame_feats)
 

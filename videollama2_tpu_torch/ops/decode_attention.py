@@ -135,7 +135,8 @@ def decode_attention_layered(q: torch.Tensor, k_new: torch.Tensor,
         _check("k_scale", k_scale, dev, torch.float32, (L, B, K, M))
         _check("v_scale", v_scale, dev, torch.float32, (L, B, K, M))
     _check("valid_len", valid_len, dev, torch.int32, (B,))
-    nsplit = max(1, -(-write_pos // CHUNK))
+    # the grid and the scratch follow M; chunks past write_pos exit at once
+    nsplit = -(-M // CHUNK)
     out = torch.empty((B, H, hd), dtype=bf16, device=dev)
     part_acc = torch.empty((B, K, nsplit, H // K, hd), dtype=torch.float32,
                            device=dev)
