@@ -165,35 +165,46 @@ def layer_cycle(n_layers):
     return nxt
 
 
-def check_kernel(name, kernel, plain, cases, tol, rel=False):
+def check_kernel(name, kernel, plain, cases, tol, rel=False,
+                 deterministic=False):
     """cases: (label, (args, kwargs), (ref_args, ref_kwargs), timed,
     yard). The kernel on args is compared with the plain version on
     ref_args (fp32 values of the same inputs); `timed(fn)` returns a
     zero-argument launch of fn on the kernel's inputs, which times both;
     yard is (bound(), library) with `library` a zero-argument call of one
-    PyTorch function computing the same (None where there is none), timed
-    as a yardstick. With rel, the error bound is tol * max|ref|. Returns
-    {"max_abs_err": the worst, "cases": a row per case}."""
+    PyTorch function computing the same, timed as a yardstick (None where
+    there is none; the text of its refusal where PyTorch refuses it). With
+    rel, the error bound is tol * max|ref|; with deterministic, a second
+    call must give the same bits. Returns {"max_abs_err": the worst,
+    "cases": a row per case}."""
     worst, rows = 0.0, []
     for label, (args, kw), (rargs, rkw), timed, yard in cases:
-        got = kernel(*args, **kw).float()
+        got = kernel(*args, **kw)
+        again = kernel(*args, **kw) if deterministic else got
         ref = plain(*rargs, **rkw).float()
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise RuntimeError(f"{name} {label}: two calls differ")
+        got = got.float()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {label}: non-finite output")
         err = (got - ref).abs().max().item()
         bound = tol * ref.abs().max().item() if rel else tol
-        del got, ref
+        del got, again, ref
         (bound_ms, bound_by), library = yard
         row = {"case": label, "max_abs_err": err,
                "ms": cuda_ms(timed(kernel)),
                "plain_ms": cuda_ms(timed(plain), iters=3),
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": cuda_ms(library) if library else None}
+               "library_ms": cuda_ms(library) if callable(library) else None}
+        if isinstance(library, str):
+            row["library_refused"] = library
         log(f"[{name}] {label}: max_abs_err {err:.3e} (bound {bound:.3e}), "
             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), library "
-            + (f"{row['library_ms']:.4f} ms" if library else "none"))
+            + (f"{row['library_ms']:.4f} ms" if callable(library)
+               else library or "none")
+            + (", two calls bit-equal" if deterministic else ""))
         if not err <= bound:
             raise RuntimeError(f"{name} {label}: max_abs_err {err} > {bound}")
         worst = max(worst, err)
@@ -241,8 +252,9 @@ def attention_cases(gen):
 
 
 def check_pairs_against_k1(k1, cases) -> dict:
-    """K10 against K1 on each tower case (the same function, the same tile
-    step per head): within K1_TOL, and whether the two are bit-equal."""
+    """K10 against K1 on each tower case (the same function and softmax,
+    K10's products on wgmma, K1's on mma.sync): within K1_TOL, and whether
+    the two are bit-equal."""
     out = {}
     for label, (args, kw), _, _, _ in cases:
         pairs = k1.encoder_attention(*args, pack_pairs=True, **kw)
@@ -314,15 +326,82 @@ def decode_attention_cases(gen, quantize_rows, k3, H, K, bucket, variants):
     return cases
 
 
-def matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_):
+def int8pack_library(x, q, s, plain):
+    """torch._weight_int8pack_mm(x, w [Dout, Din] int8, scales [Dout] bf16)
+    computes (x @ w.T) * scales: K4's and matmul_q8's function. q [L, Din,
+    Dout] int8 and s [L, 1, Dout]: a transposed copy of every layer is made
+    here, outside the timing, and the call rotates over them as the kernel
+    does. Returns a zero-argument call, or the refusal's text when PyTorch
+    refuses the call (this build or this shape)."""
+    wt = [q[i].t().contiguous() for i in range(q.shape[0])]
+    sc = [s[i].reshape(-1).bfloat16() for i in range(q.shape[0])]
+    return _library_call(
+        "torch._weight_int8pack_mm",
+        lambda i: torch._weight_int8pack_mm(x, wt[i], sc[i]),
+        len(wt), lambda: plain(x.float(), q[0], s[0]))
+
+
+def int4pack_library(x, q4, s, plain):
+    """torch._weight_int4pack_mm(x, w, 256, scales_and_zeros) with w the
+    int4 values (v + 8, two a byte, even k in the high nibble) packed by
+    torch._convert_weight_to_int4pack and each group of 256 given the
+    layer's per-channel scale and a zero of 0: (q - 8) * scale + 0 = v *
+    scale, K6's function. Every layer is repacked here, outside the
+    timing; returns a call, or the refusal's text."""
+    from videollama2_tpu_torch.ops.quant import unpack_int4
+    try:
+        packs = []
+        for i in range(q4.shape[0]):
+            u = (unpack_int4(q4[i]).t().to(torch.int16) + 8).to(torch.uint8)
+            w = torch._convert_weight_to_int4pack(
+                (u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+            scale = s[i].reshape(1, -1, 1).bfloat16().expand(
+                u.shape[1] // 256, -1, 1)
+            packs.append((w, torch.cat([scale, torch.zeros_like(scale)],
+                                       -1).contiguous()))
+    except RuntimeError as e:
+        return _refused("torch._weight_int4pack_mm", e)
+    return _library_call(
+        "torch._weight_int4pack_mm",
+        lambda i: torch._weight_int4pack_mm(x, packs[i][0], 256,
+                                            packs[i][1]),
+        len(packs), lambda: plain(x.float(), q4[0], s[0]))
+
+
+def _refused(name, e) -> str:
+    text = f"{name} refused: {str(e).splitlines()[0][:160]}"
+    log(f"[library] {text}")
+    return text
+
+
+def _library_call(name, call, n_layers, ref):
+    """call(i) on layer i; one call on layer 0 is checked against the plain
+    version (ref) and logged, so the yardstick is known to compute the
+    kernel's function. Returns a zero-argument call rotating over the
+    layers, or the refusal's text."""
+    try:
+        got = call(0).float()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return _refused(name, e)
+    want = ref().float()
+    log(f"[library] {name} at x{list(got.shape[:1])} -> {got.shape[1]}: vs "
+        f"plain max abs diff {(got - want).abs().max().item():.3e} "
+        f"(max|out| {want.abs().max().item():.3e})")
+    cyc = layer_cycle(n_layers)
+    return lambda: call(cyc())
+
+
+def matmul_cases(gen, quantize, library, mm_layers, D, qkv_out, F_):
     """K4 (K6 with int4 packs) at the fused qkv [D -> qkv_out] and o
     [D -> D], K5 (K7) at [D, F_], R = 16 rows, bf16 scales as the Engine
     casts them; `mm_layers` (K4/K6: enough that the rotated layers
     overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
-    `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel.
-    Bounds: each weight byte read once (h, the FFN's intermediate, stays
-    inside the kernel's work); no PyTorch call multiplies by int8 or int4
-    weights, so there is no library yardstick."""
+    `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel;
+    `library(x, q, s)` -> K4's or K6's PyTorch yardstick (int8pack_library,
+    int4pack_library). Bounds: each weight byte read once (h, the FFN's
+    intermediate, stays inside the kernel's work); no one PyTorch call
+    computes the FFN, so K5 and K7 have no library yardstick."""
     def pack(L, din, dout):
         q, s = quantize(rand_bf16(gen, (L, din, dout), 0.02))
         return q, s.bfloat16()
@@ -333,7 +412,7 @@ def matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_):
                         (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)):
         q, s = pack(mm_layers, D, dout)
         yard = (bound(2 * 16 * D * dout, q[0].nbytes + s[0].nbytes
-                      + x.nbytes + 16 * dout * 2), None)
+                      + x.nbytes + 16 * dout * 2), library(x, q, s))
         cyc = layer_cycle(mm_layers)
         k4.append((label, ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
                    lambda f, q=q, s=s, cyc=cyc: (
@@ -348,14 +427,16 @@ def matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_):
     return k4, k5
 
 
-def head_matmul_case(gen, quantize_int8):
+def head_matmul_case(gen, quantize_int8, plain):
     """matmul_q8 at the int8 head's shape, x[16,4096] q[4096,32000], fp32
-    scales (the JAX pack's)."""
+    scales (the JAX pack's); its yardstick is torch._weight_int8pack_mm."""
     x = rand_bf16(gen, (16, 4096))
     p = quantize_int8(rand_bf16(gen, (4096, 32000), 0.02), axis=-2)
     q, s = p["q"], p["scale"][0]
     yard = (bound(2 * 16 * 4096 * 32000,
-                  q.nbytes + s.nbytes + x.nbytes + 16 * 32000 * 2), None)
+                  q.nbytes + s.nbytes + x.nbytes + 16 * 32000 * 2),
+            int8pack_library(x, q[None], s[None, None],
+                             lambda x, q, s: plain(x, q, s)))
     return [("x[16,4096] q[4096,32000]", ((x, q, s), {}),
              ((x.float(), q, s), {}), lambda f: (lambda: f(x, q, s)), yard)]
 
@@ -546,14 +627,17 @@ def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
 PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                  "flash_attention_kernel", "encoder_attention_pairs_kernel",
                  "encoder_attention_pipelined_kernel", "decode_chunk_kernel",
-                 "decode_combine_kernel")
+                 "decode_combine_kernel", "splitk_kernel", "matmul_kernel")
 
 
 def ptxas_report(path) -> None:
-    """Registers and spills of the attention kernels (each template
-    instance by its integer arguments: head dim, then causal flag or query
-    heads a kv head; decode_chunk_kernel's cache type a = int8), from the
-    ptxas report the build wrote beside the library."""
+    """Registers and spills of the attention and decode matmul kernels
+    (each template instance by its integer and bool arguments: head dim,
+    then causal flag or query heads a kv head; decode_chunk_kernel's cache
+    type a = int8; splitk_kernel (K5) weights, 16-row tiles, fp32 scales;
+    matmul_kernel (K4, K6, K7, matmul_q8) 16-row tiles, SwiGLU, fp32
+    scales, int4), from the ptxas report the build wrote beside the
+    library."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")
         return
@@ -957,29 +1041,37 @@ def main() -> None:
     torch.cuda.empty_cache()
     # K4/K5 at Mistral-7B's and Qwen2-7B's widths; K6/K7 (int4, a Mistral
     # slice only) at Mistral-7B's
-    for mm, ffn, mm_layers, quantize, widths in (
+    for mm, ffn, mm_layers, quantize, library, widths in (
             ("matmul_q8_layered", "ffn_q8_layered", 4,
              lambda w: tuple(quantize_int8(w, axis=-2).values()),
+             lambda x, q, s: int8pack_library(x, q, s, dk._mm_plain),
              ((4096, 6144, 14336), (3584, 4608, 18944))),
             ("matmul_q4_layered", "ffn_q4_layered", 8,
              lambda w: tuple(quantize_int4(w, axis=-2)[k]
                              for k in ("q4", "scale")),
+             lambda x, q, s: int4pack_library(
+                 x, q, s, lambda x, q4, s: dk._mm_plain(
+                     x, dk.unpack_int4(q4), s)),
              ((4096, 6144, 14336),))):
         mm_cases, ffn_cases = [], []
         for D, qkv_out, F_ in widths:
-            k4, k5 = matmul_cases(gen, quantize, mm_layers, D, qkv_out, F_)
+            k4, k5 = matmul_cases(gen, quantize, library, mm_layers, D,
+                                  qkv_out, F_)
             mm_cases += k4
             ffn_cases += k5
         for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
+            # K5 (split-K) must give the same bits in two calls
             res[name] = check_kernel(
                 name, getattr(dk, name), getattr(dk, name + "_plain"),
-                cases, MATMUL_REL_TOL, rel=True)
+                cases, MATMUL_REL_TOL, rel=True,
+                deterministic=name == "ffn_q8_layered")
         del mm_cases, ffn_cases, k4, k5
         gc.collect()
         torch.cuda.empty_cache()
     res["matmul_q8"] = check_kernel(
         "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain,
-        head_matmul_case(gen, quantize_int8), MATMUL_REL_TOL, rel=True)
+        head_matmul_case(gen, quantize_int8, qm.matmul_q8_plain),
+        MATMUL_REL_TOL, rel=True)
     gc.collect()
     torch.cuda.empty_cache()
     train_kernels = check_training_attention(gen, k2)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the attention kernels (K1, K2's LSE, K3, K8, K9,
-K10), on an NVIDIA GPU: each mutant is a copy of the port and its tests in the
+K10) and of the int8 SwiGLU FFN's split-K core (K5), on an NVIDIA GPU:
+each mutant is a copy of the port and its tests in the
 system's temporary directory with one deliberate fault in a CUDA source,
 and the kernel's tests in tests/test_torch_cuda.py (those whose names
 match the mutant's filter) must fail on every mutant. Prints one line per
@@ -33,17 +34,22 @@ MUTANTS = {
         "    delta[r] = s;", "flash"),
     "K2 lse without log(l)": ("attention_tile.cuh",
         "= m_run[r] + logf(l);", "= m_run[r];", "flash"),
-    "K10 loads head 2p's rows for both heads": (
-        "encoder_attention_pairs.cu",
-        "head * head_stride + cc * 8", "cc * 8", "pairs"),
     "K10 head 2p + 1 scores against head 2p's keys": (
         "encoder_attention_pairs.cu",
-        "softmax_tile_step<DK, false>(qf, ks + head * kTile,",
-        "softmax_tile_step<DK, false>(qf, ks,", "pairs"),
+        "make_desc(st + c * L::kKVHead, 16, 1024, kSwizzle128B)",
+        "make_desc(st, 16, 1024, kSwizzle128B)", "pairs"),
+    "K10 multiplies P by V of the tile that just landed": (
+        "encoder_attention_pairs.cu", "issue_pv<kBlockK / 8>(kt - 1);",
+        "issue_pv<kBlockK / 8>(kt);", "pairs"),
     "K10 drops the ragged edge's last key": (
         "encoder_attention_pairs.cu",
-        "key_tiles<false>(p.Sk, valid, q0)",
-        "key_tiles<false>(p.Sk - 1, valid, q0)", "pairs"),
+        "vl2_tower::key_tiles(p.S, valid)",
+        "vl2_tower::key_tiles(p.S - 1, valid)", "pairs"),
+    "K10 overwrites Q K^T with D 72's tail lanes": (
+        "encoder_attention_pairs.cu",
+        "wgmma_ss<kNs * 8>(d, dq_tail + mt * (64 * 32 >> 4), k_tail, 1);",
+        "wgmma_ss<kNs * 8>(d, dq_tail + mt * (64 * 32 >> 4), k_tail, 0);",
+        "pairs"),
     "K1 multiplies the ring stage after the one that landed": (
         "encoder_attention.cu", "const int stage = kt % kStages;",
         "const int stage = (kt + 1) % kStages;", "encoder_attention_cuda"),
@@ -57,6 +63,16 @@ MUTANTS = {
         "decode_attention.cu", "const int rows = min(kChunk, p.write_pos - r0);",
         "const int rows = min(kChunk - 1, p.write_pos - r0);",
         "decode_attention"),
+    "K5 drops the last split's partial": (
+        "splitk_matmul.cuh", "for (int sp = 0; sp < p.splits; ++sp) {",
+        "for (int sp = 0; sp < p.splits - 1; ++sp) {", "ffn_q8"),
+    "K5 skips the up scale": (
+        "splitk_matmul.cuh",
+        "const float uv = s1[e] * load_scale<kF32>(p.s[1], n);",
+        "const float uv = s1[e];", "ffn_q8"),
+    "K5 multiplies the ring stage after the one that landed": (
+        "splitk_matmul.cuh", "const int stage = it % kStages;",
+        "const int stage = (it + 1) % kStages;", "ffn_q8"),
 }
 
 

@@ -93,8 +93,8 @@ def test_encoder_attention_cuda_fused_strided(cuda_device, S, D):
 def test_encoder_attention_pairs_cuda_matches_plain_and_k1(cuda_device, S,
                                                            H, D):
     """K10 (pack_pairs=True) against its plain version and against K1
-    (the same function; K1's pipelined tiles round differently from K10's
-    tile step, so the two agree within K1_TOL, not bit for bit)."""
+    (the same function; K1's mma.sync tiles and K10's wgmma tiles round
+    differently, so the two agree within K1_TOL, not bit for bit)."""
     gen = torch.Generator(device=cuda_device).manual_seed(S + H)
     q, k, v = _bf16_qkv(gen, 3, S, H, H, D, cuda_device)
     valid = torch.tensor([S, S - 100, 1], dtype=torch.int32,
@@ -110,6 +110,59 @@ def test_encoder_attention_pairs_cuda_matches_plain_and_k1(cuda_device, S,
     torch.testing.assert_close(got.float(), ref, rtol=0, atol=K1_TOL)
     single = k1.encoder_attention(q, k, v, valid).float()
     torch.testing.assert_close(got.float(), single, rtol=0, atol=K1_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("S", [64, 577, 729, 1024])
+def test_encoder_attention_pairs_cuda_fused_strided(cuda_device, S, D):
+    """K10 on q/k/v as strided views of one fused [B, S, 3 * H * D] tensor
+    (its TMA maps are built from the views' strides), valid_len S, a ragged
+    one, 1 and 0 (every key masked: mean(v) over all S keys): against its
+    plain version and against K1 within K1_TOL, one launch, and two runs
+    bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S * 10 + D)
+    B, H = 4, 4
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen,
+                      device=cuda_device).bfloat16()
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))
+               for i in range(3))
+    valid = torch.tensor([S, S // 2 + 3, 1, 0], dtype=torch.int32,
+                         device=cuda_device)
+    before = k1.encoder_attention_pairs.launches
+    got = k1.encoder_attention(q, k, v, valid, pack_pairs=True)
+    assert k1.encoder_attention_pairs.launches == before + 1
+    ref = k1.encoder_attention_pairs_plain(q.float(), k.float(), v.float(),
+                                           valid)
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=K1_TOL)
+    torch.testing.assert_close(got[3].float(),
+                               v[3].float().mean(0, keepdim=True).expand(
+                                   S, H, D), rtol=0, atol=K1_TOL)
+    single = k1.encoder_attention(q, k, v, valid).float()
+    torch.testing.assert_close(got.float(), single, rtol=0, atol=K1_TOL)
+    assert torch.equal(got, k1.encoder_attention(q, k, v, valid,
+                                                 pack_pairs=True))
+
+
+@pytest.mark.cuda
+def test_encoder_attention_pairs_cuda_refuses_views_tma_cannot_take(
+        cuda_device):
+    """TMA takes a view whose strides and base are multiples of 16 bytes:
+    a fused row of 3 * H * D + 4 elements, or a base 8 bytes off, is
+    refused before a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    H, D = 4, 64
+    before = k1.encoder_attention_pairs.launches
+    odd_row = torch.randn(2, 128, 3 * H * D + 4, generator=gen,
+                          device=cuda_device).bfloat16()
+    shifted = torch.randn(2, 128, 3 * H * D + 8, generator=gen,
+                          device=cuda_device).bfloat16()[..., 4:]
+    for qkv in (odd_row, shifted):
+        q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))
+                   for i in range(3))
+        with pytest.raises(ValueError):
+            k1.encoder_attention(q, k, v, pack_pairs=True)
+    assert k1.encoder_attention_pairs.launches == before
 
 
 @pytest.mark.cuda
@@ -357,20 +410,81 @@ def test_matmul_q8_layered_cuda_matches_plain(cuda_device, rows):
                                    atol=1e-2 * ref.abs().max().item())
 
 
+def _q8_pack(gen, L, din, dout, device, f32):
+    w = torch.randn(L, din, dout, generator=gen, device=device)
+    p = quantize_int8(w * 0.05, axis=-2)
+    return p["q"], p["scale"] if f32 else p["scale"].bfloat16()
+
+
 @pytest.mark.cuda
 def test_ffn_q8_layered_cuda_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(16, 512, generator=gen, device=cuda_device).bfloat16()
-
-    def pack(din, dout):
-        w = torch.randn(2, din, dout, generator=gen, device=cuda_device)
-        p = quantize_int8(w * 0.05, axis=-2)
-        return p["q"], p["scale"].bfloat16()
-    g, u, d = pack(512, 1536), pack(512, 1536), pack(1536, 512)
+    g, u = (_q8_pack(gen, 2, 512, 1536, cuda_device, False) for _ in "gu")
+    d = _q8_pack(gen, 2, 1536, 512, cuda_device, False)
     got = k45.ffn_q8_layered(x, *g, *u, *d, 0).float()
     ref = k45.ffn_q8_layered_plain(x.float(), *g, *u, *d, 0)
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 16, 40, 64])
+@pytest.mark.parametrize("D,F", [(4096, 14336), (3584, 18944),
+                                 (4096, 11008)])
+@pytest.mark.parametrize("f32", [False, True])
+def test_ffn_q8_layered_cuda_split_k(cuda_device, rows, D, F, f32):
+    """K5's split-K core at Mistral's, Qwen2's and Llama's widths (one
+    layer of a two-layer pack, layer 1), fp32 and bf16 scales: within 1e-2
+    of max|out| of the plain version, two calls bit-equal (the splits'
+    partials are summed in a fixed order), two launches a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + D + F + f32)
+    x = torch.randn(rows, D, generator=gen, device=cuda_device).bfloat16()
+    g, u = (_q8_pack(gen, 2, D, F, cuda_device, f32) for _ in "gu")
+    d = _q8_pack(gen, 2, F, D, cuda_device, f32)
+    before = k45.ffn_q8_layered.launches
+    got = k45.ffn_q8_layered(x, *g, *u, *d, 1)
+    again = k45.ffn_q8_layered(x, *g, *u, *d, 1)
+    assert k45.ffn_q8_layered.launches == before + 2
+    assert torch.equal(got, again)
+    ref = k45.ffn_q8_layered_plain(x.float(), *g, *u, *d, 1)
+    torch.testing.assert_close(got.float(), ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_ffn_q8_layered_cuda_two_launches(cuda_device):
+    """A K5 call is two CUDA kernel launches (gate/up, then down)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(16, 512, generator=gen, device=cuda_device).bfloat16()
+    g, u = (_q8_pack(gen, 1, 512, 1536, cuda_device, False) for _ in "gu")
+    d = _q8_pack(gen, 1, 1536, 512, cuda_device, False)
+    k45.ffn_q8_layered(x, *g, *u, *d, 0)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k45.ffn_q8_layered(x, *g, *u, *d, 0)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type.name == "CUDA" and "splitk_kernel" in e.name]
+    assert len(kernels) == 2, kernels
+
+
+@pytest.mark.cuda
+def test_ffn_q8_layered_cuda_refuses_untiled_widths(cuda_device):
+    """Widths the split-K tiling does not take raise before a launch: F
+    not a multiple of 128 (the column tile of the gate/up pass), D not a
+    multiple of 256 (the down pass's chunk is F's; D's is the gate/up
+    pass's), more than 64 rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    before = k45.ffn_q8_layered.launches
+    for rows, D, F in ((16, 512, 1568), (16, 640, 1536), (65, 512, 1536)):
+        x = torch.randn(rows, D, generator=gen, device=cuda_device).bfloat16()
+        g, u = (_q8_pack(gen, 1, D, F, cuda_device, False) for _ in "gu")
+        d = _q8_pack(gen, 1, F, D, cuda_device, False)
+        with pytest.raises(ValueError):
+            k45.ffn_q8_layered(x, *g, *u, *d, 0)
+    assert k45.ffn_q8_layered.launches == before
 
 
 @pytest.mark.cuda

@@ -1,10 +1,9 @@
 // Shared core of the attention kernels: one thread block computes a 64-row
 // query tile of one (batch, head) with an online softmax over 64-key tiles
-// (K2 in flash_attention.cu; K10's tile step in encoder_attention_pairs.cu),
-// and the fragment helpers (ldmatrix, mma.sync) that the backward kernels
-// (flash_attention_bwd.cu) and K1's pipelined tower kernel
-// (encoder_attention.cu, its own tiles and load ring) build their products
-// from.
+// (K2 in flash_attention.cu), and the fragment helpers (ldmatrix, mma.sync)
+// that the backward kernels (flash_attention_bwd.cu) and K1's pipelined
+// tower kernel (encoder_attention.cu, its own tiles and load ring) build
+// their products from.
 //
 // Layout and numerics follow the JAX package's Pallas kernels: q/k/v are
 // [B, S, H, D] bf16 with D contiguous, scores and softmax state (m, l, acc)

@@ -29,13 +29,14 @@
 //   stays in shared memory and is re-read with ldmatrix each key tile,
 //   which keeps registers for the two 32-row accumulators (~220-240
 //   registers a thread: two blocks an SM).
-// - The softmax runs in the log2 domain: the maxima on the raw scores and
-//   one FMA by scale * log2(e) inside each exponent (ex2.approx); only a
-//   tile that reaches past valid_len is masked element by element; a tail
-//   tile with at most 16 or 32 counting keys runs 16- or 32-key products
-//   (S 577 = 9 * 64 + 1); the running maxima move, and the accumulators
-//   are rescaled, only when a row's maximum rises more than 2^8 above them;
-//   each thread keeps partial row sums that the quad reduces at the end.
+// - The softmax (tower_softmax.cuh, shared with K10) runs in the log2
+//   domain: the maxima on the raw scores and one FMA by scale * log2(e)
+//   inside each exponent (ex2.approx); only a tile that reaches past
+//   valid_len is masked element by element; a tail tile with at most 16 or
+//   32 counting keys runs 16- or 32-key products (S 577 = 9 * 64 + 1); the
+//   running maxima move, and the accumulators are rescaled, only when a
+//   row's maximum rises more than 2^8 above them; each thread keeps partial
+//   row sums that the quad reduces at the end.
 //
 // Measured on an H100 (chip_smoke.py, PERF.md): faster than PyTorch's
 // FlashAttention-2 backend of scaled_dot_product_attention at both shapes,
@@ -45,6 +46,7 @@
 // or with Q K^T of the next tile in flight) measured slower than this one.
 #include "attention_tile.cuh"
 #include "cp_async.cuh"
+#include "tower_softmax.cuh"
 
 namespace {
 
@@ -53,16 +55,15 @@ using vl2::cp_async16;
 using vl2::cp_async_commit;
 using vl2::cp_async_wait;
 using vl2::kMaskedScore;
+using vl2_tower::kBlockK;
+using vl2_tower::key_tiles;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMT = 2;                          // m16 row tiles a warp
 constexpr int kRowsPerWarp = kMT * 16;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows a block
-constexpr int kBlockK = 64;                     // keys a tile
 constexpr int kStages = 2;                      // K/V tiles in the ring
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kRescaleSlack = 8.f;            // log2 of the largest p
 
 struct Params {
   const bf16* q;
@@ -89,13 +90,6 @@ struct Smem {
   static constexpr int kBytes = (kQ + kStages * kStage) * 2;
 };
 
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Issue the copies of `rows` rows of D bf16 (row stride `row_stride`
 // elements) into a [ROWS, DK + 8] shared tile; rows past `rows` and columns
 // [D, DK) are zero-filled by the copy (source size 0).
@@ -113,14 +107,6 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
     cp_async16(dst + r * Smem<DK>::kRow + c * 8,
                ok ? src + r * row_stride + c * 8 : src, ok);
   }
-}
-
-// Key tiles a block visits: those holding a valid key. Tiles wholly past
-// valid_len would add exp2(-1e30 - m) == 0 to every row and are skipped;
-// with valid_len == 0 every key is masked and all S keys are visited, so
-// the row returns mean(v).
-__device__ __forceinline__ int key_tiles(int S, int valid) {
-  return ((valid > 0 ? min(valid, S) : S) + kBlockK - 1) / kBlockK;
 }
 
 // The A fragment of row tile mt, k16 chunk kc, of this warp's query rows.
@@ -147,8 +133,7 @@ __device__ __forceinline__ void tile_step(
   constexpr int kRow = Smem<DK>::kRow;
   constexpr int kKc = DK / 16;      // k16 chunks over the head dim
   constexpr int kNo = DK / 8;       // n8 output tiles over the head dim
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
+  const int lane = threadIdx.x % 32;
 
   // S = Q K^T: kMT * 16 rows x kNs * 8 keys a warp; each K fragment feeds
   // every row tile.
@@ -177,71 +162,8 @@ __device__ __forceinline__ void tile_step(
     }
   }
 
-  // The row maxima, in the log2 domain. A tile that reaches past valid_len
-  // is scaled and masked element by element (tile padding past S is not a
-  // key at all); any other tile takes its maxima on the raw scores (the
-  // scale is positive) and folds the scale into the exponent's FMA.
-  const bool masked = k0 + kNs * 8 > valid;
-  float mx[kMT][2];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    mx[mt][0] = mx[mt][1] = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < kNs; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[mt][n][e];
-        if (masked) {
-          x *= scale_log2;
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          if (col >= valid) x = col < S ? kMaskedScore : -INFINITY;
-          s[mt][n][e] = x;
-        }
-        mx[mt][e >> 1] = fmaxf(mx[mt][e >> 1], x);
-      }
-  }
-  // The running maxima move only when some row's maximum rises more than
-  // kRescaleSlack above it (in the log2 domain): below that, p stays at most
-  // 2^kRescaleSlack, well inside fp32 and bf16, and the warp skips the
-  // rescale of its accumulators.
-  bool grow = false;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float m = masked ? mx[mt][r] : mx[mt][r] * scale_log2;
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      mx[mt][r] = m;
-      grow |= m > m_run[mt][r] + kRescaleSlack;
-    }
-  if (__any_sync(0xffffffffu, grow)) {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m = fmaxf(mx[mt][r], m_run[mt][r]);
-        const float alpha = ex2(m_run[mt][r] - m);
-        m_run[mt][r] = m;
-        l_run[mt][r] *= alpha;
-#pragma unroll
-        for (int n = 0; n < kNo; ++n) {
-          acc[mt][n][2 * r] *= alpha;
-          acc[mt][n][2 * r + 1] *= alpha;
-        }
-      }
-  }
-  const float mul = masked ? 1.f : scale_log2;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int n = 0; n < kNs; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = ex2(fmaf(s[mt][n][e], mul, -m_run[mt][e >> 1]));
-        s[mt][n][e] = pe;
-        l_run[mt][e >> 1] += pe;  // this thread's columns; quad-summed last
-      }
+  vl2_tower::online_softmax<kMT, kNs>(s, acc, m_run, l_run, k0, valid, S,
+                                      scale_log2);
 
   // acc += P V: two n8 score tiles are the A fragment of one k16 chunk, so
   // P never leaves registers; each V fragment feeds every row tile.
@@ -249,12 +171,7 @@ __device__ __forceinline__ void tile_step(
   for (int kc = 0; kc < kNs / 2; ++kc) {
     uint32_t a[kMT][4];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      a[mt][0] = vl2::pack_bf16(s[mt][2 * kc][0], s[mt][2 * kc][1]);
-      a[mt][1] = vl2::pack_bf16(s[mt][2 * kc][2], s[mt][2 * kc][3]);
-      a[mt][2] = vl2::pack_bf16(s[mt][2 * kc + 1][0], s[mt][2 * kc + 1][1]);
-      a[mt][3] = vl2::pack_bf16(s[mt][2 * kc + 1][2], s[mt][2 * kc + 1][3]);
-    }
+    for (int mt = 0; mt < kMT; ++mt) vl2_tower::p_fragment(s[mt], kc, a[mt]);
 #pragma unroll
     for (int dp = 0; dp < kNo / 2; ++dp) {
       uint32_t b0, b1, b2, b3;
@@ -332,11 +249,11 @@ __global__ void __launch_bounds__(kThreads)
     if (!active) continue;
     // keys of this tile that count: those below valid_len, or, with
     // valid_len 0, every key below S
-    const int k0 = kt * kBlockK, keys = key_end - k0;
-    if (keys <= 16)
+    const int k0 = kt * kBlockK, ns = vl2_tower::score_tiles(key_end - k0);
+    if (ns == 2)
       tile_step<DK, 2>(qs, st, st + L::kTile, acc, m_run, l_run, k0, valid,
                        p.S, p.scale_log2);
-    else if (keys <= 32)
+    else if (ns == 4)
       tile_step<DK, 4>(qs, st, st + L::kTile, acc, m_run, l_run, k0, valid,
                        p.S, p.scale_log2);
     else
@@ -353,12 +270,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float l = l_run[mt][r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = vl2_tower::inverse_row_sum(l_run[mt][r]);
       const int row = q0 + warp * kRowsPerWarp + mt * 16 + (lane >> 2) + r * 8;
       if (row >= p.S) continue;
-      const float inv = 1.f / (l == 0.f ? 1.f : l);
       bf16* out = p.o + ((long long)(b * p.S + row) * p.H + h) * p.D;
 #pragma unroll
       for (int n = 0; n < DK / 8; ++n) {
@@ -402,7 +316,7 @@ extern "C" int vl2_encoder_attention(
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.S = S; p.H = H; p.D = D;
-  p.scale_log2 = scale * kLog2e;
+  p.scale_log2 = scale * vl2_tower::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return static_cast<int>(launch<64>(p, B, st));
   if (D == 72) return static_cast<int>(launch<80>(p, B, st));

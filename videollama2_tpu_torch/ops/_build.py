@@ -52,7 +52,7 @@ _SIGNATURES = {
                                    + [_F, _I, _P],
     "vl2_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
     "vl2_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "vl2_ffn_q8_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vl2_ffn_q8": [_P] * 9 + [_I] * 4 + ([_I] + [_P] * 3) * 2 + [_P],
     "vl2_matmul_q4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vl2_ffn_q4_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -37,7 +37,10 @@ def encoder_attention_pairs_plain(q, k, v, valid_len=None, scale=None):
 
 
 def _launch(entry: str, q, k, v, valid_len, scale) -> torch.Tensor:
-    """Check a CUDA call of K1 or K10 and launch it once; counts nothing."""
+    """Check a CUDA call of K1 or K10 and launch it once; counts nothing.
+    check_operand's rule (every stride and the base a multiple of 16
+    bytes) is also what TMA takes, so K10 builds its tensor maps from any
+    view that passes it."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
