@@ -395,8 +395,9 @@ def _library_call(name, call, n_layers, ref):
 def matmul_cases(gen, quantize, library, mm_layers, D, qkv_out, F_):
     """K4 (K6 with int4 packs) at the fused qkv [D -> qkv_out] and o
     [D -> D], K5 (K7) at [D, F_], R = 16 rows, bf16 scales as the Engine
-    casts them; `mm_layers` (K4/K6: enough that the rotated layers
-    overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
+    casts them (no K4/K6 cases when qkv_out is None); `mm_layers` (K4/K6:
+    enough that the rotated layers overflow the 50 MB L2) or two (K5/K7)
+    layers rotated in timing.
     `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel;
     `library(x, q, s)` -> K4's or K6's PyTorch yardstick (int8pack_library,
     int4pack_library). Bounds: each weight byte read once (h, the FFN's
@@ -409,7 +410,8 @@ def matmul_cases(gen, quantize, library, mm_layers, D, qkv_out, F_):
     k4 = []
     for label, dout in ((f"qkv x[16,{D}] [{mm_layers},{D},{qkv_out}]",
                          qkv_out),
-                        (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)):
+                        (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)
+                        ) if qkv_out else ():
         q, s = pack(mm_layers, D, dout)
         yard = (bound(2 * 16 * D * dout, q[0].nbytes + s[0].nbytes
                       + x.nbytes + 16 * dout * 2), library(x, q, s))
@@ -634,10 +636,11 @@ def ptxas_report(path) -> None:
     """Registers and spills of the attention and decode matmul kernels
     (each template instance by its integer and bool arguments: head dim,
     then causal flag or query heads a kv head; decode_chunk_kernel's cache
-    type a = int8; splitk_kernel (K5) weights, 16-row tiles, fp32 scales;
-    matmul_kernel (K4, K6, K7, matmul_q8) 16-row tiles, SwiGLU, fp32
-    scales, int4), from the ptxas report the build wrote beside the
-    library."""
+    type a = int8; splitk_kernel (K4, matmul_q8, K5, K7) weights, 16-row
+    tiles, fp32 scales, folded int4: <1, ., ., 0> is K4 and K5's down
+    pass, <2, ., ., 0> K5's gate/up, <2, ., ., 1> and <1, ., ., 1> K7's
+    two passes; matmul_kernel (K6) 16-row tiles, fp32 scales), from the
+    ptxas report the build wrote beside the library."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")
         return
@@ -1040,7 +1043,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     # K4/K5 at Mistral-7B's and Qwen2-7B's widths; K6/K7 (int4, a Mistral
-    # slice only) at Mistral-7B's
+    # slice only) at Mistral-7B's, and K7 also at Qwen2-7B's as a kernel
+    # case (widths: D, qkv out or None for the FFN alone, F)
     for mm, ffn, mm_layers, quantize, library, widths in (
             ("matmul_q8_layered", "ffn_q8_layered", 4,
              lambda w: tuple(quantize_int8(w, axis=-2).values()),
@@ -1052,7 +1056,7 @@ def main() -> None:
              lambda x, q, s: int4pack_library(
                  x, q, s, lambda x, q4, s: dk._mm_plain(
                      x, dk.unpack_int4(q4), s)),
-             ((4096, 6144, 14336),))):
+             ((4096, 6144, 14336), (3584, None, 18944)))):
         mm_cases, ffn_cases = [], []
         for D, qkv_out, F_ in widths:
             k4, k5 = matmul_cases(gen, quantize, library, mm_layers, D,
@@ -1060,18 +1064,19 @@ def main() -> None:
             mm_cases += k4
             ffn_cases += k5
         for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
-            # K5 (split-K) must give the same bits in two calls
+            # the split-K core (all but K6) must give the same bits in two
+            # calls
             res[name] = check_kernel(
                 name, getattr(dk, name), getattr(dk, name + "_plain"),
                 cases, MATMUL_REL_TOL, rel=True,
-                deterministic=name == "ffn_q8_layered")
+                deterministic=name != "matmul_q4_layered")
         del mm_cases, ffn_cases, k4, k5
         gc.collect()
         torch.cuda.empty_cache()
     res["matmul_q8"] = check_kernel(
         "matmul_q8", qm.matmul_q8, qm.matmul_q8_plain,
         head_matmul_case(gen, quantize_int8, qm.matmul_q8_plain),
-        MATMUL_REL_TOL, rel=True)
+        MATMUL_REL_TOL, rel=True, deterministic=True)
     gc.collect()
     torch.cuda.empty_cache()
     train_kernels = check_training_attention(gen, k2)
@@ -1244,18 +1249,20 @@ def main() -> None:
               slice_counts["int8 slice"]["decode_attention"],
               launches_by_slice=by_slice("decode_attention")),
     ] + [entry(name, source, replaces, slice_counts[first][name],
-               launches_by_slice=by_slice(name))
-         for name, source, replaces, first in (
-             ("matmul_q8_layered", "decode_matmul.cu",
+               launches_by_slice=by_slice(name),
+               entry=f"videollama2_tpu_torch/csrc/{entry_file}")
+         # source: the file of the kernel; entry: that of its C entry point
+         for name, source, entry_file, replaces, first in (
+             ("matmul_q8_layered", "splitk_matmul.cuh", "decode_matmul.cu",
               "decode_matmul.py:89", "int8 slice"),
-             ("ffn_q8_layered", "decode_matmul.cu", "decode_matmul.py:346",
-              "int8 slice"),
-             ("matmul_q4_layered", "decode_matmul_q4.cu",
+             ("ffn_q8_layered", "splitk_matmul.cuh", "decode_matmul.cu",
+              "decode_matmul.py:346", "int8 slice"),
+             ("matmul_q4_layered", "decode_matmul.cuh", "decode_matmul_q4.cu",
               "decode_matmul.py:164", "int4 slice"),
-             ("ffn_q4_layered", "decode_matmul_q4.cu",
+             ("ffn_q4_layered", "splitk_matmul.cuh", "decode_matmul_q4.cu",
               "decode_matmul.py:297", "int4 slice"),
-             ("matmul_q8", "decode_matmul.cu", "quant_matmul.py:51",
-              "int4 slice"))] + [
+             ("matmul_q8", "splitk_matmul.cuh", "decode_matmul.cu",
+              "quant_matmul.py:51", "int4 slice"))] + [
         train_entry("flash_attention_bwd_dq", "flash_attention_bwd_dq",
                     "flash_attention.py:352"),
         train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",

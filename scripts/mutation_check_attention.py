@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the attention kernels (K1, K2's LSE, K3, K8, K9,
-K10) and of the int8 SwiGLU FFN's split-K core (K5), on an NVIDIA GPU:
+K10) and of the split-K core of the weight-only decode matmuls (K4, K5,
+K7), on an NVIDIA GPU:
 each mutant is a copy of the port and its tests in the
 system's temporary directory with one deliberate fault in a CUDA source,
 and the kernel's tests in tests/test_torch_cuda.py (those whose names
@@ -18,6 +19,8 @@ import tempfile
 from pathlib import Path
 
 SRC = Path("videollama2_tpu_torch/csrc")
+# the split-K core's sum over a tile's splits (splitk_matmul.cuh)
+_SUM_SPLIT = "if (sp < p.splits) {\n          sum[w].x"
 # name -> (source, text, its replacement, pytest -k filter of the tests)
 MUTANTS = {
     "K9 causal q-tile start one tile late": ("flash_attention_bwd.cu",
@@ -64,15 +67,27 @@ MUTANTS = {
         "const int rows = min(kChunk - 1, p.write_pos - r0);",
         "decode_attention"),
     "K5 drops the last split's partial": (
-        "splitk_matmul.cuh", "for (int sp = 0; sp < p.splits; ++sp) {",
-        "for (int sp = 0; sp < p.splits - 1; ++sp) {", "ffn_q8"),
+        "splitk_matmul.cuh", _SUM_SPLIT, _SUM_SPLIT.replace(
+            "sp < p.splits", "sp < p.splits - 1"), "ffn_q8"),
     "K5 skips the up scale": (
         "splitk_matmul.cuh",
-        "const float uv = s1[e] * load_scale<kF32>(p.s[1], n);",
-        "const float uv = s1[e];", "ffn_q8"),
+        "const float uv = u * load_scale<kF32>(us, n);",
+        "const float uv = u;", "ffn_q8"),
     "K5 multiplies the ring stage after the one that landed": (
         "splitk_matmul.cuh", "const int stage = it % kStages;",
         "const int stage = (it + 1) % kStages;", "ffn_q8"),
+    "K4 skips its scale": (
+        "splitk_matmul.cuh", "    return gv;\n", "    return g;\n",
+        "matmul_q8"),
+    "K7 swaps the x pieces of the low and high nibbles": (
+        "splitk_matmul.cuh", "piece * (p.Din / 2)",
+        "(1 - piece) * (p.Din / 2)", "ffn_q4"),
+    "K7 drops the -8 offset of its nibbles": (
+        "splitk_matmul.cuh", '"r"(0xC308C308u)', '"r"(0xC300C300u)',
+        "ffn_q4"),
+    "K7 drops the last split's partial": (
+        "splitk_matmul.cuh", _SUM_SPLIT, _SUM_SPLIT.replace(
+            "sp < p.splits", "sp < p.splits - 1"), "ffn_q4"),
 }
 
 

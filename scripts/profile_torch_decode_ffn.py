@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""The int8 SwiGLU FFN of the decode (K5) on an NVIDIA GPU at chip_smoke.py's
-cases.
+"""The decode's weight-only matmuls on the split-K core, on an NVIDIA GPU, at
+chip_smoke.py's cases: K4 (`matmul_q8_layered`) at the fused qkv and o
+projections of Mistral-7B ([4096, 6144], [4096, 4096]) and Qwen2-7B
+([3584, 4608], [3584, 3584]), and the int8 and int4 SwiGLU FFNs, K5
+(`ffn_q8_layered`) and K7 (`ffn_q4_layered`), at Mistral-7B's (4096, 14336)
+and Qwen2-7B's (3584, 18944) widths.
 
-Times K5 (`ffn_q8_layered`) and its plain PyTorch version with CUDA events
-behind a spin kernel (chip_smoke.cuda_ms), beside the bound (every weight
-byte read once at 3.35 TB/s), and checks K5 against the plain version
-(chip_smoke.MATMUL_REL_TOL of max|out|): x [16, D] bf16 through two layers
-of int8 gate/up [D, F] and down [F, D] packs with bf16 scales, rotated
-between launches, at Mistral-7B's (4096, 14336) and Qwen2-7B's
-(3584, 18944) widths. No one PyTorch call computes the FFN, so there is no
-library yardstick.
+Times each kernel and its plain PyTorch version with CUDA events behind a
+spin kernel (chip_smoke.cuda_ms), beside the bound (every weight byte read
+once at 3.35 TB/s), and checks the kernel against the plain version
+(chip_smoke.MATMUL_REL_TOL of max|out|): x [16, D] bf16, packs with bf16
+scales, layers rotated between launches (four for K4, so that they
+overflow the 50 MB L2; two for the FFNs). No one PyTorch call computes the
+FFN; K4's library yardstick is chip_smoke's (torch._weight_int8pack_mm).
 
 --tree DIR takes the port and chip_smoke.py from another checkout (for an
 A/B of two commits in one run: unpack the other commit into a directory
-and time both, in turns). For this tree's split-K core, --passes adds
-each of K5's two launches' device time (torch.profiler), and
---blocks-per-sm N [N ...] times K5 with the split plan aimed at N blocks
-an SM instead of ops/decode_matmul.SPLIT_BLOCKS_PER_SM.
+and time both, in turns). --passes adds the device time of each launch of
+the split-K core (torch.profiler), and --blocks-per-sm N [N ...] times the
+kernels with the split plan aimed at N blocks an SM instead of
+ops/decode_matmul.SPLIT_BLOCKS_PER_SM (this tree's plan only).
 
 Usage, from the repository root, on a machine with a CUDA GPU:
 
@@ -33,21 +36,40 @@ import os
 import subprocess
 import sys
 
+PROJECTIONS = ((4096, 6144), (4096, 4096), (3584, 4608), (3584, 3584))
 WIDTHS = ((4096, 14336), (3584, 18944))
-ROWS, LAYERS = 16, 2
+ROWS, LAYERS, MM_LAYERS = 16, 2, 4
 
 
-def cases(cs, gen, quantize_int8):
-    """chip_smoke's K5 cases, built from the helpers every checkout's
+def k4_cases(cs, gen, quantize_int8, dk):
+    """K4 at the four projections, built from the helpers every checkout's
     chip_smoke.py has."""
+    out = []
+    for din, dout in PROJECTIONS:
+        x = cs.rand_bf16(gen, (ROWS, din))
+        p = quantize_int8(cs.rand_bf16(gen, (MM_LAYERS, din, dout), 0.02),
+                          axis=-2)
+        q, s = p["q"], p["scale"].bfloat16()
+        cyc = cs.layer_cycle(MM_LAYERS)
+        yard = (cs.bound(2 * ROWS * din * dout, q[0].nbytes + s[0].nbytes
+                         + x.nbytes + ROWS * dout * 2),
+                cs.int8pack_library(x, q, s, dk._mm_plain))
+        out.append((f"x[{ROWS},{din}] [{MM_LAYERS},{din},{dout}]",
+                     ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
+                     lambda f, x=x, q=q, s=s, cyc=cyc: (
+                         lambda: f(x, q, s, cyc())), yard))
+    return out
+
+
+def ffn_cases(cs, gen, quantize):
+    """The FFN at both widths; quantize(w) -> (weight bytes, scale)."""
     out = []
     for D, F in WIDTHS:
         x = cs.rand_bf16(gen, (ROWS, D))
 
         def pack(din, dout):
-            p = quantize_int8(cs.rand_bf16(gen, (LAYERS, din, dout), 0.02),
-                              axis=-2)
-            return p["q"], p["scale"].bfloat16()
+            q, s = quantize(cs.rand_bf16(gen, (LAYERS, din, dout), 0.02))
+            return q, s.bfloat16()
         g, u, d = pack(D, F), pack(D, F), pack(F, D)
         cyc = cs.layer_cycle(LAYERS)
         yard = (cs.bound(2 * ROWS * 3 * D * F,
@@ -62,10 +84,11 @@ def cases(cs, gen, quantize_int8):
     return out
 
 
-def pass_times(torch, dk, case) -> list:
-    """(kernel name, mean device us) of each launch of K5 on `case`."""
+def pass_times(torch, fn, case) -> list:
+    """(kernel name, mean device us) of each launch of the split-K core
+    that fn makes on `case`."""
     from torch.profiler import ProfilerActivity, profile
-    run = case[3](dk.ffn_q8_layered)
+    run = case[3](fn)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -91,31 +114,48 @@ def main() -> None:
         raise SystemExit("profile_torch_decode_ffn: needs an NVIDIA GPU")
     import chip_smoke as cs
     from videollama2_tpu_torch.ops import decode_matmul as dk
-    from videollama2_tpu_torch.ops.quant import quantize_int8
+    from videollama2_tpu_torch.ops.quant import quantize_int4, quantize_int8
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k5 = cases(cs, gen, quantize_int8)
-    res = cs.check_kernel("ffn_q8_layered", dk.ffn_q8_layered,
-                          dk.ffn_q8_layered_plain, k5, cs.MATMUL_REL_TOL,
-                          rel=True)
-    if opts.passes:
-        res["passes"] = {case[0]: pass_times(torch, dk, case)
-                         for case in k5}
-        for label, times in res["passes"].items():
-            print(f"[passes] {label}: " + ", ".join(
-                f"{name} {us:.2f} us" for name, us in times), flush=True)
-    res["blocks_per_sm"] = {}
-    for n in opts.blocks_per_sm:
-        dk.SPLIT_BLOCKS_PER_SM = n
-        dk._split_buffers.clear()
-        for label, _, _, timed, _ in k5:
-            ms = cs.cuda_ms(timed(dk.ffn_q8_layered))
-            res["blocks_per_sm"][f"{n} {label}"] = ms
-            print(f"[{n} blocks an SM] {label}: {ms:.4f} ms", flush=True)
-    print(json.dumps({"device": smi, "tree": tree, **res}), flush=True)
+    kernels = (
+        ("matmul_q8_layered", lambda: k4_cases(cs, gen, quantize_int8, dk)),
+        ("ffn_q8_layered", lambda: ffn_cases(
+            cs, gen, lambda w: tuple(quantize_int8(w, axis=-2).values()))),
+        ("ffn_q4_layered", lambda: ffn_cases(
+            cs, gen, lambda w: tuple(quantize_int4(w, axis=-2)[k]
+                                     for k in ("q4", "scale")))))
+    out = {"device": smi, "tree": tree}
+    target = getattr(dk, "SPLIT_BLOCKS_PER_SM", None)
+    for name, make in kernels:
+        fn, cases = getattr(dk, name), make()
+        res = cs.check_kernel(name, fn, getattr(dk, name + "_plain"), cases,
+                              cs.MATMUL_REL_TOL, rel=True)
+        if opts.passes:
+            res["passes"] = {case[0]: pass_times(torch, fn, case)
+                             for case in cases}
+            for label, times in res["passes"].items():
+                print(f"[passes] {name} {label}: " + ", ".join(
+                    f"{kname} {us:.2f} us" for kname, us in times),
+                    flush=True)
+        res["blocks_per_sm"] = {}
+        for n in opts.blocks_per_sm:
+            dk.SPLIT_BLOCKS_PER_SM = n
+            dk.split_plan.cache_clear()
+            for label, _, _, timed, _ in cases:
+                ms = cs.cuda_ms(timed(fn))
+                res["blocks_per_sm"][f"{n} {label}"] = ms
+                print(f"[{n} blocks an SM] {name} {label}: {ms:.4f} ms",
+                      flush=True)
+        if opts.blocks_per_sm:  # the next kernel starts from the default
+            dk.SPLIT_BLOCKS_PER_SM = target
+            dk.split_plan.cache_clear()
+        out[name] = res
+        del cases
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

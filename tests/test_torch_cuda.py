@@ -416,6 +416,79 @@ def _q8_pack(gen, L, din, dout, device, f32):
     return p["q"], p["scale"] if f32 else p["scale"].bfloat16()
 
 
+# (Din, Dout) of the fused qkv and the o projections of Mistral-7B, Qwen2-7B
+# and Llama-2-7B (Llama's o is Mistral's)
+PROJECTIONS = [(4096, 6144), (4096, 4096), (3584, 4608), (3584, 3584),
+               (4096, 12288)]
+
+
+def _splitk_launches(call) -> list:
+    """The names of the split-K core's kernels one call of `call` launches
+    (torch.profiler), after a warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type.name == "CUDA" and "splitk_kernel" in e.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 16, 40, 64])
+@pytest.mark.parametrize("din,dout", PROJECTIONS)
+@pytest.mark.parametrize("f32", [False, True])
+def test_matmul_q8_layered_cuda_split_k(cuda_device, rows, din, dout, f32):
+    """K4 on the split-K core at the qkv and o widths of Mistral, Qwen2 and
+    Llama (layer 1 of a two-layer pack), fp32 and bf16 scales: within 1e-2
+    of max|out| of the plain version, two calls bit-equal (the splits'
+    partials are summed in a fixed order), one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + din + dout
+                                                          + f32)
+    x = torch.randn(rows, din, generator=gen, device=cuda_device).bfloat16()
+    q, s = _q8_pack(gen, 2, din, dout, cuda_device, f32)
+    before = k45.matmul_q8_layered.launches
+    got = k45.matmul_q8_layered(x, q, s, 1)
+    again = k45.matmul_q8_layered(x, q, s, 1)
+    assert k45.matmul_q8_layered.launches == before + 2
+    assert torch.equal(got, again)
+    ref = k45.matmul_q8_layered_plain(x.float(), q, s, 1)
+    torch.testing.assert_close(got.float(), ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_matmul_q8_layered_cuda_one_launch(cuda_device):
+    """A K4 call is one CUDA kernel launch: the splits and their reduction
+    happen inside it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn(16, 4096, generator=gen, device=cuda_device).bfloat16()
+    q, s = _q8_pack(gen, 1, 4096, 4096, cuda_device, False)
+    kernels = _splitk_launches(lambda: k45.matmul_q8_layered(x, q, s, 0))
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.cuda
+def test_matmul_q8_layered_cuda_refuses_untiled_widths(cuda_device):
+    """Widths the split-K core does not tile raise before a launch: Dout
+    672 (a multiple of 32, not of the 128-column tile), Din 640 (not a
+    multiple of the 256-row chunk), more than 64 rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    before = (k45.matmul_q8_layered.launches, quant_matmul.matmul_q8.launches)
+    for rows, din, dout in ((16, 512, 672), (16, 640, 512), (65, 512, 512)):
+        x = torch.randn(rows, din, generator=gen,
+                        device=cuda_device).bfloat16()
+        q, s = _q8_pack(gen, 1, din, dout, cuda_device, False)
+        with pytest.raises(ValueError):
+            k45.matmul_q8_layered(x, q, s, 0)
+        if rows <= 64:
+            with pytest.raises(ValueError):
+                quant_matmul.matmul_q8(x, q[0], s[0])
+    assert (k45.matmul_q8_layered.launches,
+            quant_matmul.matmul_q8.launches) == before
+
+
 @pytest.mark.cuda
 def test_ffn_q8_layered_cuda_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -459,14 +532,7 @@ def test_ffn_q8_layered_cuda_two_launches(cuda_device):
     x = torch.randn(16, 512, generator=gen, device=cuda_device).bfloat16()
     g, u = (_q8_pack(gen, 1, 512, 1536, cuda_device, False) for _ in "gu")
     d = _q8_pack(gen, 1, 1536, 512, cuda_device, False)
-    k45.ffn_q8_layered(x, *g, *u, *d, 0)
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        k45.ffn_q8_layered(x, *g, *u, *d, 0)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type.name == "CUDA" and "splitk_kernel" in e.name]
+    kernels = _splitk_launches(lambda: k45.ffn_q8_layered(x, *g, *u, *d, 0))
     assert len(kernels) == 2, kernels
 
 
@@ -538,6 +604,61 @@ def test_ffn_q4_layered_cuda_matches_plain(cuda_device, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 16, 40, 64])
+@pytest.mark.parametrize("D,F", [(4096, 14336), (3584, 18944),
+                                 (4096, 11008)])
+@pytest.mark.parametrize("f32", [False, True])
+def test_ffn_q4_layered_cuda_split_k(cuda_device, rows, D, F, f32):
+    """K7 on the split-K core's folded-int4 path at Mistral's, Qwen2's and
+    Llama's widths (Llama's down pass: 5504 byte rows, 43 chunks), layer 1
+    of a two-layer pack, fp32 and bf16 scales: within 1e-2 of max|out| of
+    the plain version, two calls bit-equal, two launches a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + D + F + f32)
+    x = torch.randn(rows, D, generator=gen, device=cuda_device).bfloat16()
+    g, u = (_q4_pack(gen, 2, D, F, cuda_device) for _ in "gu")
+    d = _q4_pack(gen, 2, F, D, cuda_device)
+    g, u, d = ((q, s if f32 else s.bfloat16()) for q, s in (g, u, d))
+    before = k45.ffn_q4_layered.launches
+    got = k45.ffn_q4_layered(x, *g, *u, *d, 1)
+    again = k45.ffn_q4_layered(x, *g, *u, *d, 1)
+    assert k45.ffn_q4_layered.launches == before + 2
+    assert torch.equal(got, again)
+    ref = k45.ffn_q4_layered_plain(x.float(), *g, *u, *d, 1)
+    torch.testing.assert_close(got.float(), ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_ffn_q4_layered_cuda_two_launches(cuda_device):
+    """A K7 call is two launches of the split-K core (gate/up, then
+    down)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x = torch.randn(16, 512, generator=gen, device=cuda_device).bfloat16()
+    g, u = (_q4_pack(gen, 1, 512, 1536, cuda_device) for _ in "gu")
+    d = _q4_pack(gen, 1, 1536, 512, cuda_device)
+    kernels = _splitk_launches(lambda: k45.ffn_q4_layered(x, *g, *u, *d, 0))
+    assert len(kernels) == 2, kernels
+
+
+@pytest.mark.cuda
+def test_ffn_q4_layered_cuda_refuses_untiled_widths(cuda_device):
+    """Widths the split-K core does not tile raise before a launch: F not a
+    multiple of 128 (1568, a multiple of 32; the gate/up pass's column
+    tile), F not a multiple of 256 (1664: the down pass's chunk), D not a
+    multiple of 256, more than 64 rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    before = k45.ffn_q4_layered.launches
+    for rows, D, F in ((16, 512, 1568), (16, 512, 1664), (16, 640, 1536),
+                       (65, 512, 1536)):
+        x = torch.randn(rows, D, generator=gen, device=cuda_device).bfloat16()
+        g, u = (_q4_pack(gen, 1, D, F, cuda_device) for _ in "gu")
+        d = _q4_pack(gen, 1, F, D, cuda_device)
+        with pytest.raises(ValueError):
+            k45.ffn_q4_layered(x, *g, *u, *d, 0)
+    assert k45.ffn_q4_layered.launches == before
+
+
+@pytest.mark.cuda
 def test_q4_kernels_refuse_bad_arguments(cuda_device):
     """Misaligned activations, a weight on another device, a layer out of
     range and a depth the kernel does not tile raise before a launch."""
@@ -573,4 +694,25 @@ def test_matmul_q8_cuda_matches_plain(cuda_device, rows):
     assert quant_matmul.matmul_q8.launches - before == -(-rows // 64)
     ref = quant_matmul.matmul_q8_plain(x.float(), pack["q"], pack["scale"])
     torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 100])
+def test_matmul_q8_cuda_lm_head(cuda_device, rows):
+    """matmul_q8 at the Mistral LM head's 32000 columns: 250 column tiles,
+    so one split, whose blocks write y from their registers (no workspace);
+    within 1e-2 of max|out|, two calls bit-equal, 64 rows a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + rows)
+    x = torch.randn(rows, 4096, generator=gen, device=cuda_device).bfloat16()
+    pack = quantize_int8(torch.randn(4096, 32000, generator=gen,
+                                     device=cuda_device) * 0.02, axis=-2)
+    assert k45.split_plan(16, 4096, 32000, 1).splits == 1
+    before = quant_matmul.matmul_q8.launches
+    got = quant_matmul.matmul_q8(x, pack["q"], pack["scale"])
+    again = quant_matmul.matmul_q8(x, pack["q"], pack["scale"])
+    assert quant_matmul.matmul_q8.launches - before == 2 * -(-rows // 64)
+    assert torch.equal(got, again)
+    ref = quant_matmul.matmul_q8_plain(x.float(), pack["q"], pack["scale"])
+    torch.testing.assert_close(got.float(), ref, rtol=0,
                                atol=1e-2 * ref.abs().max().item())

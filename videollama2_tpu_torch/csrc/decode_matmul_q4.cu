@@ -11,43 +11,48 @@
 //
 // What bounds them on the H100: bandwidth, as for K4/K5, at half the bytes:
 // a layer streams 12.6 MB (qkv), 8.4 MB (o) and 88 MB (FFN) of int4 weights
-// at R = 16 rows. The design is K4's (decode_matmul.cuh): every weight byte
-// is read once, 16 bytes a thread; one load gives 16 columns of the two
-// weight rows a byte row folds, which are sign-extended with integer ops and
-// converted exactly to bf16 into the two halves of the shared tile, and the
-// activation tile pairs them with x's two halves, so the fold needs no
-// reordering and the mma.sync loop is K4's. K7 keeps K5's two launches: the
-// gate/up pass writes h [R, F] whole in natural column order, and the down
-// pass is K6's kernel over h with Din = F, whose fold pairs h columns f and
-// f + F/2 by itself (the Pallas kernel pairs them in one grid step only
-// because it accumulates the down product across sequential steps).
+// at R = 16 rows, and an SM must convert ~28 weights a clock to keep up
+// with the card's memory rate, twice int8's.
 //
-// Known limit (later work): a chunk holds half K4's bytes (8 KB of weights a
-// block in flight), so at equal block counts K6 moves half the bytes per
-// chunk latency; deeper chunks, split-K, TMA and wgmma would fill the card.
+// K7 runs on the split-K core (splitk_matmul.cuh) with its folded-int4 load
+// path: a ring stage of 64 byte rows x 128 columns carries 128 weight rows,
+// its x slice holds the two pieces the low and high nibbles multiply, and
+// the nibbles become bf16 by prmt, lop3 and one bf16x2 FMA (no I2F). The
+// plan's chunks are 128 byte rows (256 weight rows), so Llama's down pass
+// (F = 11008: 5504 byte rows) is 43 chunks. K7 keeps two launches: the
+// gate/up pass writes h [R, F] whole in natural column order, and the down
+// pass over h folds over F, pairing h columns f and f + F/2 by itself (the
+// Pallas kernel pairs them in one grid step only because it accumulates
+// the down product across sequential steps).
+//
+// K6 still runs on decode_matmul.cuh: a block owns 32 output columns over
+// the whole reduction depth, with one chunk of 128 byte rows (8 KB) in
+// flight, converted by I2F. Moving it onto the core's one-weight int4 pass
+// (the one K7's down pass runs) is the next redesign.
 
 #include "decode_matmul.cuh"
+#include "splitk_matmul.cuh"
 
-// K6 (and K7's down pass). Returns the cudaError_t of the launch. x [R, Din]
-// bf16, w layer li's [Din/2, Dout] folded int4 bytes, s layer li's [Dout]
-// scales (fp32 when scale_f32, else bf16), y [R, Dout] bf16; all contiguous
-// device memory, 1 <= R <= 64, Din % 256 == 0, Dout % 32 == 0.
+// K6. Returns the cudaError_t of the launch. x [R, Din] bf16, w layer li's
+// [Din/2, Dout] folded int4 bytes, s layer li's [Dout] scales (fp32 when
+// scale_f32, else bf16), y [R, Dout] bf16; all contiguous device memory,
+// 1 <= R <= 64, Din % 256 == 0, Dout % 32 == 0.
 extern "C" int vl2_matmul_q4(const void* x, const void* w, const void* s,
                              void* y, int R, int Din, int Dout, int scale_f32,
                              void* stream) {
-  return vl2_mm::dispatch<true>(
-      vl2_mm::make_params(x, w, s, nullptr, nullptr, y, R, Din, Dout), false,
-      scale_f32, static_cast<cudaStream_t>(stream));
+  return vl2_mm::dispatch(vl2_mm::make_params(x, w, s, y, R, Din, Dout),
+                          scale_f32, static_cast<cudaStream_t>(stream));
 }
 
-// K7's first pass: h [R, F] = bf16(silu((x @ G) * gs) * ((x @ U) * us)),
-// with G/U layer li's [D/2, F] int4 packs folded over D and gs/us their [F]
-// scales.
-extern "C" int vl2_ffn_q4_gate_up(const void* x, const void* g,
-                                  const void* gs, const void* u,
-                                  const void* us, void* h, int R, int D,
-                                  int F, int scale_f32, void* stream) {
-  return vl2_mm::dispatch<true>(
-      vl2_mm::make_params(x, g, gs, u, us, h, R, D, F), true, scale_f32,
-      static_cast<cudaStream_t>(stream));
+// K7: vl2_ffn_q8's two launches over G/U layer li's [D/2, F] packs folded
+// over D and Dn's [F/2, D] folded over F, each pass with its split count.
+// 1 <= R <= 64, D and F multiples of 256.
+extern "C" int vl2_ffn_q4(const void* x, const void* g, const void* gs,
+                          const void* u, const void* us, const void* dn,
+                          const void* ds, void* h, void* out, int R, int D,
+                          int F, int scale_f32, int gu_splits, int dn_splits,
+                          void* stream) {
+  return vl2_sk::ffn<true>(x, g, gs, u, us, dn, ds, h, out, R, D, F,
+                           scale_f32, gu_splits, dn_splits,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -3,12 +3,12 @@
 CUDA kernels (built by `ops/_build.py`): `csrc/decode_matmul.cu`, which
 replaces videollama2_tpu/ops/decode_matmul.py::matmul_q8_layered (K4) and
 ::ffn_q8_layered (K5), and `csrc/decode_matmul_q4.cu`, which replaces
-::matmul_q4_layered (K6) and ::ffn_q4_layered (K7). K4, K6 and K7 build on
-`csrc/decode_matmul.cuh`, K5 on the split-K core `csrc/splitk_matmul.cuh`,
-whose split plan `ffn_split_plan` computes here. The sources' headers say
-what bounds them on the H100 and how their design answers. The plain
-versions below are the same functions in PyTorch; the wrappers run them
-only for CPU tensors.
+::matmul_q4_layered (K6) and ::ffn_q4_layered (K7). K4, K5 and K7 run on
+the split-K core `csrc/splitk_matmul.cuh` (over int8 packs, or folded int4
+ones for K7), whose split plan `split_plan` computes here; K6 runs on
+`csrc/decode_matmul.cuh`. The sources' headers say what bounds them on
+the H100 and how their design answers. The plain versions below are the
+same functions in PyTorch; the wrappers run them only for CPU tensors.
 
 Packs (ops/quant): int8 q [L, Din, Dout] or folded int4 q4 [L, Din/2,
 Dout], scale [L, 1, Dout] (fp32, or the engine dtype after the Engine's
@@ -17,6 +17,7 @@ cast); `layer` selects the slice.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,50 +27,59 @@ from . import _build
 from .quant import unpack_int4
 
 MAX_ROWS = 64    # the kernels loop over at most four 16-row tiles
-BLOCK_IN = 256   # csrc kBK: the reduction depth must be a multiple
-BLOCK_OUT = 32   # csrc kBN: the output width must be a multiple
-# K5's split-K core (csrc/splitk_matmul.cuh): 128-column tiles, 256-row
-# chunks, and as many splits of each tile's chunks as bring the blocks
-# nearest to SPLIT_BLOCKS_PER_SM an SM (more splits add partial sums to
-# write and reduce; scripts/profile_torch_decode_ffn.py --blocks-per-sm
-# times the alternatives, PERF.md §6 has them)
+# K6 (csrc/decode_matmul.cuh): the reduction depth must be a multiple of
+# kBK, the output width of kBN
+Q4_BLOCK_IN = 256
+Q4_BLOCK_OUT = 32
+# The split-K core (csrc/splitk_matmul.cuh): 128-column tiles, chunks of
+# 256 weight rows (256 int8 rows or 128 folded int4 byte rows), and as
+# many splits of each tile's chunks as bring the blocks nearest to
+# SPLIT_BLOCKS_PER_SM an SM (more splits add partial sums to reduce;
+# scripts/profile_torch_decode_ffn.py --blocks-per-sm times the
+# alternatives, PERF.md §6 has them), at most SPLIT_MAX: a tile's splits
+# are one thread-block cluster, and 8 is the portable cluster size
 SPLIT_TILE = 128
 SPLIT_CHUNK = 256
 SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MAX = 8
 H100_SMS = 132
 
 
 class SplitPlan(NamedTuple):
     """How the split-K core cuts one pass: `tiles` column tiles of
-    SPLIT_TILE, each tile's chunks of SPLIT_CHUNK reduction rows cut into
-    `splits` ranges [bounds[i], bounds[i + 1]) (one block each), and the
-    fp32 workspace of the splits' partial sums, in floats."""
+    SPLIT_TILE, each tile's chunks (of `chunk_rows` packed rows: 256 int8
+    rows, or 128 folded int4 byte rows, 256 weight rows either way) cut
+    into `splits` ranges [bounds[i], bounds[i + 1]), one block each (the
+    kernel computes the same bounds from the split count)."""
     tiles: int
     splits: int
     bounds: tuple
-    workspace: int
+    chunk_rows: int
 
 
-def ffn_split_plan(rows: int, din: int, dout: int,
-                   weights: int) -> SplitPlan:
-    """The split plan of one pass of K5 over rows x [din -> dout] with
-    `weights` weights (2: gate and up, 1: down). The split count brings
-    tiles x splits nearest to SPLIT_BLOCKS_PER_SM blocks an SM (halves
-    round up), at least 1 and at most the chunk count; the chunks are
+@functools.lru_cache(maxsize=None)
+def split_plan(rows: int, din: int, dout: int,
+               folded: bool = False) -> SplitPlan:
+    """The split plan of one pass of the split-K core over rows x [din ->
+    dout] (K4's, or either pass of an FFN), over int8 or (folded) int4
+    packs; din counts weight rows. The split count brings tiles x splits
+    nearest to SPLIT_BLOCKS_PER_SM blocks an SM (halves round up), at
+    least 1 and at most the chunk count and SPLIT_MAX; the chunks are
     spread as evenly as integers allow (the ranges differ by at most one
     chunk). Raises ValueError for a shape the kernel does not tile:
     1 <= rows <= 64, din % 256 == 0, dout % 128 == 0."""
     if not 1 <= rows <= MAX_ROWS or din % SPLIT_CHUNK or dout % SPLIT_TILE \
             or din <= 0 or dout <= 0:
-        raise ValueError(f"K5 tiles 1 <= R <= {MAX_ROWS}, Din % {SPLIT_CHUNK}"
-                         f" == 0 and Dout % {SPLIT_TILE} == 0, got R {rows},"
-                         f" Din {din}, Dout {dout}")
+        raise ValueError(f"the split-K core tiles 1 <= R <= {MAX_ROWS}, Din"
+                         f" % {SPLIT_CHUNK} == 0 and Dout % {SPLIT_TILE} =="
+                         f" 0, got R {rows}, Din {din}, Dout {dout}")
     tiles, chunks = dout // SPLIT_TILE, din // SPLIT_CHUNK
     target = SPLIT_BLOCKS_PER_SM * H100_SMS
-    splits = max(1, min(chunks, (2 * target + tiles) // (2 * tiles)))
+    splits = max(1, min(chunks, SPLIT_MAX,
+                        (2 * target + tiles) // (2 * tiles)))
     bounds = tuple(i * chunks // splits for i in range(splits + 1))
     return SplitPlan(tiles, splits, bounds,
-                     tiles * splits * weights * rows * SPLIT_TILE)
+                     SPLIT_CHUNK // 2 if folded else SPLIT_CHUNK)
 
 
 def _mm_plain(x: torch.Tensor, q: torch.Tensor,
@@ -125,7 +135,8 @@ def _check_x(x: torch.Tensor, din: int) -> None:
 def _check_pack(name: str, q: torch.Tensor, scale: torch.Tensor, device,
                 layer: int, folded: bool = False):
     """Checks an [L, Din, Dout] int8 pack, or with folded an [L, Din/2,
-    Dout] int4 one; returns (Din, Dout, scale_f32)."""
+    Dout] int4 one; returns (Din, Dout, scale_f32). The widths each kernel
+    tiles are checked by its launch path."""
     for t in (q, scale):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -140,9 +151,6 @@ def _check_pack(name: str, q: torch.Tensor, scale: torch.Tensor, device,
                                                           torch.bfloat16):
         raise ValueError(f"{name} scale must be fp32/bf16 [{L}, 1, {dout}], "
                          f"got {scale.dtype} {tuple(scale.shape)}")
-    if din % BLOCK_IN or dout % BLOCK_OUT:
-        raise ValueError(f"{name}: Din % {BLOCK_IN} and Dout % {BLOCK_OUT} "
-                         f"must be 0, got Din {din}, Dout {dout}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for L={L}")
     return din, dout, int(scale.dtype == torch.float32)
@@ -156,96 +164,59 @@ def _on_cuda(name: str, x: torch.Tensor) -> None:
 def launch_matmul(name: str, bits: int, x: torch.Tensor, q: torch.Tensor,
                   scale: torch.Tensor, layer: int,
                   y: torch.Tensor = None) -> torch.Tensor:
-    """Checks the arguments and launches K4 (bits 8) or K6 (bits 4) once
-    on layer `layer`, into y (or a new [R, Dout] tensor); counts nothing."""
+    """Checks the arguments and launches K4 (bits 8, one launch of the
+    split-K core) or K6 (bits 4) once on layer `layer`, into y (or a new
+    [R, Dout] tensor); counts nothing."""
     _on_cuda(name, x)
     din, dout, f32 = _check_pack("q4" if bits == 4 else "q", q, scale,
                                  x.device, layer, folded=bits == 4)
     _check_x(x, din)
+    if bits == 8:
+        plan = (split_plan(x.shape[0], din, dout).splits,)
+    elif din % Q4_BLOCK_IN or dout % Q4_BLOCK_OUT:
+        raise ValueError(f"{name}: Din % {Q4_BLOCK_IN} and Dout % "
+                         f"{Q4_BLOCK_OUT} must be 0, got Din {din}, "
+                         f"Dout {dout}")
+    else:
+        plan = ()
     if y is None:
         y = torch.empty((x.shape[0], dout), dtype=x.dtype, device=x.device)
     err = getattr(_build.library(), f"vl2_matmul_q{bits}")(
         x.data_ptr(), q[layer].data_ptr(), scale[layer].data_ptr(),
-        y.data_ptr(), x.shape[0], din, dout, f32,
+        y.data_ptr(), x.shape[0], din, dout, f32, *plan,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     return y
 
 
-def _check_ffn(name: str, bits: int, x, gate_q, gate_s, up_q, up_s, down_q,
-               down_s, layer: int):
-    """Checks a K5 (bits 8) or K7 (bits 4) call; returns (D, F, scale_f32)."""
+def _launch_ffn(name: str, bits: int, x, gate_q, gate_s, up_q, up_s, down_q,
+                down_s, layer: int) -> torch.Tensor:
+    """K5 (bits 8) or K7 (bits 4): the gate/up pass with its SwiGLU
+    epilogue writes h [R, F], then the down pass takes h; two launches of
+    the split-K core, each with its split plan."""
     _on_cuda(name, x)
     folded = bits == 4
-    d, f, gf32 = _check_pack("gate", gate_q, gate_s, x.device, layer, folded)
-    if _check_pack("up", up_q, up_s, x.device, layer, folded) != (d, f, gf32):
+    d, f, f32 = _check_pack("gate", gate_q, gate_s, x.device, layer, folded)
+    if _check_pack("up", up_q, up_s, x.device, layer, folded) != (d, f, f32):
         raise ValueError("up must match gate in shape and scale dtype")
     if _check_pack("down", down_q, down_s, x.device, layer,
-                   folded) != (f, d, gf32):
+                   folded) != (f, d, f32):
         raise ValueError("down must be gate transposed (F in, D out), with "
                          "gate's scale dtype")
     _check_x(x, d)
-    return d, f, gf32
-
-
-# (device, rows, din, dout, weights) -> (plan, bounds, workspace, counters):
-# made once; the kernel leaves the counters at 0 after every launch. A
-# workspace serves one stream at a time (the decode runs on one).
-_split_buffers = {}
-
-
-def _split_buffers_for(device, rows: int, din: int, dout: int,
-                       weights: int):
-    key = (device, rows, din, dout, weights)
-    if key not in _split_buffers:
-        plan = ffn_split_plan(rows, din, dout, weights)
-        _split_buffers[key] = (
-            plan,
-            torch.tensor(plan.bounds, dtype=torch.int32, device=device),
-            torch.empty(plan.workspace, dtype=torch.float32, device=device),
-            torch.zeros(plan.tiles, dtype=torch.int32, device=device))
-    return _split_buffers[key]
-
-
-def _launch_ffn_q8(name: str, x, gate_q, gate_s, up_q, up_s, down_q, down_s,
-                   layer: int) -> torch.Tensor:
-    """K5: the gate/up pass with its SwiGLU epilogue writes h [R, F], then
-    the down pass takes h; two launches of the split-K core, each with its
-    plan and buffers."""
-    d, f, f32 = _check_ffn(name, 8, x, gate_q, gate_s, up_q, up_s, down_q,
-                           down_s, layer)
     R = x.shape[0]
-    gu = _split_buffers_for(x.device, R, d, f, 2)
-    dn = _split_buffers_for(x.device, R, f, d, 1)
+    splits = (split_plan(R, d, f, folded).splits,
+              split_plan(R, f, d, folded).splits)
     h = torch.empty((R, f), dtype=x.dtype, device=x.device)
     out = torch.empty((R, d), dtype=x.dtype, device=x.device)
-    err = _build.library().vl2_ffn_q8(
+    err = getattr(_build.library(), f"vl2_ffn_q{bits}")(
         x.data_ptr(), gate_q[layer].data_ptr(), gate_s[layer].data_ptr(),
         up_q[layer].data_ptr(), up_s[layer].data_ptr(),
         down_q[layer].data_ptr(), down_s[layer].data_ptr(), h.data_ptr(),
-        out.data_ptr(), R, d, f, f32,
-        *(v for plan, bounds, ws, counters in (gu, dn)
-          for v in (plan.splits, bounds.data_ptr(), ws.data_ptr(),
-                    counters.data_ptr())),
+        out.data_ptr(), R, d, f, f32, *splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     return out
-
-
-def _launch_ffn_q4(name: str, x, gate_q, gate_s, up_q, up_s, down_q, down_s,
-                   layer: int) -> torch.Tensor:
-    """K7: the gate/up pass with its SwiGLU epilogue writes h [R, F], then
-    K6's kernel takes h through the down pack."""
-    d, f, gf32 = _check_ffn(name, 4, x, gate_q, gate_s, up_q, up_s, down_q,
-                            down_s, layer)
-    h = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
-    err = _build.library().vl2_ffn_q4_gate_up(
-        x.data_ptr(), gate_q[layer].data_ptr(), gate_s[layer].data_ptr(),
-        up_q[layer].data_ptr(), up_s[layer].data_ptr(), h.data_ptr(),
-        x.shape[0], d, f, gf32,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, f"{name} (gate/up)")
-    return launch_matmul(f"{name} (down)", 4, h, down_q, down_s, layer)
 
 
 def matmul_q8_layered(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -269,7 +240,7 @@ def ffn_q8_layered(x: torch.Tensor, gate_q: torch.Tensor,
     args = (x, gate_q, gate_s, up_q, up_s, down_q, down_s, layer)
     if x.device.type == "cpu":
         return ffn_q8_layered_plain(*args)
-    out = _launch_ffn_q8("ffn_q8_layered", *args)
+    out = _launch_ffn("ffn_q8_layered", 8, *args)
     ffn_q8_layered.launches += 1
     return out
 
@@ -295,7 +266,7 @@ def ffn_q4_layered(x: torch.Tensor, gate_q4: torch.Tensor,
     args = (x, gate_q4, gate_s, up_q4, up_s, down_q4, down_s, layer)
     if x.device.type == "cpu":
         return ffn_q4_layered_plain(*args)
-    out = _launch_ffn_q4("ffn_q4_layered", *args)
+    out = _launch_ffn("ffn_q4_layered", 4, *args)
     ffn_q4_layered.launches += 1
     return out
 

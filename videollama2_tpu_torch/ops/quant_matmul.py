@@ -4,9 +4,12 @@ videollama2_tpu/ops/quant_matmul.py::matmul_q8).
 y[R, F] = (x[R, D] @ bf16(q[D, F])) * scale[F], fp32 accumulation, cast to
 x's dtype. No path of either package calls it: the JAX package keeps it
 beside the layered kernels, and its tests are its only caller. On the GPU
-it runs K4's kernel (`csrc/decode_matmul.cu`, entry `vl2_matmul_q8`), which
-already takes one [D, F] int8 matrix with its [F] scales: a layered pack's
-layer li is exactly that, so no kernel source of its own is needed. The
+it runs K4's kernel (the split-K core `csrc/splitk_matmul.cuh`, entry
+`vl2_matmul_q8` in `csrc/decode_matmul.cu`), which already takes one
+[D, F] int8 matrix with its [F] scales: a layered pack's layer li is
+exactly that, so no kernel source of its own is needed. At an LM head's
+widths (250 column tiles or more) the split plan has one split and the
+blocks write y from their registers. F must be a multiple of 128. The
 plain version below is the same function in PyTorch; the wrapper runs it
 only for CPU tensors.
 """
