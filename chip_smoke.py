@@ -632,7 +632,7 @@ PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                  "decode_combine_kernel", "splitk_kernel", "matmul_kernel")
 
 
-def ptxas_report(path) -> None:
+def ptxas_report(path) -> dict:
     """Registers and spills of the attention and decode matmul kernels
     (each template instance by its integer and bool arguments: head dim,
     then causal flag or query heads a kv head; decode_chunk_kernel's cache
@@ -640,11 +640,13 @@ def ptxas_report(path) -> None:
     tiles, fp32 scales, folded int4: <1, ., ., 0> is K4 and K5's down
     pass, <2, ., ., 0> K5's gate/up, <2, ., ., 1> and <1, ., ., 1> K7's
     two passes; matmul_kernel (K6) 16-row tiles, fp32 scales), from the
-    ptxas report the build wrote beside the library."""
+    ptxas report the build wrote beside the library. Logs each and returns
+    {instance: (registers line, spill line)}; ptxas counts the warpgroup
+    kernels' (K10, K2, K9) registers at launch, before setmaxnreg."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")
-        return
-    name = None
+        return {}
+    name, found = None, {}
     for line in path.read_text().splitlines():
         if "Compiling entry function" in line:
             name = next((n for n in PTXAS_KERNELS if n in line), None)
@@ -657,8 +659,25 @@ def ptxas_report(path) -> None:
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
-            log(f"[ptxas] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            used = line.split(":", 1)[1].strip()
+            log(f"[ptxas] {name}: {used}; {spill}")
+            found[name] = (used, spill)
             name = None
+    return found
+
+
+def check_no_spills(report: dict, kernels) -> None:
+    """Every D 128 instance of `kernels` (K2, K9) is in the report and
+    spills nothing."""
+    for kernel in kernels:
+        rows = {n: s for n, (_, s) in report.items()
+                if n.startswith(f"{kernel} <128,")}
+        if not rows:
+            raise RuntimeError(f"ptxas report has no D 128 {kernel}")
+        for n, spill in rows.items():
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                raise RuntimeError(f"{n} spills: {spill}")
+    log(f"[ptxas] no spills in the D 128 instances of {', '.join(kernels)}")
 
 
 def check_training_attention(gen, k2) -> dict:
@@ -999,7 +1018,8 @@ def main() -> None:
     log(f"[build] nvcc sm_90a build of csrc/*.cu (one process a source) "
         f"{'(found built already) ' if cached else ''}and load: "
         f"{time.perf_counter() - t0:.1f} s")
-    ptxas_report(_build.library_path().parent / _build.BUILD_LOG)
+    ptxas = ptxas_report(_build.library_path().parent / _build.BUILD_LOG)
+    check_no_spills(ptxas, ("flash_attention_kernel", "flash_bwd_dkv_kernel"))
 
     # every kernel's counter, checked in every run of a path: a kernel off
     # the path must launch no time
@@ -1211,11 +1231,15 @@ def main() -> None:
                                          "bound_by", "library_ms")},
                 "cases": r["cases"], **extra}
 
-    def train_entry(name, key, replaces):
+    def train_entry(name, key, source, replaces, **extra):
         return {"name": name, "route": "cuda",
-                "source": "videollama2_tpu_torch/csrc/flash_attention_bwd.cu",
+                "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
-                "launches": want[name], **train_kernels[key]}
+                "launches": want[name], **train_kernels[key], **extra}
+
+    def registers(kernel):
+        return {n: u for n, (u, _) in ptxas.items()
+                if n.startswith(kernel + " ")}
 
     lse = train_kernels["flash_attention +lse"]
     # launches: each kernel's count in the run of the first slice whose
@@ -1243,7 +1267,8 @@ def main() -> None:
               f"{lse['ms']:.4f} ms (plain {lse['plain_ms']:.3f}, bound "
               f"{lse['bound_ms']:.4f}, SDPA {lse['library_ms']:.4f}) at "
               f"q[{TRAIN_B},{TRAIN_S},32,128], max_abs_err "
-              f"{lse['max_abs_err']:.3e}"),
+              f"{lse['max_abs_err']:.3e}",
+              ptxas=registers("flash_attention_kernel")),
         entry("decode_attention_layered", "decode_attention.cu",
               "decode_attention.py:249",
               slice_counts["int8 slice"]["decode_attention"],
@@ -1264,9 +1289,10 @@ def main() -> None:
              ("matmul_q8", "splitk_matmul.cuh", "decode_matmul.cu",
               "quant_matmul.py:51", "int4 slice"))] + [
         train_entry("flash_attention_bwd_dq", "flash_attention_bwd_dq",
-                    "flash_attention.py:352"),
+                    "flash_attention_bwd.cu", "flash_attention.py:352"),
         train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
-                    "flash_attention.py:383")]
+                    "flash_attention_dkv.cu", "flash_attention.py:383",
+                    ptxas=registers("flash_bwd_dkv_kernel"))]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of the attention kernels (K1, K2's LSE, K3, K8, K9,
-K10) and of the split-K core of the weight-only decode matmuls (K4, K5,
+"""Mutation check of the attention kernels (K1, K2, K3, K8, K9, K10) and
+of the split-K core of the weight-only decode matmuls (K4, K5,
 K7), on an NVIDIA GPU:
 each mutant is a copy of the port and its tests in the
 system's temporary directory with one deliberate fault in a CUDA source,
@@ -19,24 +19,39 @@ import tempfile
 from pathlib import Path
 
 SRC = Path("videollama2_tpu_torch/csrc")
+MUTANT_TIMEOUT_S = 600  # a build and the filtered tests take ~1-2 min
 # the split-K core's sum over a tile's splits (splitk_matmul.cuh)
 _SUM_SPLIT = "if (sp < p.splits) {\n          sum[w].x"
 # name -> (source, text, its replacement, pytest -k filter of the tests)
 MUTANTS = {
-    "K9 causal q-tile start one tile late": ("flash_attention_bwd.cu",
-        "const int qt_begin = kCausal ? k0 / kBlockQ : 0;",
-        "const int qt_begin = kCausal ? k0 / kBlockQ + 1 : 0;", "flash"),
-    "K9 diagonal excluded": ("flash_attention_bwd.cu",
-        "if (kCausal) keep = keep && key <= q0 + lq;",
-        "if (kCausal) keep = keep && key < q0 + lq;", "flash"),
+    "K9 causal q-tile start one tile late": ("flash_attention_dkv.cu",
+        "qt_begin = causal ? k0 / kBlockM : 0;",
+        "qt_begin = causal ? k0 / kBlockM + 1 : 0;", "flash"),
+    "K9 diagonal excluded": ("flash_attention_dkv.cu",
+        "(!kCausal || key <= query)", "(!kCausal || key < query)", "flash"),
+    "K9 drops one query head of the group": ("flash_attention_dkv.cu",
+        "n = k0 < valid ? G * n_qt : 0;",
+        "n = k0 < valid ? (G - 1) * n_qt : 0;", "flash"),
+    "K9 skips the zero store past valid_len": ("flash_attention_dkv.cu",
+        "if (key >= p.Sk) continue;",
+        "if (key >= p.Sk || steps.n == 0) continue;", "flash"),
     "K8 delta not subtracted": ("flash_attention_bwd.cu",
         "s[n][e] = pe * (dp[n][e] - delta[e >> 1]) * p.scale;  // ds",
         "s[n][e] = pe * dp[n][e] * p.scale;  // ds", "flash"),
     "K8 delta summed over half the head dim": ("flash_attention_bwd.cu",
         "    s += __shfl_xor_sync(0xffffffffu, s, 2);\n    delta[r] = s;",
         "    delta[r] = s;", "flash"),
-    "K2 lse without log(l)": ("attention_tile.cuh",
-        "= m_run[r] + logf(l);", "= m_run[r];", "flash"),
+    "K2 lse without log(l)": ("flash_attention.cu",
+        "m * kLn2 + logf(l)", "m * kLn2", "flash"),
+    "K2 diagonal excluded": ("flash_attention.cu",
+        "(!kCausal || col <= row)", "(!kCausal || col < row)", "flash"),
+    "K2 multiplies the ring stage after the one that landed": (
+        "flash_attention.cu",
+        "make_desc(stage(kt), 16, 1024, kSwizzle128B)",
+        "make_desc(stage(kt + 1), 16, 1024, kSwizzle128B)", "flash"),
+    "K2 masks no tile but the last when valid_len is 0": (
+        "flash_attention.cu", "const bool all_masked = valid == 0;",
+        "const bool all_masked = false;", "flash"),
     "K10 head 2p + 1 scores against head 2p's keys": (
         "encoder_attention_pairs.cu",
         "make_desc(st + c * L::kKVHead, 16, 1024, kSwizzle128B)",
@@ -106,10 +121,16 @@ def main() -> int:
             if text.count(old) != 1:
                 raise SystemExit(f"{name}: the pattern is not in {fname} once")
             f.write_text(text.replace(old, new))
-            r = subprocess.run(
-                [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-                 "tests/test_torch_cuda.py", "-q", "-k", tests, "-p",
-                 "no:cacheprovider"], cwd=dst, capture_output=True, text=True)
+            try:
+                r = subprocess.run(
+                    [sys.executable, "-m", "pytest", "--noconftest", "-m",
+                     "cuda", "tests/test_torch_cuda.py", "-q", "-k", tests,
+                     "-p", "no:cacheprovider"], cwd=dst, capture_output=True,
+                    text=True, timeout=MUTANT_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                # a mutant that stalls a kernel fails its tests
+                print(f"{name}: killed after {MUTANT_TIMEOUT_S} s", flush=True)
+                continue
         out = r.stdout.strip()
         tail = out.splitlines()[-1] if out else r.stderr[-300:]
         survivors += r.returncode == 0

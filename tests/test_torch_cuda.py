@@ -273,6 +273,175 @@ def test_flash_attention_function_cuda_strided_qkv(cuda_device):
                                atol=BWD_REL_TOL * want.abs().max().item())
 
 
+def _poison_allocator(device, *like):
+    """Hands PyTorch's caching allocator blocks full of NaN of the sizes a
+    call is about to allocate (two of each), so that an output row the
+    kernel leaves unwritten reads as NaN rather than as whatever zeros
+    fresh device memory holds."""
+    junk = [torch.full(t.shape, float("nan"), dtype=t.dtype, device=device)
+            for t in like for _ in range(2)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def _check_grads(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        torch.testing.assert_close(
+            g.float(), w, rtol=0, atol=BWD_REL_TOL * w.abs().max().item(),
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (14, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_k2_k9_cuda_groups_and_ragged_rows(cuda_device, D,
+                                                           hq, hkv, causal):
+    """K2 (with and without its LSE), K8 and K9 at S 300 (not a multiple of
+    the 128-row query and key tiles), 1, 4 and 7 query heads a kv head,
+    valid_len S, 157, 0 and 1, against the plain versions. The valid_len 0
+    row gives lse -1e30, o = mean(v) over all keys and zero gradients; keys
+    at or past valid_len get exact zeros (K9 stores the tiles it skips);
+    two calls of K2 and of K9 give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        D * 100 + hq * 2 + causal)
+    S = 300
+    q, k, v = _bf16_qkv(gen, 4, S, hq, hkv, D, cuda_device)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([S, 157, 0, 1], dtype=torch.int32,
+                         device=cuda_device)
+    before = k2.flash_attention.launches
+    out = k2.flash_attention(q, k, v, valid, causal=causal)
+    o, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                return_lse=True)
+    assert k2.flash_attention.launches == before + 2
+    assert torch.equal(out, o)
+    ref_o, ref_lse = k2.flash_attention_plain(
+        q.float(), k.float(), v.float(), valid, causal=causal,
+        return_lse=True)
+    torch.testing.assert_close(o.float(), ref_o, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    assert torch.all(lse[2] == -1e30)
+    mean_v = v[2].float().mean(0).repeat_interleave(hq // hkv, dim=0)
+    torch.testing.assert_close(o[2].float(), mean_v.expand(S, hq, D),
+                               rtol=0, atol=2e-2)
+    o2, lse2 = k2.flash_attention(q, k, v, valid, causal=causal,
+                                  return_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+    dq, delta = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, causal)
+    _poison_allocator(cuda_device, k, v)
+    before = k2.flash_attention_bwd_dkv.launches
+    dk, dv = k2.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid,
+                                        causal)
+    assert k2.flash_attention_bwd_dkv.launches == before + 1
+    _check_grads((dq, dk, dv), k2.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), valid,
+        causal))
+    for g in (dq, dk, dv):
+        assert torch.all(g[2] == 0)
+    for g in (dk, dv):
+        assert torch.all(g[1, 157:] == 0) and torch.all(g[3, 1:] == 0)
+    _poison_allocator(cuda_device, k, v)
+    again = k2.flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid,
+                                       causal)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_k2_k9_cuda_fused_strided(cuda_device, D, causal):
+    """K2 with its LSE, K8 and K9 on q/k/v as strided views of one fused
+    [B, S, (Hq + 2 Hkv) D] projection (K2's and K9's TMA maps are built from
+    the views' strides), S 300, 7 query heads a kv head, ragged valid_len:
+    against the plain versions, and two calls bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D + causal)
+    B, S, H, K = 3, 300, 14, 2
+    qkv = torch.randn(B, S, (H + 2 * K) * D, generator=gen,
+                      device=cuda_device).bfloat16()
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k = qkv[..., H * D:(H + K) * D].unflatten(-1, (K, D))
+    v = qkv[..., (H + K) * D:].unflatten(-1, (K, D))
+    assert not q.is_contiguous() and k.stride(1) == (H + 2 * K) * D
+    do = torch.randn(B, S, H, D, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([S, 200, 131], dtype=torch.int32,
+                         device=cuda_device)
+    o, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                return_lse=True)
+    ref_o, ref_lse = k2.flash_attention_plain(
+        q.float(), k.float(), v.float(), valid, causal=causal,
+        return_lse=True)
+    torch.testing.assert_close(o.float(), ref_o, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    got = k2.flash_attention_bwd(q, k, v, o, lse, do, valid, causal)
+    _check_grads(got, k2.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), valid,
+        causal))
+    assert torch.equal(o, k2.flash_attention(q, k, v, valid, causal=causal))
+    again = k2.flash_attention_bwd(q, k, v, o, lse, do, valid, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_k2_k9_cuda_long_rows(cuda_device, D, causal):
+    """K2 with its LSE, K8 and K9 at S 1100: nine 128-key tiles against
+    K2's 3-stage K/V ring and 18 64-row query tiles a head, 4 heads a kv
+    head, against K9's 4-stage Q/dO ring, so both rings wrap many times;
+    valid_len S, 1000 and 515. Against the plain versions, and K9 bit-equal
+    over two calls."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D * 10 + causal)
+    S = 1100
+    q, k, v = _bf16_qkv(gen, 3, S, 8, 2, D, cuda_device)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([S, 1000, 515], dtype=torch.int32,
+                         device=cuda_device)
+    o, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                return_lse=True)
+    ref_o, ref_lse = k2.flash_attention_plain(
+        q.float(), k.float(), v.float(), valid, causal=causal,
+        return_lse=True)
+    torch.testing.assert_close(o.float(), ref_o, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    got = k2.flash_attention_bwd(q, k, v, o, lse, do, valid, causal)
+    _check_grads(got, k2.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), valid,
+        causal))
+    again = k2.flash_attention_bwd(q, k, v, o, lse, do, valid, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_refuses_views_tma_cannot_take(cuda_device):
+    """K2 and K9 take a view whose strides and base are multiples of 16
+    bytes (what TMA takes): a fused row of (Hq + 2 Hkv) D + 4 elements, or a
+    base 8 bytes off, is refused with ValueError before a launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    H, K, D, S = 4, 2, 128, 128
+    width = (H + 2 * K) * D
+    before = (k2.flash_attention.launches,
+              k2.flash_attention_bwd_dkv.launches)
+    odd_row = torch.randn(1, S, width + 4, generator=gen,
+                          device=cuda_device).bfloat16()
+    shifted = torch.randn(1, S, width + 8, generator=gen,
+                          device=cuda_device).bfloat16()[..., 4:]
+    for qkv in (odd_row, shifted):
+        q = qkv[..., :H * D].unflatten(-1, (H, D))
+        k = qkv[..., H * D:(H + K) * D].unflatten(-1, (K, D))
+        v = qkv[..., (H + K) * D:width].unflatten(-1, (K, D))
+        with pytest.raises(ValueError):
+            k2.flash_attention(q, k, v, return_lse=True)
+        rows = torch.zeros((1, H, S), device=cuda_device)
+        with pytest.raises(ValueError):
+            k2.flash_attention_bwd_dkv(q, k, v, torch.zeros_like(q), rows,
+                                       rows)
+    assert (k2.flash_attention.launches,
+            k2.flash_attention_bwd_dkv.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache,window,hd,K", [("int8", None, 128, 8),
                                                ("bf16", None, 128, 8),

@@ -371,58 +371,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The map of one [B, S, H, D] view (element strides sb, ss, sh; the last
-// axis contiguous) as the 4-D tensor (D, S, H, B), with boxes of `lanes`
-// head-dim lanes x `rows` rows x 2 heads x 1.
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-              long long sb, long long ss, long long sh, int lanes, int rows,
-              CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * 2),
-                                 static_cast<cuuint64_t>(sh * 2),
-                                 static_cast<cuuint64_t>(sb * 2)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(lanes),
-                             static_cast<cuuint32_t>(rows), 2, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DK>
 cudaError_t launch(const PairParams& p, int B, cudaStream_t st) {
   constexpr int kSmem = Layout<DK>::kBytes + 1024;  // + the base alignment
@@ -465,13 +413,13 @@ extern "C" int vl2_encoder_attention_pairs(
                 {&p.v, &p.v_tail, v, v_sb, v_ss, v_sh, kBlockK}};
   for (const auto& t : views) {
     if (!make_map(t.main, t.base, B, S, H, D, t.sb, t.ss, t.sh, 64, t.rows,
-                  CU_TENSOR_MAP_SWIZZLE_128B))
+                  2, CU_TENSOR_MAP_SWIZZLE_128B))
       return static_cast<int>(cudaErrorInvalidValue);
     // the tail's map is never read at D 64: a copy of the main one
     if (!tail)
       *t.tail = *t.main;
     else if (!make_map(t.tail, t.base, B, S, H, D, t.sb, t.ss, t.sh, 16,
-                       t.rows, CU_TENSOR_MAP_SWIZZLE_32B))
+                       t.rows, 2, CU_TENSOR_MAP_SWIZZLE_32B))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   p.o = static_cast<bf16*>(o);

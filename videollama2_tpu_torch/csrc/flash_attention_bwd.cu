@@ -1,48 +1,40 @@
-// K8 and K9: the backward of causal GQA flash attention, for training.
+// K8: the backward of causal GQA flash attention, dq, for training.
 //
-// Replaces the two Pallas kernels of
-// videollama2_tpu/ops/flash_attention.py::flash_attention_bwd:
-//   K8 (`_flash_bwd_dq_kernel`): dq from q, k, v, o, do, lse and valid_len;
-//   K9 (`_flash_bwd_dkv_kernel`): dk and dv.
+// Replaces the dq Pallas kernel of
+// videollama2_tpu/ops/flash_attention.py::flash_attention_bwd
+// (`_flash_bwd_dq_kernel`): dq from q, k, v, o, do, lse and valid_len.
 // Layouts: q [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] bf16 read through their
 // strides (views of the fused qkv projection need no copy); o and do
 // contiguous [B, Sq, Hq, D] bf16; lse fp32 [B, Hq, Sq] from the forward
-// (flash_attention.cu); outputs dq [B, Sq, Hq, D] and dk/dv [B, Sk, Hkv, D]
-// contiguous bf16. The FlashAttention-2 formulas, with fp32 scores and sums
-// and bf16 operands to every product:
+// (K2, flash_attention.cu); output dq [B, Sq, Hq, D] contiguous bf16. The
+// FlashAttention-2 formulas, with fp32 scores and sums and bf16 operands to
+// every product:
 //   delta_i = rowsum(do_i * o_i)
 //   p_ij    = mask_ij ? exp(q_i k_j^T * scale - lse_i) : 0
 //   ds_ij   = p_ij * (do_i v_j^T - delta_i) * scale
-//   dq_i    = sum_j ds_ij k_j,  dk_j = sum_i ds_ij^T q_i,  dv_j = sum_i p_ij^T do_i
+//   dq_i    = sum_j ds_ij k_j
 // The mask is explicit (key < valid_len, and key <= query when causal): a
 // fully masked row carries lse = -1e30, where exp(s - lse) would overflow,
-// so such a row's gradients are exactly zero, as in the Pallas kernels.
+// so such a row's gradients are exactly zero, as in the Pallas kernel.
 //
 // Delta: K8 computes delta once per query row, from its dO tile and o, and
-// stores it as fp32 [B, Hq, Sq]; K9 (launched after K8 on the same stream)
-// reads it instead of recomputing it for every key tile. There is no
-// separate delta pass.
+// stores it as fp32 [B, Hq, Sq]; K9 (flash_attention_dkv.cu, launched after
+// K8 on the same stream) reads it instead of recomputing it for every key
+// tile. There is no separate delta pass.
 //
-// Grids: K8 runs one block per (64-row query tile, query head, batch row),
-// heaviest (last) causal tiles first, looping over the key tiles up to the
-// diagonal and valid_len. K9 runs one block per (64-row key tile, KV head,
-// batch row) and loops over the group's Hq / Hkv query heads and the query
-// tiles from the key tile's diagonal on, so each dk/dv row is written by
-// one block: no atomics, no [B, Hq, Sk, D] intermediate and no group sum
-// outside (the Pallas kernel wrote dk/dv per query head in bf16 and summed
-// outside; here the group sum stays in fp32 registers and is rounded once),
-// and the result is the same from run to run.
+// Grid: one block per (64-row query tile, query head, batch row), heaviest
+// (last) causal tiles first, looping over the key tiles up to the diagonal
+// and valid_len.
 //
-// What bounds them on the H100: at the training shape (q [8, 2048, 32, 128],
-// k/v [8, 2048, 8, 128], causal) K8 does 3 products and K9 4 of
-// 2 * S^2/2 * D FLOPs per query head (4.1e11 and 5.5e11 FLOPs) against
-// ~0.3 GB of inputs: tensor-core bound. Both keep the score tiles in
-// registers and feed them back as the A operand of the next product, skip
-// tiles above the diagonal and past valid_len, and hold the four 64-row
-// operand tiles (q, do, k, v) in padded shared memory for ldmatrix. Each
-// warp owns 16 rows (query rows in K8, key rows in K9) and the fp32
-// accumulators of its rows: dq (K8), dk and dv (K9). The operand tiles are
-// loaded synchronously: wgmma, TMA and a load pipeline are later work.
+// What bounds it on the H100: at the training shape (q [8, 2048, 32, 128],
+// k/v [8, 2048, 8, 128], causal) its 3 products of 2 * S^2/2 * D FLOPs per
+// query head (4.1e11 FLOPs) against ~0.3 GB of inputs: tensor-core bound.
+// It keeps the score tiles in registers and feeds them back as the A
+// operand of the next product, skips tiles above the diagonal and past
+// valid_len, and holds the four 64-row operand tiles (q, do, k, v) in
+// padded shared memory for ldmatrix. Each warp owns 16 query rows and
+// their fp32 dq accumulators. The operand tiles are loaded synchronously;
+// K9's TMA and wgmma design is the model for its redesign.
 
 #include "attention_tile.cuh"
 
@@ -61,8 +53,6 @@ struct BwdParams {
   const float* lse;           // [B, Hq, Sq]
   float* delta;               // [B, Hq, Sq]: written by K8, read by K9
   __nv_bfloat16* dq;          // contiguous [B, Sq, Hq, D]
-  __nv_bfloat16* dk;          // contiguous [B, Sk, Hkv, D]
-  __nv_bfloat16* dv;
   const int* valid_len;       // [B], or nullptr (= Sk)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -76,8 +66,7 @@ __host__ __device__ constexpr int tile_elems() { return kBlockK * (DK + 8); }
 
 template <int DK>
 constexpr size_t smem_bytes() {
-  return 4 * tile_elems<DK>() * sizeof(__nv_bfloat16) +
-         2 * kBlockQ * sizeof(float);
+  return 4 * tile_elems<DK>() * sizeof(__nv_bfloat16);
 }
 
 // acc[n] (16 rows x 64 columns, n8 tiles) = A (this warp's 16 rows of tile
@@ -263,95 +252,6 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DK>(acc, p.dq + o_base, o_row, warp * 16 + g, qrows);
 }
 
-// K9: dk and dv for key rows [ktile * 64, +64) of KV head kvh in batch row
-// b, summed over the Hq / Hkv query heads of its group.
-template <int DK, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + tile_elems<DK>();
-  __nv_bfloat16* ks = dos + tile_elems<DK>();
-  __nv_bfloat16* vs = ks + tile_elems<DK>();
-  float* lse_s = reinterpret_cast<float*>(vs + tile_elems<DK>());
-  float* delta_s = lse_s + kBlockQ;
-  constexpr int kNs = kBlockQ / 8;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBlockK;
-  const int krows = min(kBlockK, p.Sk - k0);
-  const int valid = clamp_valid(p, b);
-  const int rep = p.Hq / p.Hkv;
-  const long long o_row = (long long)p.Hq * p.D;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-
-  float dk[DK / 8][4], dv[DK / 8][4];
-#pragma unroll
-  for (int n = 0; n < DK / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  // A key tile wholly at or past valid_len has p == 0 for every query:
-  // its gradients are zero.
-  if (k0 < valid) {
-    vl2::load_tile<DK>(ks, p.k + b * p.k_sb + k0 * p.k_ss + kvh * p.k_sh,
-                       p.k_ss, krows, p.D);
-    vl2::load_tile<DK>(vs, p.v + b * p.v_sb + k0 * p.v_ss + kvh * p.v_sh,
-                       p.v_ss, krows, p.D);
-    const int n_q = (p.Sq + kBlockQ - 1) / kBlockQ;
-    // causal: the first query tile that sees key k0 holds row k0
-    const int qt_begin = kCausal ? k0 / kBlockQ : 0;
-    for (int hh = 0; hh < rep; ++hh) {
-      const int h = kvh * rep + hh;
-      const long long lse_base = ((long long)b * p.Hq + h) * p.Sq;
-      for (int qt = qt_begin; qt < n_q; ++qt) {
-        const int q0 = qt * kBlockQ;
-        const int qrows = min(kBlockQ, p.Sq - q0);
-        __syncthreads();  // every warp is done with the previous q/do tiles
-        vl2::load_tile<DK>(qs, p.q + b * p.q_sb + q0 * p.q_ss + h * p.q_sh,
-                           p.q_ss, qrows, p.D);
-        vl2::load_tile<DK>(
-            dos, p.dout + ((long long)b * p.Sq + q0) * o_row + h * p.D,
-            o_row, qrows, p.D);
-        if (threadIdx.x < kBlockQ) {
-          const bool in = threadIdx.x < qrows;
-          lse_s[threadIdx.x] = in ? p.lse[lse_base + q0 + threadIdx.x] : 0.f;
-          delta_s[threadIdx.x] =
-              in ? p.delta[lse_base + q0 + threadIdx.x] : 0.f;
-        }
-        __syncthreads();
-
-        float pt[kNs][4], dpt[kNs][4];
-        mma_abt<DK>(pt, ks, qs);    // (q k^T)^T: rows are keys
-        mma_abt<DK>(dpt, vs, dos);  // (do v^T)^T
-#pragma unroll
-        for (int n = 0; n < kNs; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int lq = n * 8 + 2 * t + (e & 1);
-            const int key = key0 + (e >> 1) * 8;
-            bool keep = key < valid && lq < qrows;
-            if (kCausal) keep = keep && key <= q0 + lq;
-            const float pe =
-                keep ? __expf(pt[n][e] * p.scale - lse_s[lq]) : 0.f;
-            pt[n][e] = pe;
-            dpt[n][e] = pe * (dpt[n][e] - delta_s[lq]) * p.scale;  // ds^T
-          }
-        }
-        mma_pb<DK>(dv, pt, dos);  // dv += p^T do
-        mma_pb<DK>(dk, dpt, qs);  // dk += ds^T q
-      }
-    }
-  }
-
-  const long long kv_row = (long long)p.Hkv * p.D;
-  const long long kv_base = ((long long)b * p.Sk + k0) * kv_row + kvh * p.D;
-  store_rows<DK>(dk, p.dk + kv_base, kv_row, warp * 16 + g, krows);
-  store_rows<DK>(dv, p.dv + kv_base, kv_row, warp * 16 + g, krows);
-}
-
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
                    const BwdParams& p) {
@@ -370,16 +270,6 @@ cudaError_t launch_dq(const BwdParams& p, bool causal, cudaStream_t st) {
              ? launch(flash_bwd_dq_kernel<DK, true>, grid, smem_bytes<DK>(),
                       st, p)
              : launch(flash_bwd_dq_kernel<DK, false>, grid, smem_bytes<DK>(),
-                      st, p);
-}
-
-template <int DK>
-cudaError_t launch_dkv(const BwdParams& p, bool causal, cudaStream_t st) {
-  const dim3 grid((p.Sk + kBlockK - 1) / kBlockK, p.Hkv, p.B);
-  return causal
-             ? launch(flash_bwd_dkv_kernel<DK, true>, grid, smem_bytes<DK>(),
-                      st, p)
-             : launch(flash_bwd_dkv_kernel<DK, false>, grid, smem_bytes<DK>(),
                       st, p);
 }
 
@@ -409,11 +299,10 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Both entry points return the cudaError_t of the launch (0 on success).
+// K8: dq and delta. Returns the cudaError_t of the launch (0 on success).
 // Pointers are device pointers; strides are in elements; the last axis of
-// q/k/v is contiguous.
-
-// K8: dq and delta. o/do contiguous [B, Sq, Hq, D]; lse/delta [B, Hq, Sq].
+// q/k/v is contiguous; o/do contiguous [B, Sq, Hq, D]; lse/delta
+// [B, Hq, Sq].
 extern "C" int vl2_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq,
@@ -428,25 +317,5 @@ extern "C" int vl2_flash_attention_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return static_cast<int>(launch_dq<128>(p, causal != 0, st));
   if (D == 64) return static_cast<int>(launch_dq<64>(p, causal != 0, st));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K9: dk and dv from the delta K8 stored. do contiguous [B, Sq, Hq, D].
-extern "C" int vl2_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
-    const int* valid_len, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, int causal, void* stream) {
-  BwdParams p = make_params(q, k, v, nullptr, dout, lse,
-                            const_cast<void*>(delta), valid_len, B, Sq, Sk,
-                            Hq, Hkv, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                            v_sb, v_ss, v_sh, scale);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return static_cast<int>(launch_dkv<128>(p, causal != 0, st));
-  if (D == 64) return static_cast<int>(launch_dkv<64>(p, causal != 0, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,11 @@
 """K2, K8, K9: causal GQA flash attention, forward and backward.
 
 CUDA kernels: `csrc/flash_attention.cu` (K2, the forward, optionally with
-its per-row log-sum-exp) and `csrc/flash_attention_bwd.cu` (K8: dq, K9:
-dk/dv), built by `ops/_build.py`. They replace the Pallas kernels of
+its per-row log-sum-exp), `csrc/flash_attention_bwd.cu` (K8: dq and delta)
+and `csrc/flash_attention_dkv.cu` (K9: dk/dv), built by `ops/_build.py`.
+K2 and K9 load their tiles by TMA, so q/k/v must pass
+`_build.check_operand` (every stride and the base a multiple of 16 bytes),
+which is what TMA takes. They replace the Pallas kernels of
 videollama2_tpu/ops/flash_attention.py: `flash_attention` (with
 `return_lse`) and the two kernels of `flash_attention_bwd`; `FlashAttention`
 is the port of its `flash_attention_vjp`. The sources' headers say what
