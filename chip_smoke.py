@@ -395,9 +395,8 @@ def _library_call(name, call, n_layers, ref):
 def matmul_cases(gen, quantize, library, mm_layers, D, qkv_out, F_):
     """K4 (K6 with int4 packs) at the fused qkv [D -> qkv_out] and o
     [D -> D], K5 (K7) at [D, F_], R = 16 rows, bf16 scales as the Engine
-    casts them (no K4/K6 cases when qkv_out is None); `mm_layers` (K4/K6:
-    enough that the rotated layers overflow the 50 MB L2) or two (K5/K7)
-    layers rotated in timing.
+    casts them; `mm_layers` (K4/K6: enough that the rotated layers
+    overflow the 50 MB L2) or two (K5/K7) layers rotated in timing.
     `quantize(w)` -> (weight bytes, scale) of an [..., in, out] kernel;
     `library(x, q, s)` -> K4's or K6's PyTorch yardstick (int8pack_library,
     int4pack_library). Bounds: each weight byte read once (h, the FFN's
@@ -410,8 +409,7 @@ def matmul_cases(gen, quantize, library, mm_layers, D, qkv_out, F_):
     k4 = []
     for label, dout in ((f"qkv x[16,{D}] [{mm_layers},{D},{qkv_out}]",
                          qkv_out),
-                        (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)
-                        ) if qkv_out else ():
+                        (f"o x[16,{D}] [{mm_layers},{D},{D}]", D)):
         q, s = pack(mm_layers, D, dout)
         yard = (bound(2 * 16 * D * dout, q[0].nbytes + s[0].nbytes
                       + x.nbytes + 16 * dout * 2), library(x, q, s))
@@ -629,20 +627,20 @@ def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
 PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                  "flash_attention_kernel", "encoder_attention_pairs_kernel",
                  "encoder_attention_pipelined_kernel", "decode_chunk_kernel",
-                 "decode_combine_kernel", "splitk_kernel", "matmul_kernel")
+                 "decode_combine_kernel", "splitk_kernel")
 
 
 def ptxas_report(path) -> dict:
     """Registers and spills of the attention and decode matmul kernels
     (each template instance by its integer and bool arguments: head dim,
     then causal flag or query heads a kv head; decode_chunk_kernel's cache
-    type a = int8; splitk_kernel (K4, matmul_q8, K5, K7) weights, 16-row
-    tiles, fp32 scales, folded int4: <1, ., ., 0> is K4 and K5's down
-    pass, <2, ., ., 0> K5's gate/up, <2, ., ., 1> and <1, ., ., 1> K7's
-    two passes; matmul_kernel (K6) 16-row tiles, fp32 scales), from the
-    ptxas report the build wrote beside the library. Logs each and returns
-    {instance: (registers line, spill line)}; ptxas counts the warpgroup
-    kernels' (K10, K2, K9) registers at launch, before setmaxnreg."""
+    type a = int8; splitk_kernel (K4, matmul_q8, K5, K6, K7) weights,
+    16-row tiles, fp32 scales, folded int4: <1, ., ., 0> is K4 and K5's
+    down pass, <2, ., ., 0> K5's gate/up, <1, ., ., 1> K6 and K7's down
+    pass, <2, ., ., 1> K7's gate/up), from the ptxas report the build
+    wrote beside the library. Logs each and returns {instance: (registers
+    line, spill line)}; ptxas counts the warpgroup kernels' (K10, K2, K8,
+    K9) registers at launch, before setmaxnreg."""
     if not path.exists():
         log(f"[ptxas] no report at {path}")
         return {}
@@ -667,7 +665,7 @@ def ptxas_report(path) -> dict:
 
 
 def check_no_spills(report: dict, kernels) -> None:
-    """Every D 128 instance of `kernels` (K2, K9) is in the report and
+    """Every D 128 instance of `kernels` (K2, K8, K9) is in the report and
     spills nothing."""
     for kernel in kernels:
         rows = {n: s for n, (_, s) in report.items()
@@ -1019,7 +1017,8 @@ def main() -> None:
         f"{'(found built already) ' if cached else ''}and load: "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(_build.library_path().parent / _build.BUILD_LOG)
-    check_no_spills(ptxas, ("flash_attention_kernel", "flash_bwd_dkv_kernel"))
+    check_no_spills(ptxas, ("flash_attention_kernel", "flash_bwd_dq_kernel",
+                            "flash_bwd_dkv_kernel"))
 
     # every kernel's counter, checked in every run of a path: a kernel off
     # the path must launch no time
@@ -1063,8 +1062,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     # K4/K5 at Mistral-7B's and Qwen2-7B's widths; K6/K7 (int4, a Mistral
-    # slice only) at Mistral-7B's, and K7 also at Qwen2-7B's as a kernel
-    # case (widths: D, qkv out or None for the FFN alone, F)
+    # slice only) at Mistral-7B's, and also at Qwen2-7B's as kernel cases
+    # (widths: D, qkv out, F)
     for mm, ffn, mm_layers, quantize, library, widths in (
             ("matmul_q8_layered", "ffn_q8_layered", 4,
              lambda w: tuple(quantize_int8(w, axis=-2).values()),
@@ -1076,7 +1075,7 @@ def main() -> None:
              lambda x, q, s: int4pack_library(
                  x, q, s, lambda x, q4, s: dk._mm_plain(
                      x, dk.unpack_int4(q4), s)),
-             ((4096, 6144, 14336), (3584, None, 18944)))):
+             ((4096, 6144, 14336), (3584, 4608, 18944)))):
         mm_cases, ffn_cases = [], []
         for D, qkv_out, F_ in widths:
             k4, k5 = matmul_cases(gen, quantize, library, mm_layers, D,
@@ -1084,12 +1083,10 @@ def main() -> None:
             mm_cases += k4
             ffn_cases += k5
         for name, cases in ((mm, mm_cases), (ffn, ffn_cases)):
-            # the split-K core (all but K6) must give the same bits in two
-            # calls
+            # the split-K core must give the same bits in two calls
             res[name] = check_kernel(
                 name, getattr(dk, name), getattr(dk, name + "_plain"),
-                cases, MATMUL_REL_TOL, rel=True,
-                deterministic=name != "matmul_q4_layered")
+                cases, MATMUL_REL_TOL, rel=True, deterministic=True)
         del mm_cases, ffn_cases, k4, k5
         gc.collect()
         torch.cuda.empty_cache()
@@ -1282,14 +1279,15 @@ def main() -> None:
               "decode_matmul.py:89", "int8 slice"),
              ("ffn_q8_layered", "splitk_matmul.cuh", "decode_matmul.cu",
               "decode_matmul.py:346", "int8 slice"),
-             ("matmul_q4_layered", "decode_matmul.cuh", "decode_matmul_q4.cu",
+             ("matmul_q4_layered", "splitk_matmul.cuh", "decode_matmul_q4.cu",
               "decode_matmul.py:164", "int4 slice"),
              ("ffn_q4_layered", "splitk_matmul.cuh", "decode_matmul_q4.cu",
               "decode_matmul.py:297", "int4 slice"),
              ("matmul_q8", "splitk_matmul.cuh", "decode_matmul.cu",
               "quant_matmul.py:51", "int4 slice"))] + [
         train_entry("flash_attention_bwd_dq", "flash_attention_bwd_dq",
-                    "flash_attention_bwd.cu", "flash_attention.py:352"),
+                    "flash_attention_bwd.cu", "flash_attention.py:352",
+                    ptxas=registers("flash_bwd_dq_kernel")),
         train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
                     "flash_attention_dkv.cu", "flash_attention.py:383",
                     ptxas=registers("flash_bwd_dkv_kernel"))]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation check of the attention kernels (K1, K2, K3, K8, K9, K10) and
-of the split-K core of the weight-only decode matmuls (K4, K5,
+of the split-K core of the weight-only decode matmuls (K4, K5, K6,
 K7), on an NVIDIA GPU:
 each mutant is a copy of the port and its tests in the
 system's temporary directory with one deliberate fault in a CUDA source,
@@ -36,11 +36,22 @@ MUTANTS = {
         "if (key >= p.Sk) continue;",
         "if (key >= p.Sk || steps.n == 0) continue;", "flash"),
     "K8 delta not subtracted": ("flash_attention_bwd.cu",
-        "s[n][e] = pe * (dp[n][e] - delta[e >> 1]) * p.scale;  // ds",
-        "s[n][e] = pe * dp[n][e] * p.scale;  // ds", "flash"),
+        "dp[n][e] = s[n][e] * (dp[n][e] - delta[e >> 1]) * scale;  // dS",
+        "dp[n][e] = s[n][e] * dp[n][e] * scale;  // dS", "flash"),
     "K8 delta summed over half the head dim": ("flash_attention_bwd.cu",
-        "    s += __shfl_xor_sync(0xffffffffu, s, 2);\n    delta[r] = s;",
-        "    delta[r] = s;", "flash"),
+        "    sum += __shfl_xor_sync(0xffffffffu, sum, 2);\n    g.delta[r]",
+        "    g.delta[r]", "flash"),
+    "K8 diagonal excluded": ("flash_attention_bwd.cu",
+        "(!kCausal || key <= query)", "(!kCausal || key < query)", "flash"),
+    "K8 drops the log2 e factor on lse": ("flash_attention_bwd.cu",
+        "p.lse[rows + row] * vl2_tower::kLog2e", "p.lse[rows + row]",
+        "flash"),
+    "K8 masks only each warpgroup's last tile": ("flash_attention_bwd.cu",
+        "(kCausal && k_last > first_row)",
+        "(kCausal && k_last > first_row + 64)", "flash"),
+    "K8 multiplies dS by the K of the tile that just landed": (
+        "flash_attention_bwd.cu", "issue_dq(kt - 1);", "issue_dq(kt);",
+        "flash"),
     "K2 lse without log(l)": ("flash_attention.cu",
         "m * kLn2 + logf(l)", "m * kLn2", "flash"),
     "K2 diagonal excluded": ("flash_attention.cu",
@@ -100,6 +111,9 @@ MUTANTS = {
     "K7 drops the -8 offset of its nibbles": (
         "splitk_matmul.cuh", '"r"(0xC308C308u)', '"r"(0xC300C300u)',
         "ffn_q4"),
+    "K6 reads its folded int4 pack as int8": (
+        "decode_matmul_q4.cu", "vl2_sk::matmul<true>(x, w, s, y",
+        "vl2_sk::matmul<false>(x, w, s, y", "matmul_q4"),
     "K7 drops the last split's partial": (
         "splitk_matmul.cuh", _SUM_SPLIT, _SUM_SPLIT.replace(
             "sp < p.splits", "sp < p.splits - 1"), "ffn_q4"),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The decode's weight-only matmuls on the split-K core, on an NVIDIA GPU, at
-chip_smoke.py's cases: K4 (`matmul_q8_layered`) at the fused qkv and o
+chip_smoke.py's cases: K4 (`matmul_q8_layered`) and K6
+(`matmul_q4_layered`, over folded int4 packs) at the fused qkv and o
 projections of Mistral-7B ([4096, 6144], [4096, 4096]) and Qwen2-7B
 ([3584, 4608], [3584, 3584]), and the int8 and int4 SwiGLU FFNs, K5
 (`ffn_q8_layered`) and K7 (`ffn_q4_layered`), at Mistral-7B's (4096, 14336)
@@ -10,9 +11,10 @@ Times each kernel and its plain PyTorch version with CUDA events behind a
 spin kernel (chip_smoke.cuda_ms), beside the bound (every weight byte read
 once at 3.35 TB/s), and checks the kernel against the plain version
 (chip_smoke.MATMUL_REL_TOL of max|out|): x [16, D] bf16, packs with bf16
-scales, layers rotated between launches (four for K4, so that they
-overflow the 50 MB L2; two for the FFNs). No one PyTorch call computes the
-FFN; K4's library yardstick is chip_smoke's (torch._weight_int8pack_mm).
+scales, layers rotated between launches (four for K4 and eight for K6,
+so that they overflow the 50 MB L2; two for the FFNs). No one PyTorch call
+computes the FFN; K4's and K6's library yardsticks are chip_smoke's
+(torch._weight_int8pack_mm, torch._weight_int4pack_mm).
 
 --tree DIR takes the port and chip_smoke.py from another checkout (for an
 A/B of two commits in one run: unpack the other commit into a directory
@@ -38,23 +40,22 @@ import sys
 
 PROJECTIONS = ((4096, 6144), (4096, 4096), (3584, 4608), (3584, 3584))
 WIDTHS = ((4096, 14336), (3584, 18944))
-ROWS, LAYERS, MM_LAYERS = 16, 2, 4
+ROWS, LAYERS = 16, 2
 
 
-def k4_cases(cs, gen, quantize_int8, dk):
-    """K4 at the four projections, built from the helpers every checkout's
-    chip_smoke.py has."""
+def mm_cases(cs, gen, quantize, library, layers):
+    """K4 (or K6) at the four projections, built from the helpers every
+    checkout's chip_smoke.py has; quantize(w) -> (weight bytes, scale),
+    library(x, q, s) -> the yardstick."""
     out = []
     for din, dout in PROJECTIONS:
         x = cs.rand_bf16(gen, (ROWS, din))
-        p = quantize_int8(cs.rand_bf16(gen, (MM_LAYERS, din, dout), 0.02),
-                          axis=-2)
-        q, s = p["q"], p["scale"].bfloat16()
-        cyc = cs.layer_cycle(MM_LAYERS)
+        q, s = quantize(cs.rand_bf16(gen, (layers, din, dout), 0.02))
+        s = s.bfloat16()
+        cyc = cs.layer_cycle(layers)
         yard = (cs.bound(2 * ROWS * din * dout, q[0].nbytes + s[0].nbytes
-                         + x.nbytes + ROWS * dout * 2),
-                cs.int8pack_library(x, q, s, dk._mm_plain))
-        out.append((f"x[{ROWS},{din}] [{MM_LAYERS},{din},{dout}]",
+                         + x.nbytes + ROWS * dout * 2), library(x, q, s))
+        out.append((f"x[{ROWS},{din}] [{layers},{din},{dout}]",
                      ((x, q, s, 1), {}), ((x.float(), q, s, 1), {}),
                      lambda f, x=x, q=q, s=s, cyc=cyc: (
                          lambda: f(x, q, s, cyc())), yard))
@@ -120,13 +121,22 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def q8(w):
+        return tuple(quantize_int8(w, axis=-2).values())
+
+    def q4(w):
+        return tuple(quantize_int4(w, axis=-2)[k] for k in ("q4", "scale"))
     kernels = (
-        ("matmul_q8_layered", lambda: k4_cases(cs, gen, quantize_int8, dk)),
-        ("ffn_q8_layered", lambda: ffn_cases(
-            cs, gen, lambda w: tuple(quantize_int8(w, axis=-2).values()))),
-        ("ffn_q4_layered", lambda: ffn_cases(
-            cs, gen, lambda w: tuple(quantize_int4(w, axis=-2)[k]
-                                     for k in ("q4", "scale")))))
+        ("matmul_q8_layered", lambda: mm_cases(
+            cs, gen, q8, lambda x, q, s: cs.int8pack_library(
+                x, q, s, dk._mm_plain), 4)),
+        ("matmul_q4_layered", lambda: mm_cases(
+            cs, gen, q4, lambda x, q, s: cs.int4pack_library(
+                x, q, s, lambda x, q4, s: dk._mm_plain(
+                    x, dk.unpack_int4(q4), s)), 8)),
+        ("ffn_q8_layered", lambda: ffn_cases(cs, gen, q8)),
+        ("ffn_q4_layered", lambda: ffn_cases(cs, gen, q4)))
     out = {"device": smi, "tree": tree}
     target = getattr(dk, "SPLIT_BLOCKS_PER_SM", None)
     for name, make in kernels:

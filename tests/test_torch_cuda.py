@@ -415,14 +415,127 @@ def test_flash_attention_k2_k9_cuda_long_rows(cuda_device, D, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 1100])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (14, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_dq_cuda_matches_plain(cuda_device, S, D, hq,
+                                                   hkv, causal):
+    """K8 alone against its plain version: 1, 4 and 7 query heads a kv
+    head; S 300 (not a multiple of the 128-row query block or the 64-key
+    tiles) and S 1100 (18 key tiles through the 4-stage K/V ring, so it
+    wraps many times); valid_len S, an odd length, 0 (every row fully
+    masked: dq exactly zero, lse -1e30) and 1. dq within BWD_REL_TOL of
+    max|dq|, delta within 1e-5 of max|delta|, one launch a call, every
+    row written (the output blocks are poisoned with NaN first), and two
+    calls bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        S + D * 10 + hq + causal)
+    q, k, v = _bf16_qkv(gen, 4, S, hq, hkv, D, cuda_device)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([S, S // 2 + 7, 0, 1], dtype=torch.int32,
+                         device=cuda_device)
+    o, lse = k2.flash_attention(q, k, v, valid, causal=causal,
+                                return_lse=True)
+    assert torch.all(lse[2] == -1e30)
+    _poison_allocator(cuda_device, q, lse)
+    before = k2.flash_attention_bwd_dq.launches
+    dq, delta = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, causal)
+    assert k2.flash_attention_bwd_dq.launches == before + 1
+    want_dq, want_delta = k2.flash_attention_bwd_dq_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), valid,
+        causal)
+    assert dq.dtype == torch.bfloat16 and delta.dtype == torch.float32
+    torch.testing.assert_close(dq.float(), want_dq, rtol=0,
+                               atol=BWD_REL_TOL * want_dq.abs().max().item())
+    torch.testing.assert_close(delta, want_delta, rtol=0,
+                               atol=1e-5 * want_delta.abs().max().item())
+    assert torch.all(dq[2] == 0)
+    _poison_allocator(cuda_device, q, lse)
+    again = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, causal)
+    assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_dq_cuda_unequal_lengths(cuda_device, causal):
+    """K8 with fewer query rows than keys (Sq 130, Sk 300; causal is
+    top-left aligned, so row i sees keys 0..i): the block walks only the
+    key tiles its rows see, and a q/k/v taken from fused projections."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31 + causal)
+    B, Sq, Sk, H, K, D = 2, 130, 300, 8, 2, 128
+    q = torch.randn(B, Sq, 2 * H * D, generator=gen,
+                    device=cuda_device).bfloat16()[..., :H * D]
+    q = q.unflatten(-1, (H, D))
+    kv = torch.randn(B, Sk, 2 * K * D, generator=gen,
+                     device=cuda_device).bfloat16()
+    k = kv[..., :K * D].unflatten(-1, (K, D))
+    v = kv[..., K * D:].unflatten(-1, (K, D))
+    do = torch.randn(B, Sq, H, D, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.tensor([Sk, 77], dtype=torch.int32, device=cuda_device)
+    o, lse = k2.flash_attention_plain(q.float(), k.float(), v.float(), valid,
+                                      causal, return_lse=True)
+    o = o.bfloat16()
+    dq, delta = k2.flash_attention_bwd_dq(q, k, v, o, lse, do, valid, causal)
+    want_dq, want_delta = k2.flash_attention_bwd_dq_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), valid,
+        causal)
+    torch.testing.assert_close(dq.float(), want_dq, rtol=0,
+                               atol=BWD_REL_TOL * want_dq.abs().max().item())
+    torch.testing.assert_close(delta, want_delta, rtol=0,
+                               atol=1e-5 * want_delta.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv"])
+def test_flash_attention_cuda_from_a_fresh_thread(cuda_device, kernel):
+    """K2, K8 and K9 called first thing in a new host thread, as PyTorch's
+    autograd worker calls the backward kernels: the tensor maps are
+    encoded against the thread's current context, which such a thread has
+    only once the entry has made it current."""
+    import threading
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    q, k, v = _bf16_qkv(gen, 2, 256, 8, 2, 128, cuda_device)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).bfloat16()
+    o, lse = k2.flash_attention(q, k, v, return_lse=True)
+    delta = k2.attention_delta(o, do).contiguous()
+    args = {"flash_attention": (q, k, v),
+            "flash_attention_bwd_dq": (q, k, v, o, lse, do),
+            "flash_attention_bwd_dkv": (q, k, v, do, lse, delta)}[kernel]
+    fn = getattr(k2, kernel)
+    want = fn(*args)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn(*args)
+            torch.cuda.synchronize()
+        except Exception as e:  # reported in the main thread
+            got["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    assert "error" not in got, got.get("error")
+    want = want if isinstance(want, tuple) else (want,)
+    out = got["out"] if isinstance(got["out"], tuple) else (got["out"],)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
 def test_flash_attention_cuda_refuses_views_tma_cannot_take(cuda_device):
-    """K2 and K9 take a view whose strides and base are multiples of 16
+    """K2, K8 and K9 take a view whose strides and base are multiples of 16
     bytes (what TMA takes): a fused row of (Hq + 2 Hkv) D + 4 elements, or a
-    base 8 bytes off, is refused with ValueError before a launch."""
+    base 8 bytes off, is refused with ValueError before a launch, and so
+    is an o or do whose base is 8 bytes off."""
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     H, K, D, S = 4, 2, 128, 128
     width = (H + 2 * K) * D
     before = (k2.flash_attention.launches,
+              k2.flash_attention_bwd_dq.launches,
               k2.flash_attention_bwd_dkv.launches)
     odd_row = torch.randn(1, S, width + 4, generator=gen,
                           device=cuda_device).bfloat16()
@@ -436,9 +549,24 @@ def test_flash_attention_cuda_refuses_views_tma_cannot_take(cuda_device):
             k2.flash_attention(q, k, v, return_lse=True)
         rows = torch.zeros((1, H, S), device=cuda_device)
         with pytest.raises(ValueError):
+            k2.flash_attention_bwd_dq(q, k, v, torch.zeros_like(q), rows,
+                                      torch.zeros_like(q))
+        with pytest.raises(ValueError):
             k2.flash_attention_bwd_dkv(q, k, v, torch.zeros_like(q), rows,
                                        rows)
+    q, k, v = _bf16_qkv(gen, 1, S, H, K, D, cuda_device)
+    good = torch.zeros_like(q)
+    shifted = torch.zeros(q.numel() + 4, dtype=q.dtype,
+                          device=cuda_device)[4:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    rows = torch.zeros((1, H, S), device=cuda_device)
+    for o, do in ((shifted, good), (good, shifted)):
+        with pytest.raises(ValueError):
+            k2.flash_attention_bwd_dq(q, k, v, o, rows, do)
+    with pytest.raises(ValueError):
+        k2.flash_attention_bwd_dkv(q, k, v, shifted, rows, rows)
     assert (k2.flash_attention.launches,
+            k2.flash_attention_bwd_dq.launches,
             k2.flash_attention_bwd_dkv.launches) == before
 
 
@@ -756,6 +884,59 @@ def test_matmul_q4_layered_cuda_matches_plain(cuda_device, rows):
         ref = k45.matmul_q4_layered_plain(x.float(), q4, s, 1)
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 16, 40, 64])
+@pytest.mark.parametrize("din,dout", PROJECTIONS)
+@pytest.mark.parametrize("f32", [False, True])
+def test_matmul_q4_layered_cuda_split_k(cuda_device, rows, din, dout, f32):
+    """K6 on the split-K core's one-weight folded-int4 pass at the qkv and
+    o widths of Mistral, Qwen2 and Llama (layer 1 of a two-layer pack),
+    fp32 and bf16 scales: within 1e-2 of max|out| of the plain version,
+    two calls bit-equal (the splits' partials are summed in a fixed
+    order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + din + dout
+                                                          + f32 + 1)
+    x = torch.randn(rows, din, generator=gen, device=cuda_device).bfloat16()
+    q4, s = _q4_pack(gen, 2, din, dout, cuda_device)
+    s = s if f32 else s.bfloat16()
+    before = k45.matmul_q4_layered.launches
+    got = k45.matmul_q4_layered(x, q4, s, 1)
+    again = k45.matmul_q4_layered(x, q4, s, 1)
+    assert k45.matmul_q4_layered.launches == before + 2
+    assert torch.equal(got, again)
+    ref = k45.matmul_q4_layered_plain(x.float(), q4, s, 1)
+    torch.testing.assert_close(got.float(), ref, rtol=0,
+                               atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_matmul_q4_layered_cuda_one_launch(cuda_device):
+    """A K6 call is one launch of the split-K core: the splits and their
+    reduction happen inside it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn(16, 4096, generator=gen, device=cuda_device).bfloat16()
+    q4, s = _q4_pack(gen, 1, 4096, 6144, cuda_device)
+    kernels = _splitk_launches(lambda: k45.matmul_q4_layered(x, q4, s, 0))
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.cuda
+def test_matmul_q4_layered_cuda_refuses_untiled_widths(cuda_device):
+    """Widths the split-K core does not tile raise before a launch: Dout
+    672 (a multiple of 32, which K6 took before it moved onto the core,
+    not of the 128-column tile), Din 640 (not a multiple of the 256-row
+    chunk), more than 64 rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    before = k45.matmul_q4_layered.launches
+    for rows, din, dout in ((16, 512, 672), (16, 640, 512), (65, 512, 512)):
+        x = torch.randn(rows, din, generator=gen,
+                        device=cuda_device).bfloat16()
+        q4, s = _q4_pack(gen, 1, din, dout, cuda_device)
+        with pytest.raises(ValueError):
+            k45.matmul_q4_layered(x, q4, s, 0)
+    assert k45.matmul_q4_layered.launches == before
 
 
 @pytest.mark.cuda

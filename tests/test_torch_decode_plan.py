@@ -1,5 +1,5 @@
 """The split plan of the split-K core (ops/decode_matmul.split_plan), whose
-split count the CUDA kernel takes for K4, K5, K7 and matmul_q8 (it cuts
+split count the CUDA kernel takes for K4-K7 and matmul_q8 (it cuts
 the chunks at the same bounds): the chunk ranges cover the reduction depth
 exactly once (int8 rows, or folded int4 byte rows), the blocks fill the
 H100's 132 SMs, uneven splits where the chunks do not divide, one split at
@@ -138,3 +138,31 @@ def test_lm_heads_take_one_split(rows, din, dout):
     registers."""
     plan = dm.split_plan(rows, din, dout)
     assert plan.splits == 1 and plan.bounds == (0, din // dm.SPLIT_CHUNK)
+
+
+# K6's folded plans at R 16: (Din, Dout) -> (tiles, splits), the fused qkv
+# and the o projection of Mistral-7B and Qwen2-7B (chunks of 128 byte rows,
+# 256 weight rows: the same counts as K4's)
+K6_PLANS = {
+    "mistral qkv": ((4096, 6144), (48, 6)),
+    "mistral o": ((4096, 4096), (32, 8)),
+    "qwen2 qkv": ((3584, 4608), (36, 7)),
+    "qwen2 o": ((3584, 3584), (28, 8)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K6_PLANS))
+def test_k6_folded_plans_at_the_projection_widths(name):
+    """K6 runs the core's one-weight pass over the folded int4 pack: its
+    plans at the qkv and o widths of both models split every tile so the
+    blocks fill the SMs, at most SPLIT_MAX splits, and the splits' byte-row
+    ranges cover the pack's Din/2 byte rows exactly once."""
+    (din, dout), want = K6_PLANS[name]
+    plan = dm.split_plan(16, din, dout, folded=True)
+    assert (plan.tiles, plan.splits) == want
+    assert plan.tiles * plan.splits >= dm.H100_SMS
+    assert 1 < plan.splits <= dm.SPLIT_MAX
+    assert plan.chunk_rows == dm.SPLIT_CHUNK // 2
+    byte_rows = [r for a, b in zip(plan.bounds, plan.bounds[1:])
+                 for r in range(a * plan.chunk_rows, b * plan.chunk_rows)]
+    assert byte_rows == list(range(din // 2))

@@ -1,19 +1,14 @@
 // The mma.sync fragment helpers (ldmatrix, m16n8k16 bf16 products, bf16
-// packing) and the synchronous tile load that K8 (flash_attention_bwd.cu)
-// builds its products from, and that K1 (encoder_attention.cu), the tower
-// softmax (tower_softmax.cuh) and the decode matmuls (splitk_matmul.cuh,
-// decode_matmul.cuh) share.
+// packing) and the masked-score constant, shared by K1 (encoder_attention.cu,
+// its products), the tower softmax (tower_softmax.cuh, whose exponent and
+// fragment packing K1, K10, K2, K8 and K9 use) and the split-K core of the
+// decode matmuls (splitk_matmul.cuh, its products).
 //
-// Layout and numerics follow the JAX package's Pallas kernels: q/k/v are
-// [B, S, H, D] bf16 with D contiguous, scores and softmax state are fp32,
-// products run on bf16 operands with fp32 accumulation, and a masked score
-// is the finite -1e30 (kMaskedScore), so a row whose every key is masked
-// (valid_len == 0) returns mean(v) over all keys, exactly like the plain
-// version's softmax over an all -1e30 row.
-//
-// Each of K8's 4 warps owns 16 rows; its tiles live in padded shared
-// memory (row stride D + 8 elements, which makes every ldmatrix phase hit
-// 8 distinct 16-byte bank groups).
+// Numerics follow the JAX package's Pallas kernels: products run on bf16
+// operands with fp32 accumulation, and a masked score is the finite -1e30
+// (kMaskedScore), so a row whose every key is masked (valid_len == 0)
+// returns mean(v) over all keys, exactly like the plain version's softmax
+// over an all -1e30 row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,10 +18,6 @@
 
 namespace vl2 {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;  // query rows per block
-constexpr int kBlockK = 64;           // keys per tile (== kBlockQ, see load)
 constexpr float kMaskedScore = -1e30f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -65,26 +56,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of D bf16 (row stride `row_stride` elements, 16-byte
-// aligned) into a [64, DK + 8] shared tile; columns [D, DK) and rows past
-// `rows` are zero-filled, so padded keys score 0 before masking and padded
-// head-dim lanes add nothing to either product.
-template <int DK>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int rows,
-                                          int D) {
-  constexpr int kChunks = DK / 8;  // 16-byte chunks per row
-  constexpr int kRow = DK + 8;
-  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && c * 8 < D)
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(tile + r * kRow + c * 8) = val;
-  }
 }
 
 }  // namespace vl2

@@ -14,34 +14,33 @@
 // at R = 16 rows, and an SM must convert ~28 weights a clock to keep up
 // with the card's memory rate, twice int8's.
 //
-// K7 runs on the split-K core (splitk_matmul.cuh) with its folded-int4 load
-// path: a ring stage of 64 byte rows x 128 columns carries 128 weight rows,
-// its x slice holds the two pieces the low and high nibbles multiply, and
-// the nibbles become bf16 by prmt, lop3 and one bf16x2 FMA (no I2F). The
-// plan's chunks are 128 byte rows (256 weight rows), so Llama's down pass
-// (F = 11008: 5504 byte rows) is 43 chunks. K7 keeps two launches: the
-// gate/up pass writes h [R, F] whole in natural column order, and the down
-// pass over h folds over F, pairing h columns f and f + F/2 by itself (the
-// Pallas kernel pairs them in one grid step only because it accumulates
-// the down product across sequential steps).
-//
-// K6 still runs on decode_matmul.cuh: a block owns 32 output columns over
-// the whole reduction depth, with one chunk of 128 byte rows (8 KB) in
-// flight, converted by I2F. Moving it onto the core's one-weight int4 pass
-// (the one K7's down pass runs) is the next redesign.
+// Both run on the split-K core (splitk_matmul.cuh) with its folded-int4
+// load path: a ring stage of 64 byte rows x 128 columns carries 128 weight
+// rows, its x slice holds the two pieces the low and high nibbles multiply,
+// and the nibbles become bf16 by prmt, lop3 and one bf16x2 FMA (no I2F).
+// The plan's chunks are 128 byte rows (256 weight rows), so Llama's down
+// pass (F = 11008: 5504 byte rows) is 43 chunks. K6 is one launch of the
+// core's one-weight pass (the pass K7's down projection runs), with the
+// split count of ops/decode_matmul.split_plan(R, Din, Dout, folded=True):
+// Mistral's qkv projection, 48 column tiles of 16 chunks, runs as 6
+// splits of 2 or 3 chunks, 288 blocks of 128 columns. K7 keeps two
+// launches: the gate/up pass writes h [R, F] whole in natural column
+// order, and the down pass over h folds over F, pairing h columns f and
+// f + F/2 by itself (the Pallas kernel pairs them in one grid step only
+// because it accumulates the down product across sequential steps).
 
-#include "decode_matmul.cuh"
 #include "splitk_matmul.cuh"
 
 // K6. Returns the cudaError_t of the launch. x [R, Din] bf16, w layer li's
 // [Din/2, Dout] folded int4 bytes, s layer li's [Dout] scales (fp32 when
 // scale_f32, else bf16), y [R, Dout] bf16; all contiguous device memory,
-// 1 <= R <= 64, Din % 256 == 0, Dout % 32 == 0.
+// 1 <= R <= 64, Din % 256 == 0, Dout % 128 == 0; splits: the plan's split
+// count, 1 .. min(8, Din / 256).
 extern "C" int vl2_matmul_q4(const void* x, const void* w, const void* s,
                              void* y, int R, int Din, int Dout, int scale_f32,
-                             void* stream) {
-  return vl2_mm::dispatch(vl2_mm::make_params(x, w, s, y, R, Din, Dout),
-                          scale_f32, static_cast<cudaStream_t>(stream));
+                             int splits, void* stream) {
+  return vl2_sk::matmul<true>(x, w, s, y, R, Din, Dout, scale_f32, splits,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K7: vl2_ffn_q8's two launches over G/U layer li's [D/2, F] packs folded

@@ -1,5 +1,6 @@
 // Hopper's asynchronous units as K10 (encoder_attention_pairs.cu), K2
-// (flash_attention.cu) and K9 (flash_attention_dkv.cu) drive them:
+// (flash_attention.cu), K8 (flash_attention_bwd.cu) and K9
+// (flash_attention_dkv.cu) drive them:
 // mbarriers, TMA tile loads and the host's tensor maps for them, named
 // barriers and register reallocation between warpgroups, and warpgroup MMA
 // (wgmma) with shared-memory descriptors. sm_90a only.
@@ -365,7 +366,14 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                      int lanes, int rows, int heads,
                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  // the driver encodes against the calling thread's current context: a
+  // thread that has made no runtime call yet (PyTorch's autograd worker,
+  // which runs the backward kernels) may have none, so make the runtime's
+  // context for the current device current first
+  int device;
+  if (encode == nullptr || cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),

@@ -1,8 +1,8 @@
 // Split-K core of the weight-only decode matmuls: y[R, Dout] = (x[R, Din] @
 // bf16(W)) * scale in fp32, cast to bf16, optionally with two weights (gate,
 // up) and the SwiGLU epilogue, over int8 packs or folded int4 packs. K4,
-// matmul_q8 and K5 (decode_matmul.cu) and K7 (decode_matmul_q4.cu) run on
-// it; K6 still runs on decode_matmul.cuh.
+// matmul_q8 and K5 (decode_matmul.cu) and K6 and K7 (decode_matmul_q4.cu)
+// run on it.
 //
 // Made for a weight stream at the card's memory rate (decode: R = 16 rows,
 // ~2 FLOPs a weight a row):

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "vl2_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
     "vl2_matmul_q8": [_P] * 4 + [_I] * 5 + [_P],
     "vl2_ffn_q8": [_P] * 9 + [_I] * 6 + [_P],
-    "vl2_matmul_q4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vl2_matmul_q4": [_P] * 4 + [_I] * 5 + [_P],
     "vl2_ffn_q4": [_P] * 9 + [_I] * 6 + [_P],
 }
 

@@ -3,12 +3,12 @@
 CUDA kernels (built by `ops/_build.py`): `csrc/decode_matmul.cu`, which
 replaces videollama2_tpu/ops/decode_matmul.py::matmul_q8_layered (K4) and
 ::ffn_q8_layered (K5), and `csrc/decode_matmul_q4.cu`, which replaces
-::matmul_q4_layered (K6) and ::ffn_q4_layered (K7). K4, K5 and K7 run on
-the split-K core `csrc/splitk_matmul.cuh` (over int8 packs, or folded int4
-ones for K7), whose split plan `split_plan` computes here; K6 runs on
-`csrc/decode_matmul.cuh`. The sources' headers say what bounds them on
-the H100 and how their design answers. The plain versions below are the
-same functions in PyTorch; the wrappers run them only for CPU tensors.
+::matmul_q4_layered (K6) and ::ffn_q4_layered (K7). All four run on the
+split-K core `csrc/splitk_matmul.cuh` (over int8 packs, or folded int4
+ones for K6 and K7), whose split plan `split_plan` computes here. The
+sources' headers say what bounds them on the H100 and how their design
+answers. The plain versions below are the same functions in PyTorch; the
+wrappers run them only for CPU tensors.
 
 Packs (ops/quant): int8 q [L, Din, Dout] or folded int4 q4 [L, Din/2,
 Dout], scale [L, 1, Dout] (fp32, or the engine dtype after the Engine's
@@ -27,10 +27,6 @@ from . import _build
 from .quant import unpack_int4
 
 MAX_ROWS = 64    # the kernels loop over at most four 16-row tiles
-# K6 (csrc/decode_matmul.cuh): the reduction depth must be a multiple of
-# kBK, the output width of kBN
-Q4_BLOCK_IN = 256
-Q4_BLOCK_OUT = 32
 # The split-K core (csrc/splitk_matmul.cuh): 128-column tiles, chunks of
 # 256 weight rows (256 int8 rows or 128 folded int4 byte rows), and as
 # many splits of each tile's chunks as bring the blocks nearest to
@@ -164,26 +160,22 @@ def _on_cuda(name: str, x: torch.Tensor) -> None:
 def launch_matmul(name: str, bits: int, x: torch.Tensor, q: torch.Tensor,
                   scale: torch.Tensor, layer: int,
                   y: torch.Tensor = None) -> torch.Tensor:
-    """Checks the arguments and launches K4 (bits 8, one launch of the
-    split-K core) or K6 (bits 4) once on layer `layer`, into y (or a new
-    [R, Dout] tensor); counts nothing."""
+    """Checks the arguments and launches K4 (bits 8) or K6 (bits 4, over
+    the folded pack) once on layer `layer`: one launch of the split-K
+    core's one-weight pass with its split plan, into y (or a new [R, Dout]
+    tensor); counts nothing. Widths the core does not tile raise
+    ValueError before the launch."""
     _on_cuda(name, x)
-    din, dout, f32 = _check_pack("q4" if bits == 4 else "q", q, scale,
-                                 x.device, layer, folded=bits == 4)
+    folded = bits == 4
+    din, dout, f32 = _check_pack("q4" if folded else "q", q, scale,
+                                 x.device, layer, folded=folded)
     _check_x(x, din)
-    if bits == 8:
-        plan = (split_plan(x.shape[0], din, dout).splits,)
-    elif din % Q4_BLOCK_IN or dout % Q4_BLOCK_OUT:
-        raise ValueError(f"{name}: Din % {Q4_BLOCK_IN} and Dout % "
-                         f"{Q4_BLOCK_OUT} must be 0, got Din {din}, "
-                         f"Dout {dout}")
-    else:
-        plan = ()
+    splits = split_plan(x.shape[0], din, dout, folded).splits
     if y is None:
         y = torch.empty((x.shape[0], dout), dtype=x.dtype, device=x.device)
     err = getattr(_build.library(), f"vl2_matmul_q{bits}")(
         x.data_ptr(), q[layer].data_ptr(), scale[layer].data_ptr(),
-        y.data_ptr(), x.shape[0], din, dout, f32, *plan,
+        y.data_ptr(), x.shape[0], din, dout, f32, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     return y

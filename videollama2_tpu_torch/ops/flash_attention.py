@@ -3,9 +3,9 @@
 CUDA kernels: `csrc/flash_attention.cu` (K2, the forward, optionally with
 its per-row log-sum-exp), `csrc/flash_attention_bwd.cu` (K8: dq and delta)
 and `csrc/flash_attention_dkv.cu` (K9: dk/dv), built by `ops/_build.py`.
-K2 and K9 load their tiles by TMA, so q/k/v must pass
-`_build.check_operand` (every stride and the base a multiple of 16 bytes),
-which is what TMA takes. They replace the Pallas kernels of
+All three load their tiles by TMA, so q/k/v (and the contiguous o and do
+of the backward) must pass `_build.check_operand` (every stride and the
+base a multiple of 16 bytes), which is what TMA takes. They replace the Pallas kernels of
 videollama2_tpu/ops/flash_attention.py: `flash_attention` (with
 `return_lse`) and the two kernels of `flash_attention_bwd`; `FlashAttention`
 is the port of its `flash_attention_vjp`. The sources' headers say what
@@ -162,12 +162,15 @@ def _on_cuda(name: str, q: torch.Tensor) -> None:
 
 
 def _check_rows(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-    """o / do: bf16 [B, Sq, Hq, D] on device, made contiguous."""
+    """o / do: bf16 [B, Sq, Hq, D] on device, made contiguous, with a base
+    TMA and the kernels' 16-byte loads take."""
     if t.device != device or t.dtype != torch.bfloat16 \
             or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be bf16 {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.contiguous()
+    t = t.contiguous()
+    _build.check_operand(name, t, device)
+    return t
 
 
 def _check_rowstat(name: str, t: torch.Tensor, shape, device) -> None:
