@@ -34,9 +34,11 @@ is non-zero; without a CUDA device it exits non-zero before printing
 anything on stdout.
 """
 
+import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -44,6 +46,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
+import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -76,6 +80,13 @@ NEW_TOKENS = 32
 BUCKET = 1664
 QWEN2_BUCKET = 1408
 DECODE_CHECK_STEPS = 3
+# the api phase: a checkpoint in the released VideoLLaMA2-7B-16F key layout
+# (every key at its released shape, bf16) with the LLM cut to its first
+# API_LLM_LAYERS layers of 32, loaded through model_init
+MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "manifests", "videollama2_7b_16f.json")
+API_LLM_LAYERS = 8
+API_BATCH = 16
 
 
 def log(msg: str) -> None:
@@ -524,6 +535,18 @@ def compare_logits(name, fast, plain) -> None:
     log(f"[{name}] kernels vs plain: max abs diff {diff.max().item():.4f} "
         f"(bound 0.4 std), mean abs diff {diff.mean().item():.4f} (bound "
         f"0.05 std), logit std {std:.4f}, argmax agreement {agree:.2f}")
+    # a row whose argmax differs is a near-tie when the plain path's top-2
+    # margin is below that row's largest logit difference (logged only)
+    rows_f = fast.reshape(-1, fast.shape[-1])
+    rows_p = plain.reshape(-1, plain.shape[-1])
+    top2 = rows_p.topk(2, dim=-1).values
+    for r in torch.nonzero(rows_f.argmax(-1) != rows_p.argmax(-1))[:, 0]:
+        r = int(r)
+        margin = (top2[r, 0] - top2[r, 1]).item()
+        row_diff = (rows_f[r] - rows_p[r]).abs().max().item()
+        log(f"[{name}] argmax differs on row {r}: plain top-2 margin "
+            f"{margin:.4f}, row max abs diff {row_diff:.4f}, near-tie "
+            f"{margin < row_diff}")
     if not (diff.max().item() <= 0.4 * std
             and diff.mean().item() <= 0.05 * std):
         raise RuntimeError(f"{name}: kernel path logits differ from the "
@@ -958,6 +981,197 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
     return res
 
 
+class ToyTokenizer:
+    """A word-level tokenizer with what the port's mm_infer calls: a word
+    is split on whitespace and hashed to an id in [3, vocab_size), id i
+    decodes to "w<i>", the chat template is Mistral's, and eos_token_id is
+    -1 (bench.py's), so every request decodes all its tokens."""
+    eos_token_id = -1
+    pad_token = unk_token = "<unk>"
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text, add_special_tokens=False):
+        ids = [3 + zlib.crc32(w.encode()) % (self.vocab_size - 3)
+               for w in text.split()]
+        return types.SimpleNamespace(
+            input_ids=([1] if add_special_tokens else []) + ids)
+
+    def apply_chat_template(self, messages, tokenize=False,
+                            add_generation_prompt=True):
+        out = "<s>"
+        for m in messages:
+            if m["role"] == "system":
+                out += m["content"]
+            elif m["role"] == "user":
+                out += f"[INST] {m['content']} [/INST]"
+            else:
+                out += m["content"] + "</s>"
+        return out
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{i}" for i in ids
+                        if not (skip_special_tokens and i < 3))
+
+
+def write_safetensors(path, shapes, make) -> None:
+    """A bf16 safetensors file of `shapes` ({name: shape}), each tensor
+    made by make(name, shape) and written as it is made: an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, then
+    the raw little-endian bytes in the header's order."""
+    header, offset = {}, 0
+    for name, shape in shapes.items():
+        n = 2 * math.prod(shape)
+        header[name] = {"dtype": "BF16", "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for name, shape in shapes.items():
+            t = make(name, shape).reshape(-1).view(torch.uint8)
+            f.write(t.cpu().numpy())
+
+
+def api_init(name, shape, gen) -> torch.Tensor:
+    """A released key's seeded bf16 value on the card, with
+    utils/synthetic.py's scales: biases 0, norm scales (the 1-D weights)
+    1, the connector's convolutions He-normal and its readout
+    1/sqrt(fan_in), every other weight normal(0, 0.02)."""
+    if name.endswith(".bias"):
+        return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    if len(shape) == 1 and name.endswith(".weight"):
+        return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    std = 0.02
+    if name.startswith("model.mm_projector."):
+        fan_in = math.prod(shape[1:])  # torch layout [out, in, *k]
+        std = math.sqrt((1.0 if ".readout." in name else 2.0) / fan_in)
+    return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
+                       device="cuda").mul_(std)
+
+
+def run_api_phase(counters, attn, k1, k2, k3, dk):
+    """The public API on a released-layout checkpoint: writes it (LLM depth
+    API_LLM_LAYERS, everything else as released) into a temporary
+    directory, loads it with model_init(load_8bit=True, kv_bits=8), answers
+    one 16-frame I420 clip through mm_infer and API_BATCH questions about
+    one shared clip through mm_infer_batch (twice: the answers must agree),
+    each with exact launch counts of every kernel, then holds the first-
+    token and decode logits of the loaded model against the plain paths.
+    Returns the phase's numbers and the launch counts of each call."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        model_config_to_hf
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.inference import api
+
+    base = cfglib.preset("videollama2_mistral").replace(num_frames=16)
+    cfg = base.replace(llm=dataclasses.replace(base.llm,
+                                               num_layers=API_LLM_LAYERS))
+    with open(MANIFEST) as f:
+        manifest = json.load(f)
+    shapes = {k: s for k, s in manifest.items()
+              if not re.match(r"model\.layers\.(\d+)\.", k)
+              or int(k.split(".")[2]) < API_LLM_LAYERS}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(model_config_to_hf(cfg), f)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        write_safetensors(os.path.join(ckpt, "model.safetensors"), shapes,
+                          lambda n, s: api_init(n, s, gen))
+        out["checkpoint_gb"] = os.path.getsize(
+            os.path.join(ckpt, "model.safetensors")) / 1e9
+        log(f"[api] wrote {len(shapes)} of {len(manifest)} released keys "
+            f"(LLM layers 0-{API_LLM_LAYERS - 1} of 32), "
+            f"{n_params / 1e9:.3f} B params, {out['checkpoint_gb']:.2f} GB "
+            f"bf16 safetensors in {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, processor, tok = api.model_init(
+            ckpt, load_8bit=True, kv_bits=8, max_len=1792, buckets=(BUCKET,),
+            tokenizer=ToyTokenizer(cfg.llm.vocab_size))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[api] model_init(load_8bit=True, kv_bits=8): {out['load_s']:.2f} s "
+        f"(read + map + quantize + move, the file in the page cache), peak "
+        f"device memory {out['load_peak_gb']:.2f} GB")
+    if dataclasses.asdict(model.config) != dataclasses.asdict(cfg):
+        raise RuntimeError(f"api: loaded config {model.config} != {cfg}")
+    eng = model.engine
+    if not all("kernel_q8" in eng.params["llm"]["layers"][n]
+               for n in ("qkv", "o", "gate", "up", "down")) \
+            or "kernel_q8" not in eng.params["vision"]["layers"]["qkv"] \
+            or eng.kv_bits != 8:
+        raise RuntimeError("api: load_8bit did not give int8 packs")
+
+    H = cfg.vision.image_size
+    rng = np.random.default_rng(2)
+    clips = rng.integers(0, 256, (2, cfg.num_frames, H + H // 2, H),
+                         dtype=np.uint8)
+    steps, L = NEW_TOKENS - 1, cfg.llm.num_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(encoder_attention=vit_layers(cfg), flash_attention=L,
+                decode_attention=steps * L, matmul_q8_layered=2 * steps * L,
+                ffn_q8_layered=steps * L)
+    questions = [f"question {i} : what happens in the video" + " then" * i
+                 + " ?" for i in range(API_BATCH)]
+    counts = {}
+
+    def call(label, fn):
+        for c in counters.values():
+            c.launches = 0
+        stamps = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answer = fn(lambda b, toks: stamps.setdefault(len(toks),
+                                                      time.perf_counter()))
+        t_end = time.perf_counter()
+        counts[label] = {n: c.launches for n, c in counters.items()}
+        log(f"[api] {label}: launches {counts[label]} (want {want})")
+        if counts[label] != want:
+            raise RuntimeError(f"api {label}: kernel launch counts "
+                               f"{counts[label]} != {want}")
+        answers = answer if isinstance(answer, list) else [answer]
+        if not all(isinstance(a, str) and a for a in answers):
+            raise RuntimeError(f"api {label}: answers {answers!r}")
+        t_first = min(stamps.values())
+        res = {"first_token_s": t_first - t0,
+               "decode_ms_per_token": (t_end - t_first) / steps * 1e3,
+               "call_s": t_end - t0}
+        log(f"[api] {label}: first token {res['first_token_s']:.3f} s, "
+            f"decode {res['decode_ms_per_token']:.2f} ms/token; answer 0: "
+            f"{answers[0][:60]!r}...")
+        return answers, res
+
+    _, out["mm_infer"] = call("mm_infer", lambda cb: api.mm_infer(
+        clips[0], questions[0], model, tok, max_new_tokens=NEW_TOKENS,
+        stream_cb=cb))
+    batch = []
+    for run in range(2):
+        answers, out[f"mm_infer_batch run {run + 1}"] = call(
+            f"mm_infer_batch run {run + 1}", lambda cb: api.mm_infer_batch(
+                clips[0], questions, model, tok, max_new_tokens=NEW_TOKENS,
+                stream_cb=cb))
+        batch.append(answers)
+    if batch[0] != batch[1] or len(batch[0]) != API_BATCH:
+        raise RuntimeError("api: the two mm_infer_batch runs differ")
+    prompt = api.build_prompt_ids(questions[0], cfg, tok, "video")
+    check_against_plain(eng, cfg, clips, prompt, BUCKET, attn, k1, k2)
+    check_decode_against_plain(eng, cfg, clips, prompt, BUCKET, k3, dk, 8)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[api] peak device memory {out['peak_gb']:.2f} GB")
+    return out, counts
+
+
 def vit_layers(cfg) -> int:
     """Encoder layers the tower runs (select_layer -2: all but the last)."""
     return cfg.vision.select_layer % (cfg.vision.num_layers + 1)
@@ -1174,6 +1388,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     log(json.dumps({"stages": stages}))
+
+    # -- the public API on a released-layout checkpoint ----------------------
+    api_stage, api_counts = run_api_phase(counters, attn, k1, k2, k3, dk)
+    slice_counts.update({f"api {n}": c for n, c in api_counts.items()})
+    log(json.dumps({"api": api_stage}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     # -- the stage-1 training slice at full width ----------------------------
     cfg = cfglib.preset("videollama2_mistral").replace(num_frames=8)

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host modules (core/config.py,
-constants.py, media/wire.py) against the originals: every preset and tiny
-config field by field, the derived token counts, the token constants and
-the I420 pack/unpack on a seeded frame."""
+constants.py, media/wire.py, multimodal/tokenizer.py) against the
+originals: every preset and tiny config field by field, the derived token
+counts, the token constants, the I420 pack/unpack on a seeded frame, and
+the modal-token splitters and model-name helper on a seeded word-level
+tokenizer."""
 
 import dataclasses
 
@@ -11,9 +13,11 @@ import pytest
 from videollama2_tpu import constants as jconst
 from videollama2_tpu.core import config as jcfg
 from videollama2_tpu.media import wire as jwire
+from videollama2_tpu.multimodal import tokenizer as jtok
 from videollama2_tpu_torch import constants as tconst
 from videollama2_tpu_torch.core import config as tcfg
 from videollama2_tpu_torch.media import wire as twire
+from videollama2_tpu_torch.multimodal import tokenizer as ttok
 
 PRESETS = sorted(jcfg._PRESETS)
 
@@ -71,7 +75,8 @@ def test_connector_token_counts():
 
 def test_constants():
     for name in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "VIDEO_TOKEN_INDEX",
-                 "AUDIO_TOKEN_INDEX", "MODAL_INDEX_MAP"):
+                 "AUDIO_TOKEN_INDEX", "MODAL_INDEX_MAP", "DEFAULT_IMAGE_TOKEN",
+                 "DEFAULT_VIDEO_TOKEN", "DEFAULT_AUDIO_TOKEN"):
         assert getattr(tconst, name) == getattr(jconst, name), name
 
 
@@ -84,3 +89,56 @@ def test_wire_pack_and_unpack():
     np.testing.assert_array_equal(packed, jwire.rgb_to_i420(rgb))
     np.testing.assert_array_equal(twire.i420_to_rgb(packed),
                                   jwire.i420_to_rgb(packed))
+
+
+class _Encoded:
+    def __init__(self, ids):
+        self.input_ids = ids
+
+
+class WordTokenizer:
+    """A word-level tokenizer over a seeded vocabulary (whitespace split,
+    unknown words to id 0), with the call signature the splitters use."""
+
+    def __init__(self, words):
+        self.vocab = {w: i + 3 for i, w in enumerate(words)}
+
+    def __call__(self, text, add_special_tokens=True):
+        ids = [self.vocab.get(w, 0) for w in text.split()]
+        return _Encoded(([1] if add_special_tokens else []) + ids)
+
+
+def _seeded_prompts(seed):
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(40)]
+    tags = ["<video>", "<image>", "<audio>"]
+    prompts = []
+    for _ in range(12):
+        parts = rng.choice(words + tags, size=rng.integers(0, 14))
+        prompts.append(" ".join(parts) + rng.choice(["", " ", "<video>"]))
+    return WordTokenizer(words), prompts + ["", "<video>", "<video><audio>"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tokenizer_splitters(seed):
+    tok, prompts = _seeded_prompts(seed)
+    for prompt in prompts:
+        for tag in ("<video>", "<image>", "<audio>", "", "<none>"):
+            assert (ttok.tokenizer_multimodal_token(prompt, tok, tag)
+                    == jtok.tokenizer_multimodal_token(prompt, tok, tag))
+        np.testing.assert_array_equal(
+            ttok.tokenizer_multimodal_token(prompt, tok, "<video>", "np"),
+            jtok.tokenizer_multimodal_token(prompt, tok, "<video>", "np"))
+        for tags in (("<video>", "<audio>"), ("<image>",), ("<audio>",)):
+            assert (ttok.tokenizer_multimodal_tokens(prompt, tok, tags)
+                    == jtok.tokenizer_multimodal_tokens(prompt, tok, tags))
+    with pytest.raises(ValueError):
+        ttok.tokenizer_multimodal_token("a", tok, "<video>", "pt")
+
+
+def test_model_name_from_path():
+    for path in ("/ckpts/VideoLLaMA2-7B-16F", "VideoLLaMA2-7B-16F/",
+                 "runs/vl2/checkpoint-1200", "/a/b/checkpoint-5/",
+                 "model"):
+        assert (ttok.get_model_name_from_path(path)
+                == jtok.get_model_name_from_path(path))

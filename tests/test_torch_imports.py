@@ -13,7 +13,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "videollama2_tpu_torch"
 REFERENCE = ROOT / "videollama2_tpu"
-FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "PIL")
+# the GPU host has neither PIL, transformers, safetensors nor tokenizers
+FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "PIL", "safetensors",
+             "tokenizers")
 
 
 def _walk(node, skip_functions: bool):
@@ -94,6 +96,9 @@ def test_port_reaches_no_jax():
     for mod in ("quant", "decode_attention", "decode_matmul", "quant_matmul",
                 "encoder_attention"):
         assert PORT / "ops" / f"{mod}.py" in closure
+    for path in ("inference/api.py", "checkpoint/convert_hf.py",
+                 "multimodal/tokenizer.py"):
+        assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"
                  for p, mods in closure.items() for m in mods
@@ -107,6 +112,8 @@ def test_port_reaches_no_jax():
     ("from videollama2_tpu.core import config", False),
     ("import torch", False),
     ("from videollama2_tpu_torch.core import config", False),
+    ("from safetensors import safe_open", True),
+    ("from tokenizers import Tokenizer", True),
 ])
 def test_scanner_sees_jax_imports(tmp_path, src, expect_bad):
     f = tmp_path / "m.py"

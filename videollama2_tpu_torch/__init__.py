@@ -5,8 +5,21 @@ training path on an NVIDIA H100 (sm_90a): plain PyTorch for tensor code,
 hand-written CUDA kernels (csrc/) where the JAX package has Pallas kernels.
 The JAX package stays the reference; this package imports nothing of it
 and keeps its own copies of the host modules it needs (core.config,
-constants, media.wire). Entry points: inference.engine.Engine and
+constants, media.wire, multimodal.tokenizer). Entry points: the public API
+`model_init(model_path, tokenizer=...) -> (model, processor, tokenizer)`,
+`mm_infer` and `mm_infer_batch` (inference.api, on a released checkpoint
+directory through checkpoint.convert_hf), inference.engine.Engine and
 train.trainer.Trainer.
 """
 
 __version__ = "0.1.0"
+
+
+def model_init(*args, **kwargs):
+    from .inference.api import model_init as _mi
+    return _mi(*args, **kwargs)
+
+
+def mm_infer(*args, **kwargs):
+    from .inference.api import mm_infer as _mm
+    return _mm(*args, **kwargs)

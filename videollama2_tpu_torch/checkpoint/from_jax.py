@@ -1,4 +1,4 @@
-"""Turn a JAX package param tree (as numpy arrays) into the port's params.
+"""Turn a JAX-layout param tree into the port's params.
 
 The JAX tree is a plain dict with layers stacked on a leading L axis and
 kernels stored [in, out]; the port keeps that layout, so the bridge only
@@ -12,7 +12,9 @@ output-axis concatenation fuses them unchanged; an int8 embedding
 ("weight_q8", quantize_llm_params(include_embed=True)) is taken as it is.
 The tower is CLIP's or SigLIP's, as `cfg.vision` says. It raises if a JAX
 leaf is left unused or a port parameter is left unfilled, so both packages
-compute the same function.
+compute the same function. Leaves may be numpy arrays (a JAX tree) or torch
+tensors in any dtype (checkpoint/convert_hf's tree of a released bf16
+checkpoint), which are taken as they are, without a numpy round trip.
 """
 
 from __future__ import annotations
@@ -49,11 +51,18 @@ def _pack_bits(tree: dict, part: str):
     return None
 
 
+def _tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.array(leaf))  # a writable copy
+
+
 def params_from_jax(jax_params: dict, cfg) -> dict:
-    """jax_params: {"llm", "vision", "connector"} tree of numpy (or
-    array-like) leaves. Returns the port's tree as CPU tensors (the Engine
-    moves and casts them)."""
-    src = {p: np.asarray(a) for p, a in _flatten(jax_params)}
+    """jax_params: {"llm", "vision", "connector"} tree of torch tensors or
+    numpy (or array-like) leaves. Returns the port's tree as contiguous
+    tensors on the leaves' device, in their dtype (the Engine moves and
+    casts them)."""
+    src = {p: _tensor(a) for p, a in _flatten(jax_params)}
     consumed = set()
 
     def take(path):
@@ -70,16 +79,16 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
     for path, shape in _flatten(shapes):
         if "qkv" in path and path not in src:
             i = path.index("qkv")
-            arr = np.concatenate(
+            arr = torch.cat(
                 [take(path[:i] + (n,) + path[i + 1:])
                  for n in ("q", "k", "v")],
-                axis=-1)
+                dim=-1)
         else:
             arr = take(path)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{'.'.join(path)}: JAX shape {arr.shape}, "
                              f"port expects {shape}")
-        _set(out, path, torch.from_numpy(np.array(arr)))  # writable copy
+        _set(out, path, arr.contiguous())
     unused = sorted(".".join(p) for p in set(src) - consumed)
     if unused:
         raise ValueError(f"JAX leaves not consumed by the port: {unused}")

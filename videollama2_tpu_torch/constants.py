@@ -9,8 +9,13 @@ equal.
 IGNORE_INDEX = -100
 
 IMAGE_TOKEN_INDEX = -200
+DEFAULT_IMAGE_TOKEN = "<image>"
+
 VIDEO_TOKEN_INDEX = -201
+DEFAULT_VIDEO_TOKEN = "<video>"
+
 AUDIO_TOKEN_INDEX = -202
+DEFAULT_AUDIO_TOKEN = "<audio>"
 
 MODAL_INDEX_MAP = {
     "<image>": IMAGE_TOKEN_INDEX,

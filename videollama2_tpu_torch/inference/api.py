@@ -1,0 +1,293 @@
+"""Public inference API: model_init / mm_infer / mm_infer_batch (port of
+videollama2_tpu/inference/api.py).
+
+The same call signatures, prompt construction (including the Llama2-style
+<<SYS>> system prompt of the mistral/mixtral model types), modal-token
+tokenization, generation defaults and decode as the JAX package, on the
+port's Engine. Two differences, both because the port imports no
+tokenizer or image library:
+
+* `model_init` takes the caller's tokenizer object (`tokenizer=`, e.g.
+  `transformers.AutoTokenizer.from_pretrained(model_path)`); any object
+  with `__call__(text, add_special_tokens=False).input_ids`,
+  `apply_chat_template`, `decode` and `eos_token_id` will do.
+* The processors' image and video entries raise NotImplementedError: they
+  need PIL or the native media reader. `mm_infer` takes frames already
+  decoded: float32 (normalized), uint8 RGB or planar I420 uint8.
+
+Chat sessions and the audio and AV modals raise NotImplementedError until
+their port (ROADMAP queue 1 items 5 and 12).
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from ..checkpoint import convert_hf
+from ..checkpoint.from_jax import params_from_jax
+from ..constants import (DEFAULT_AUDIO_TOKEN, DEFAULT_IMAGE_TOKEN,
+                         DEFAULT_VIDEO_TOKEN)
+from ..core import config as cfglib
+from ..core.config import ModelConfig
+from ..multimodal.tokenizer import (tokenizer_multimodal_token,
+                                    tokenizer_multimodal_tokens)
+from ..ops import quant
+from ..utils.synthetic import synthetic_params
+from .engine import Engine, GenerationConfig, check_device
+
+MISTRAL_SYSTEM = (
+    """<<SYS>>\nYou are a helpful, respectful and honest assistant. Always answer as helpfully as possible, while being safe.  Your answers should not include any harmful, unethical, racist, sexist, toxic, dangerous, or illegal content. Please ensure that your responses are socially unbiased and positive in nature."""
+    """\n"""
+    """If a question does not make any sense, or is not factually coherent, explain why instead of answering something not correct. If you don't know the answer to a question, please don't share false information.\n<</SYS>>""")
+
+_AUDIO = "audio and AV prompts are not ported yet (ROADMAP queue 1 item 12)"
+_SESSIONS = ("chat sessions are not ported yet: they wait for Engine "
+             "sessions (ROADMAP queue 1 item 5)")
+
+
+@dataclass
+class VideoLLaMA2:
+    """Loaded model handle (stands in for the HF nn.Module the reference
+    returns from model_init)."""
+    config: ModelConfig
+    engine: Engine
+
+    @property
+    def model_type(self) -> str:
+        return self.config.model_type
+
+
+def _media_not_ported(*args, **kwargs):
+    raise NotImplementedError("media decoding is not ported yet")
+
+
+# the processor entries of model_init: decoding images and videos needs
+# PIL or the native reader, which the port does not have yet
+PROCESSOR = {"image": _media_not_ported, "video": _media_not_ported}
+
+
+def _quantize_on_device(params: dict, device, bits: int,
+                        vision: bool) -> None:
+    """The JAX model_init's load_8bit / load_4bit packs, made on `device`:
+    the LLM's projections as int8 (bits 8) or folded int4 (bits 4) packs
+    with an int8 head, and with `vision` the tower's linears as int8 packs.
+    Each layer moves to the device and is widened to fp32 before it is
+    quantized, as the JAX package quantizes the fp32 tree its loader makes,
+    so the packs are the JAX package's bit for bit."""
+    def prepare(t):
+        return t.to(device=device, dtype=torch.float32)
+    llm = params["llm"]
+    quant.quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS, bits,
+                            prepare)
+    quant.quantize_in_place(llm, ("lm_head",), 8, prepare)
+    if vision:
+        quant.quantize_in_place(params["vision"]["layers"],
+                                quant.VISION_PROJECTIONS, 8, prepare)
+
+
+def model_init(model_path: Optional[str] = None, dtype=None,
+               max_len: int = 4096, model_base: Optional[str] = None,
+               vision_tower_path: Optional[str] = None,
+               load_8bit: bool = False, load_4bit: bool = False,
+               wire: str = "rgb", tokenizer=None, device="cuda", **kwargs):
+    """Load a checkpoint directory; returns (model, processor, tokenizer).
+
+    As the JAX model_init (reference videollama2/__init__.py:14-29 and
+    load_pretrained_model's pretrain-adapter and full paths through
+    model_base), plus `tokenizer`, the caller's tokenizer object (returned
+    as the third element; its pad token falls back to its unk token), and
+    `device` ("cuda" by default; "cpu" runs the plain versions of the
+    kernels). load_8bit quantizes the LLM (int8 head included) and the
+    tower to int8 packs, load_4bit the LLM to folded int4 packs with an
+    int8 head, both on `device`. The other keyword arguments go to the
+    Engine (kv_bits, buckets, decode_chunk). wire ("rgb" or "i420") is
+    validated as in the JAX package; mm_infer takes both frame formats.
+    """
+    if dtype is None:
+        dtype = torch.bfloat16
+    if wire not in ("rgb", "i420"):  # fail before loading anything
+        raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
+    if model_path is None:
+        raise ValueError("model_path is required (no network access)")
+    if tokenizer is None:
+        raise ValueError("model_init needs the caller's tokenizer object "
+                         "(tokenizer=..., e.g. transformers.AutoTokenizer."
+                         "from_pretrained(model_path)): the port imports "
+                         "no tokenizer library")
+    device = check_device(device)
+    if getattr(tokenizer, "pad_token", "") is None \
+            and getattr(tokenizer, "unk_token", None) is not None:
+        tokenizer.pad_token = tokenizer.unk_token
+    if model_path.startswith("synthetic://"):
+        model = _model_init_synthetic(model_path, dtype, max_len, device,
+                                      **kwargs)
+        return model, dict(PROCESSOR), tokenizer
+
+    cfg, tree = convert_hf.load_videollama2(
+        model_path, model_base=model_base,
+        vision_tower_path=vision_tower_path)
+    params = params_from_jax(tree, cfg)
+    del tree
+    if load_8bit or load_4bit:
+        _quantize_on_device(params, device, bits=8 if load_8bit else 4,
+                            vision=load_8bit)
+    engine = Engine(cfg, params, dtype=dtype, max_len=max_len,
+                    device=device, **kwargs)
+    return VideoLLaMA2(config=cfg, engine=engine), dict(PROCESSOR), tokenizer
+
+
+def _model_init_synthetic(model_path: str, dtype, max_len: int, device,
+                          **kwargs) -> VideoLLaMA2:
+    """model_path = 'synthetic://<preset or tiny>?bits=8&kv_bits=8
+    &max_len=512&num_frames=16': the preset-scale model with seeded random
+    weights made on the device (utils/synthetic; bits 8 or 4 quantize the
+    LLM and the tower as bench.py does, bits 0 keeps them floating).
+    Throughput numbers are real, answers are not."""
+    u = urlparse(model_path)
+    q = {k: v[0] for k, v in parse_qs(u.query).items()}
+    cfg = (cfglib.tiny_model() if u.netloc == "tiny"
+           else cfglib.preset(u.netloc))
+    if "num_frames" in q:
+        cfg = cfg.replace(num_frames=int(q["num_frames"]))
+    bits = int(q.get("bits", "8"))
+    kv_bits = int(q.get("kv_bits", kwargs.pop("kv_bits", 16)))
+    max_len = int(q.get("max_len", max_len))
+    params = synthetic_params(cfg, dtype=dtype, device=device, seed=0,
+                              llm_bits=bits or None)
+    engine = Engine(cfg, params, dtype=dtype, max_len=max_len,
+                    kv_bits=kv_bits, device=device, **kwargs)
+    return VideoLLaMA2(config=cfg, engine=engine)
+
+
+def build_prompt_ids(instruct, cfg, tokenizer, modal: str = "video"):
+    """Chat-template + multimodal-tokenize one request -> input id list
+    (reference videollama2/__init__.py:72-98: modal tag prepend, the
+    Llama2-style <<SYS>> system prompt for the mistral/mixtral families).
+    """
+    if modal == "image":
+        modal_token = DEFAULT_IMAGE_TOKEN
+    elif modal == "video":
+        modal_token = DEFAULT_VIDEO_TOKEN
+    elif modal == "audio":
+        modal_token = DEFAULT_AUDIO_TOKEN
+    elif modal == "av":
+        # joint AV: the video tag and the audio tag of the SAME clip
+        modal_token = DEFAULT_VIDEO_TOKEN + DEFAULT_AUDIO_TOKEN
+    elif modal == "text":
+        modal_token = ""
+    else:
+        raise ValueError(f"Unsupported modal: {modal}")
+
+    if isinstance(instruct, str):
+        message = [{"role": "user", "content": modal_token + "\n" + instruct}]
+    elif isinstance(instruct, list):
+        message = copy.deepcopy(instruct)
+        message[0]["content"] = modal_token + "\n" + message[0]["content"]
+    else:
+        raise ValueError(f"Unsupported type of instruct: {type(instruct)}")
+
+    if cfg.model_type in ("videollama2", "videollama2_mistral",
+                          "videollama2_mixtral"):
+        message = [{"role": "system", "content": MISTRAL_SYSTEM}] + message
+
+    prompt = tokenizer.apply_chat_template(message, tokenize=False,
+                                           add_generation_prompt=True)
+    if modal == "av":
+        return tokenizer_multimodal_tokens(
+            prompt, tokenizer, (DEFAULT_VIDEO_TOKEN, DEFAULT_AUDIO_TOKEN))
+    return tokenizer_multimodal_token(prompt, tokenizer, modal_token)
+
+
+def _frames(image_or_video, cfg, modal: str) -> np.ndarray:
+    """[1, T, ...] frames for the Engine: uint8 (RGB or I420) rides
+    through, anything else becomes float32; an image is repeated to
+    num_frames frames (videollama2_arch.py:119-120)."""
+    arr = np.asarray(image_or_video)
+    if arr.dtype != np.uint8:  # uint8 is normalized on the device
+        arr = arr.astype(np.float32)
+    if modal == "image":
+        arr = np.broadcast_to(arr[:1], (cfg.num_frames,) + arr.shape[1:])
+    return arr[None]
+
+
+def _generation(kwargs, speculative_k: int = 0) -> GenerationConfig:
+    do_sample = kwargs.get("do_sample", False)
+    return GenerationConfig(
+        do_sample=do_sample,
+        temperature=kwargs.get("temperature", 0.2 if do_sample else 0.0),
+        top_p=kwargs.get("top_p", 0.9),
+        max_new_tokens=kwargs.get("max_new_tokens", 2048),
+        seed=kwargs.get("seed", 0),
+        speculative_k=speculative_k)
+
+
+def mm_infer(image_or_video, instruct, model: VideoLLaMA2, tokenizer,
+             modal: str = "video", **kwargs) -> str:
+    """Single-sample multimodal inference (reference
+    videollama2/__init__.py:32-114).
+
+    image_or_video: [T, H, W, 3] numpy, float32 (normalized on the host)
+    or uint8 (resized raw RGB, normalized on the device), or planar I420
+    [T, H*3/2, W] uint8; None for modal "text".
+    """
+    if modal in ("audio", "av"):
+        raise NotImplementedError(_AUDIO)
+    cfg = model.config
+    frames = None if modal == "text" else _frames(image_or_video, cfg, modal)
+    input_ids = build_prompt_ids(instruct, cfg, tokenizer, modal)
+    outs = model.engine.generate(
+        [input_ids], frames=frames,
+        gen=_generation(kwargs, kwargs.get("speculative_k", 0)),
+        eos_token_id=tokenizer.eos_token_id, image_mode=(modal == "image"),
+        stream_cb=kwargs.get("stream_cb"))
+    return tokenizer.decode(outs[0], skip_special_tokens=True).strip()
+
+
+def mm_infer_batch(image_or_video, instructs, model: VideoLLaMA2, tokenizer,
+                   modal: str = "video", **kwargs) -> list:
+    """Batched variant of mm_infer: one media tensor, many prompts.
+
+    The media is encoded ONCE and its tokens broadcast across the batch
+    (Engine share_media), e.g. several questions about one video decode
+    together at the cost of one encode. A `stream_cb(b, tokens)` keyword
+    goes to Engine.generate, as in mm_infer.
+    """
+    if modal not in ("image", "video"):
+        raise ValueError(f"Unsupported modal for batch: {modal}")
+    cfg = model.config
+    frames = _frames(image_or_video, cfg, modal)
+    batch_ids = [build_prompt_ids(instruct, cfg, tokenizer, modal)
+                 for instruct in instructs]
+    outs = model.engine.generate(batch_ids, frames=frames,
+                                 gen=_generation(kwargs),
+                                 eos_token_id=tokenizer.eos_token_id,
+                                 share_media=True, image_mode=False,
+                                 stream_cb=kwargs.get("stream_cb"))
+    return [tokenizer.decode(o, skip_special_tokens=True).strip()
+            for o in outs]
+
+
+class ChatSession:
+    """Multi-turn chat with a prefix-cached KV (JAX inference/api.py);
+    waits for Engine sessions."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(_SESSIONS)
+
+
+class SessionStore:
+    """Server-side ChatSession registry (JAX inference/api.py); waits for
+    Engine sessions."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(_SESSIONS)
+
+
+def mm_infer_session(*args, **kwargs):
+    raise NotImplementedError(_SESSIONS)

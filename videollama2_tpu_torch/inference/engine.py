@@ -47,6 +47,17 @@ class GenerationConfig:
     speculative_k: int = 0
 
 
+def check_device(device) -> torch.device:
+    """torch.device(device); raises when it is a CUDA device and none is
+    available (the port never falls back to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("Engine: no CUDA device is available; pass "
+                           "device='cpu' to run the plain versions on "
+                           "the CPU")
+    return device
+
+
 def _prepare(tree, dtype, device):
     """Move every leaf to `device`, casting floating leaves to `dtype`
     (pack scales included, as the JAX Engine does; int8 and int4 weight
@@ -83,11 +94,7 @@ class Engine:
         self.max_len = max_len
         self.buckets = tuple(b for b in buckets if b <= max_len)
         self.decode_chunk = decode_chunk
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Engine: no CUDA device is available; pass "
-                               "device='cpu' to run the plain versions on "
-                               "the CPU")
+        self.device = check_device(device)
         params = _prepare(params, dtype, self.device)
         if "llm" in params:
             params = dict(params, llm=quant_lib.fuse_qkv(params["llm"]))

@@ -2,11 +2,12 @@
 
 Mistral/Llama/Qwen2-style dense decoders with GQA, RoPE in the rotate-half
 layout and RMSNorm; floating, int8-packed or folded-int4-packed weights; a
-bf16 or int8 KV cache. MoE, tied embeddings and the verify step raise
-NotImplementedError until their port.
+bf16 or int8 KV cache. MoE and the verify step raise NotImplementedError
+until their port.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
-  embed.weight [V, D]   final_norm.scale [D]   lm_head.kernel [D, V]
+  embed.weight [V, D]   final_norm.scale [D]
+  lm_head.kernel [D, V] (absent with tied embeddings: the head is embed.T)
   layers: attn_norm.scale/mlp_norm.scale [L, D]
           qkv.kernel [L, D, (H + 2 Hkv) hd] (+ .bias for Qwen2)
           o.kernel [L, H hd, D]; gate/up.kernel [L, D, F]; down.kernel [L, F, D]
@@ -62,8 +63,6 @@ class KVCache:
 def _check_supported(cfg: LLMConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError("MoE decoders are not ported yet")
-    if cfg.tie_word_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet")
 
 
 def init_cache(cfg: LLMConfig, batch: int, max_len: int,
@@ -137,7 +136,7 @@ def param_shapes(cfg: LLMConfig, bits: Optional[int] = None,
     if cfg.qkv_bias:
         qkv["bias"] = (L, (H + 2 * K) * hd)
     V = cfg.vocab_size
-    return {
+    shapes = {
         "embed": ({"weight_q8": {"q": (V, D), "scale": (V, 1)}}
                   if int8_embed else {"weight": (V, D)}),
         "layers": {
@@ -150,8 +149,10 @@ def param_shapes(cfg: LLMConfig, bits: Optional[int] = None,
             "down": kernel_shapes((L, F_, D), bits),
         },
         "final_norm": {"scale": (D,)},
-        "lm_head": kernel_shapes((D, cfg.vocab_size), bits and 8),
     }
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = kernel_shapes((D, V), bits and 8)
+    return shapes
 
 
 def embed_tokens(params: dict, token_ids: torch.Tensor,
@@ -177,11 +178,22 @@ def lm_logits(params: dict, cfg: LLMConfig, hidden: torch.Tensor,
     """Vocabulary logits in fp32. A floating head multiplies the hidden
     dtype's values with fp32 accumulation and no rounding of the result;
     an int8 head goes through dense (w8a8 selects its branch) and its
-    output in the hidden dtype is widened, as in the JAX head."""
-    head = params["lm_head"]
-    if "kernel_q8" in head:
-        return dense(hidden, head, w8a8).float()
-    return torch.matmul(hidden.float(), head["kernel"].to(hidden.dtype).float())
+    output in the hidden dtype is widened, as in the JAX head. With tied
+    embeddings the head is the embedding's transpose (an int8 embedding
+    dequantized in fp32 first) on the floating branch."""
+    if cfg.tie_word_embeddings:
+        emb = params["embed"]
+        if "weight_q8" in emb:
+            pack = emb["weight_q8"]
+            kernel = (pack["q"].float() * pack["scale"].float()).T
+        else:
+            kernel = emb["weight"].T
+    else:
+        head = params["lm_head"]
+        if "kernel_q8" in head:
+            return dense(hidden, head, w8a8).float()
+        kernel = head["kernel"]
+    return torch.matmul(hidden.float(), kernel.to(hidden.dtype).float())
 
 
 def _split_qkv(cfg: LLMConfig, qkv: torch.Tensor):

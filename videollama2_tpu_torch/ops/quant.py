@@ -121,6 +121,35 @@ def quantize_kernel(w: torch.Tensor, bits: int) -> dict:
     raise ValueError(f"weight bits must be 8 or 4, got {bits}")
 
 
+def quantize_in_place(entries: dict, names, bits: int,
+                      prepare=None) -> None:
+    """Replace entries[name]["kernel"] by its int8 or folded int4 pack
+    (quantize_kernel's), a kernel stacked on a leading layer axis layer by
+    layer (bit-identical to quantizing the whole stack: the amax runs over
+    each layer's input axis), dropping each floating kernel once it is
+    packed, so only one layer's temporaries are alive at a time. Each
+    kernel, or layer of one, goes through `prepare` first (a move to the
+    device, a cast), and its pack is made where that puts it."""
+    prepare = prepare or (lambda t: t)
+    for name in names:
+        if "kernel" not in entries.get(name, {}):
+            continue
+        w = entries[name].pop("kernel")
+        if w.dim() == 2:
+            entries[name].update(quantize_kernel(prepare(w), bits))
+            continue
+        pack_name, pack = None, {}
+        for i in range(w.shape[0]):
+            (pack_name, layer), = quantize_kernel(prepare(w[i]),
+                                                  bits).items()
+            for k, t in layer.items():
+                if i == 0:
+                    pack[k] = t.new_empty((w.shape[0],) + tuple(t.shape))
+                pack[k][i] = t
+        del w
+        entries[name][pack_name] = pack
+
+
 def _quantize_entries(layers: dict, names, bits: int) -> dict:
     out = dict(layers)
     for name in names:

@@ -54,31 +54,6 @@ def _build(spec: dict, path, dtype, device, generator) -> dict:
     return out
 
 
-def _quantize_in_place(entries: dict, names, bits: int) -> None:
-    """Replace entries[name]["kernel"] by its int8 or folded int4 pack, a
-    stacked kernel layer by layer (bit-identical to quantizing the whole
-    stack: the amax runs over each layer's input axis), dropping each
-    floating kernel once it is packed, so only one layer's temporaries are
-    alive at a time."""
-    for name in names:
-        if "kernel" not in entries.get(name, {}):
-            continue
-        w = entries[name].pop("kernel")
-        if w.dim() == 2:
-            entries[name].update(quant.quantize_kernel(w, bits))
-            continue
-        shapes = quant.kernel_shapes(tuple(w.shape), bits)
-        (pack_name, spec), = shapes.items()
-        pack = {k: torch.empty(shape, dtype=torch.float32 if k == "scale"
-                               else torch.int8, device=w.device)
-                for k, shape in spec.items()}
-        for i in range(w.shape[0]):
-            for k, t in quant.quantize_kernel(w[i], bits)[pack_name].items():
-                pack[k][i] = t
-        del w
-        entries[name][pack_name] = pack
-
-
 def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
                      seed: int = 0, llm_bits: Optional[int] = None,
                      quantize_embed: bool = False) -> dict:
@@ -97,10 +72,11 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
                     generator)
     llm = params["llm"]
     if llm_bits is not None:
-        _quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS, llm_bits)
-        _quantize_in_place(llm, ("lm_head",), 8)
-        _quantize_in_place(params["vision"]["layers"],
-                           quant.VISION_PROJECTIONS, 8)
+        quant.quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS,
+                                llm_bits)
+        quant.quantize_in_place(llm, ("lm_head",), 8)
+        quant.quantize_in_place(params["vision"]["layers"],
+                                quant.VISION_PROJECTIONS, 8)
     if quantize_embed:
         llm["embed"] = quant.quantize_embed(llm["embed"])
     return params
