@@ -16,7 +16,14 @@ heads on 4 kv heads): bf16, and bench.py's BENCH_MODEL=qwen2 serving tree
 (int8 layers, head, tower and embedding, int8 KV cache). It checks that
 each run went through its kernels, the exact launch counts, and the
 first-token (bf16) and decode (int8, int4) logits against the plain
-versions. Last, the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
+versions. On the int8 and 2.1 bf16 slices' weights the "speculative +
+sessions" phase runs greedy prompt-lookup speculation (k = 4; B = 1 and
+B = 16) against plain greedy and a session's two continued turns
+against fresh generates, each call with exact launch counts and every
+token difference held to a near-tie. The "api" phase loads a checkpoint
+in the released 7B-16F layout (LLM cut to 8 layers) through model_init
+and answers through mm_infer, mm_infer_batch, a 3-turn ChatSession and
+mm_infer_session. Last, the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
 only the connector trains) runs two optimizer steps of 16 videos
 (grad_accum 2 x 8) at seq 2048 through Trainer.train, twice, with the
 flash-attention LSE forward (K2) and backward kernels (K8, K9), and one
@@ -87,6 +94,23 @@ MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "manifests", "videollama2_7b_16f.json")
 API_LLM_LAYERS = 8
 API_BATCH = 16
+# the "speculative + sessions" phase: prompt-lookup speculation at k = 4
+# (B = 1 over SPEC_NEW_TOKENS tokens; B = 16, 64 verify rows, over
+# NEW_TOKENS), a session of two continued turns that feed
+# SESSION_TURN_TOKENS text tokens each and decode SESSION_NEW_TOKENS, and
+# the api model's chat entries at CHAT_NEW_TOKENS a reply (three turns fit
+# its cache of 128 rows after the bucket)
+SPEC_K = 4
+SPEC_NEW_TOKENS = 64
+SPEC_ROOM = 512        # cache rows after the bucket; 256 of them a bucket
+SESSION_TURN_TOKENS = 30
+SESSION_NEW_TOKENS = 16
+CHAT_NEW_TOKENS = 8
+# the serving slices the phase runs on: the int8 one (W8A8 verify, the int8
+# cache) and the 2.1 bf16 one (a bf16 cache, 7 query heads a kv head, the
+# qkv bias)
+SPEC_SLICES = {"int8 slice": dict(batched=True, session=True),
+               "2.1 bf16 slice": dict(batched=False, session=False)}
 
 
 def log(msg: str) -> None:
@@ -982,19 +1006,26 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
 
 
 class ToyTokenizer:
-    """A word-level tokenizer with what the port's mm_infer calls: a word
-    is split on whitespace and hashed to an id in [3, vocab_size), id i
-    decodes to "w<i>", the chat template is Mistral's, and eos_token_id is
-    -1 (bench.py's), so every request decodes all its tokens."""
+    """A word-level tokenizer with what the port's mm_infer calls: text is
+    split on whitespace, id i decodes to "w<i>" and "w<i>" encodes back to
+    i (so a reply retokenizes to its own ids, as a chat session's prefix
+    match needs), any other word is hashed to an id in [3, vocab_size);
+    the chat template is Mistral's, and eos_token_id is -1 (bench.py's),
+    so every request decodes all its tokens."""
     eos_token_id = -1
     pad_token = unk_token = "<unk>"
 
     def __init__(self, vocab_size: int):
         self.vocab_size = vocab_size
 
+    def _id(self, word: str) -> int:
+        m = re.fullmatch(r"w(\d+)", word)
+        if m and 3 <= int(m.group(1)) < self.vocab_size:
+            return int(m.group(1))
+        return 3 + zlib.crc32(word.encode()) % (self.vocab_size - 3)
+
     def __call__(self, text, add_special_tokens=False):
-        ids = [3 + zlib.crc32(w.encode()) % (self.vocab_size - 3)
-               for w in text.split()]
+        ids = [self._id(w) for w in text.split()]
         return types.SimpleNamespace(
             input_ids=([1] if add_special_tokens else []) + ids)
 
@@ -1007,7 +1038,7 @@ class ToyTokenizer:
             elif m["role"] == "user":
                 out += f"[INST] {m['content']} [/INST]"
             else:
-                out += m["content"] + "</s>"
+                out += f" {m['content']} </s>"
         return out
 
     def decode(self, ids, skip_special_tokens=True):
@@ -1058,8 +1089,9 @@ def run_api_phase(counters, attn, k1, k2, k3, dk):
     API_LLM_LAYERS, everything else as released) into a temporary
     directory, loads it with model_init(load_8bit=True, kv_bits=8), answers
     one 16-frame I420 clip through mm_infer and API_BATCH questions about
-    one shared clip through mm_infer_batch (twice: the answers must agree),
-    each with exact launch counts of every kernel, then holds the first-
+    one shared clip through mm_infer_batch (twice: the answers must agree)
+    and chats through ChatSession and mm_infer_session (run_chat), each
+    call with exact launch counts of every kernel, then holds the first-
     token and decode logits of the loaded model against the plain paths.
     Returns the phase's numbers and the launch counts of each call."""
     from videollama2_tpu_torch.checkpoint.convert_hf import \
@@ -1117,39 +1149,18 @@ def run_api_phase(counters, attn, k1, k2, k3, dk):
     rng = np.random.default_rng(2)
     clips = rng.integers(0, 256, (2, cfg.num_frames, H + H // 2, H),
                          dtype=np.uint8)
-    steps, L = NEW_TOKENS - 1, cfg.llm.num_layers
-    want = dict.fromkeys(counters, 0)
-    want.update(encoder_attention=vit_layers(cfg), flash_attention=L,
-                decode_attention=steps * L, matmul_q8_layered=2 * steps * L,
-                ffn_q8_layered=steps * L)
+    want = phase_launches(counters, cfg, 1, True, NEW_TOKENS - 1, True)
     questions = [f"question {i} : what happens in the video" + " then" * i
                  + " ?" for i in range(API_BATCH)]
     counts = {}
 
     def call(label, fn):
-        for c in counters.values():
-            c.launches = 0
-        stamps = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        answer = fn(lambda b, toks: stamps.setdefault(len(toks),
-                                                      time.perf_counter()))
-        t_end = time.perf_counter()
-        counts[label] = {n: c.launches for n, c in counters.items()}
-        log(f"[api] {label}: launches {counts[label]} (want {want})")
-        if counts[label] != want:
-            raise RuntimeError(f"api {label}: kernel launch counts "
-                               f"{counts[label]} != {want}")
+        answer, res, counts[label] = counted_call(f"api {label}", counters,
+                                                  want, fn)
         answers = answer if isinstance(answer, list) else [answer]
         if not all(isinstance(a, str) and a for a in answers):
             raise RuntimeError(f"api {label}: answers {answers!r}")
-        t_first = min(stamps.values())
-        res = {"first_token_s": t_first - t0,
-               "decode_ms_per_token": (t_end - t_first) / steps * 1e3,
-               "call_s": t_end - t0}
-        log(f"[api] {label}: first token {res['first_token_s']:.3f} s, "
-            f"decode {res['decode_ms_per_token']:.2f} ms/token; answer 0: "
-            f"{answers[0][:60]!r}...")
+        log(f"[api] {label}: answer 0: {answers[0][:60]!r}...")
         return answers, res
 
     _, out["mm_infer"] = call("mm_infer", lambda cb: api.mm_infer(
@@ -1164,11 +1175,403 @@ def run_api_phase(counters, attn, k1, k2, k3, dk):
         batch.append(answers)
     if batch[0] != batch[1] or len(batch[0]) != API_BATCH:
         raise RuntimeError("api: the two mm_infer_batch runs differ")
+    out["chat"], chat_counts = run_chat(model, tok, clips[0], counters)
+    counts.update(chat_counts)
     prompt = api.build_prompt_ids(questions[0], cfg, tok, "video")
     check_against_plain(eng, cfg, clips, prompt, BUCKET, attn, k1, k2)
     check_decode_against_plain(eng, cfg, clips, prompt, BUCKET, k3, dk, 8)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[api] peak device memory {out['peak_gb']:.2f} GB")
+    return out, counts
+
+
+class LogitTap:
+    """Within `with tap:`, records what the Engine takes its tokens from and
+    changes nothing: each select_token call's logits [B, V] (the first
+    token of a generate or of a continued turn, then each plain decode
+    step), each verify pass's per-row frontiers and logits [B, K, V], and
+    each verify round's accepted draft count."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.picks, self.verifies, self.accepted = [], [], []
+
+    def record(self) -> dict:
+        return {"picks": list(self.picks), "verifies": list(self.verifies)}
+
+    def __enter__(self):
+        from videollama2_tpu_torch.inference import sampling, speculative
+        from videollama2_tpu_torch.models import llm
+        self._saved = [(sampling, "select_token", sampling.select_token),
+                       (llm, "decode_verify", llm.decode_verify),
+                       (speculative, "accept_drafts",
+                        speculative.accept_drafts)]
+        select, verify, accept = (f for _, _, f in self._saved)
+
+        def select_token(generator, logits, *args):
+            self.picks.append(logits)
+            return select(generator, logits, *args)
+
+        def decode_verify(params, cfg, embeds, cache, valid_len, prompt_len,
+                          step0, w8a8=False):
+            logits, cache = verify(params, cfg, embeds, cache, valid_len,
+                                   prompt_len, step0, w8a8)
+            per_row = isinstance(step0, torch.Tensor) and step0.dim() == 1
+            self.verifies.append((step0.tolist() if per_row
+                                  else [int(step0)] * logits.shape[0],
+                                  logits))
+            return logits, cache
+
+        def accept_drafts(drafts, greedy):
+            emitted, accepted = accept(drafts, greedy)
+            self.accepted.append(accepted)
+            return emitted, accepted
+
+        sampling.select_token = select_token
+        llm.decode_verify = decode_verify
+        speculative.accept_drafts = accept_drafts
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+        self.reset()
+
+
+def logits_at(record, b, p, speculative) -> torch.Tensor:
+    """The logits behind token p of row b in a recorded run: a plain run
+    (or a continued turn) takes token p from select_token call p; a
+    speculative run takes its first token from select_token and token
+    p > 0 from the last verify pass whose slot p - 1 - frontier lies in
+    its block (slot j at frontier s predicts token s + 1 + j)."""
+    if not speculative or p == 0:
+        return record["picks"][p][b]
+    for fronts, logits in reversed(record["verifies"]):
+        j = p - 1 - fronts[b]
+        if 0 <= j < logits.shape[1]:
+            return logits[b, j]
+    raise RuntimeError(f"no verify pass produced token {p} of row {b}")
+
+
+def check_tokens(label, plain, other, plain_logits, other_logits,
+                 recompute=None) -> dict:
+    """Token streams of two paths over the same requests (plain: the
+    reference path; each *_logits(b, p) gives that path's logits behind
+    token p of row b). Logs the equal tokens. At each row's first
+    differing position p both paths have consumed the same prefix; there
+    the plain path's top-2 margin must be below the max abs difference
+    that the other path's arithmetic makes (a near-tie the paths' rounding
+    flips, ROADMAP §3), and each difference held must stay within
+    compare_logits' bound, 0.4 of the plain logits' std. Where both paths
+    share their arithmetic (bf16 weights, a continued turn against a fresh
+    one) that is the difference of the two logit rows. Where the other
+    path's verify passes take W8A8 over int8 packs against the weight-only
+    int8 decode kernels, `recompute` ({row: p} -> {mode: {row: logits}},
+    verify_logits) recomputes verify over the same prefix in weight-only
+    arithmetic and with the independent W8A8 reference (w8a8_reference):
+    the bound holds weight-only verify against the plain path and the
+    recorded W8A8 verify against the reference, and the margin is held
+    against the reference's difference from the plain path (the W8A8
+    effect, reference minus weight-only, is logged). Returns the numbers
+    and "ok"."""
+    equal = sum(x == y for pr, orow in zip(plain, other)
+                for x, y in zip(pr, orow))
+    total = sum(len(pr) for pr in plain)
+    log(f"[{label}] equal tokens {equal} of {total} "
+        f"({sum(pr == orow for pr, orow in zip(plain, other))} of "
+        f"{len(plain)} rows identical)")
+    if any(len(pr) != len(orow) for pr, orow in zip(plain, other)):
+        raise RuntimeError(f"{label}: rows of different lengths")
+    firsts = {b: next(i for i, (x, y) in enumerate(zip(pr, orow)) if x != y)
+              for b, (pr, orow) in enumerate(zip(plain, other)) if pr != orow}
+    recomputed = recompute(firsts) if recompute and firsts else None
+    ties, ok = [], True
+    for b, p in firsts.items():
+        lp = plain_logits(b, p).float()
+        lo = other_logits(b, p).float()
+        if int(lp.argmax()) != plain[b][p] or int(lo.argmax()) != other[b][p]:
+            raise RuntimeError(f"{label}: row {b} position {p}: the "
+                               "recorded logits do not give the tokens")
+        diff = (lp - lo).abs().max().item()
+        top2 = lp.topk(2).values
+        tie = {"row": b, "position": p, "max_abs_diff": diff,
+               "bound": 0.4 * lp.std().item(),
+               "plain_top2_margin": (top2[0] - top2[1]).item()}
+        held, flip = [diff], diff
+        if recomputed is not None:
+            lm = recomputed["weight_only"][b].float()
+            lr = recomputed["w8a8_reference"][b].float()
+            held = [(lm - lp).abs().max().item(), (lo - lr).abs().max().item()]
+            tie["weight_only_max_abs_diff"], \
+                tie["w8a8_vs_reference_max_abs_diff"] = held
+            flip = tie["reference_max_abs_diff"] = \
+                (lr - lp).abs().max().item()
+            tie["w8a8_effect_max_abs_diff"] = (lr - lm).abs().max().item()
+        tie["ok"] = (max(held) <= tie["bound"]
+                     and tie["plain_top2_margin"] < flip)
+        log(f"[{label}] row {b} first differs at token {p}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in tie.items()
+                        if isinstance(v, float)) + f", ok {tie['ok']}")
+        ok = ok and tie["ok"]
+        ties.append(tie)
+    return {"equal_tokens": equal, "tokens": total, "near_ties": ties,
+            "ok": ok}
+
+
+def w8a8_reference(x: torch.Tensor, pack: dict) -> torch.Tensor:
+    """W8A8 of an int8 pack emulated in fp32, independent of the port's
+    ops/layers code and of torch._int_mm: each row of x rounded to int8 on
+    its own absmax / 127, the product of the rounded rows and the int8
+    weights in fp32 (TF32 off; its integer partial sums stay below 2^24
+    at these widths, so it matches an int32 product), times the row scale
+    and the pack's column scale, cast to x's dtype."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    xq = torch.round(xf / xs).clamp(-127, 127)
+    y = torch.matmul(xq, pack["q"].float())
+    return (y * xs * pack["scale"][..., 0, :].float()).to(x.dtype)
+
+
+def verify_logits(eng, cfg, frames, prompt, bucket, tokens, firsts) -> dict:
+    """The verify path's logits behind token firsts[b] of row b, fed
+    tokens[b] teacher-forced, in two arithmetics: "weight_only" (w8a8
+    False, the weight-only int8 arithmetic of the decode kernels) and
+    "w8a8_reference" (w8a8 True with every packed dense through
+    w8a8_reference). The prompt is prefilled once into a fresh cache for
+    frames' B rows; each mode runs lockstep verify passes of up to SPEC_K
+    slots over every row's tokens on its own copy of that cache. Slot j at
+    step s predicts token s + 1 + j. Returns {mode: {row: logits}}."""
+    from videollama2_tpu_torch.models import llm as llm_lib
+    from videollama2_tpu_torch.models import videollama2 as vl2
+    from videollama2_tpu_torch.ops import layers
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
+    params = eng.params["llm"]
+    prefilled = llm_lib.init_cache(cfg.llm, frames.shape[0], eng.max_len,
+                                   eng.dtype, kv_bits=eng.kv_bits,
+                                   device=eng.device)
+    out = {}
+    with torch.inference_mode():
+        vl2.prefill_multimodal(eng.params, cfg, *args, prefilled, w8a8=True)
+        for mode in ("weight_only", "w8a8_reference"):
+            cache = dataclasses.replace(prefilled, **{
+                f.name: getattr(prefilled, f.name).clone()
+                for f in dataclasses.fields(prefilled)
+                if getattr(prefilled, f.name) is not None})
+            saved = layers.dense_w8a8
+            if mode == "w8a8_reference":
+                layers.dense_w8a8 = w8a8_reference
+            try:
+                out[mode] = {}
+                for s in range(0, max(firsts.values()), SPEC_K):
+                    n = min(SPEC_K, max(firsts.values()) - s)
+                    ids = torch.tensor([row[s:s + n] for row in tokens],
+                                       device=eng.device)
+                    logits, cache = llm_lib.decode_verify(
+                        params, cfg.llm,
+                        llm_lib.embed_tokens(params, ids, eng.dtype), cache,
+                        args[-1], bucket, s, w8a8=mode != "weight_only")
+                    for b, p in firsts.items():
+                        if 0 <= p - 1 - s < n:
+                            out[mode][b] = logits[b, p - 1 - s]
+            finally:
+                layers.dense_w8a8 = saved
+            del cache
+    return out
+
+
+def phase_launches(counters, cfg, B, prefill, decode_steps, packed):
+    """Launch counts of a call: the tower (K1) and the prefill (K2) when
+    it prefills B videos, and K3-K5 for each plain decode step of packed
+    int8 weights; 0 for every other kernel."""
+    L = cfg.llm.num_layers
+    want = dict.fromkeys(counters, 0)
+    if prefill:
+        want.update(encoder_attention=vit_layers(cfg)
+                    * (B * cfg.num_frames // 128 or 1),
+                    flash_attention=L)
+    if packed and decode_steps:
+        want.update(decode_attention=decode_steps * L,
+                    matmul_q8_layered=2 * decode_steps * L,
+                    ffn_q8_layered=decode_steps * L)
+    return want
+
+
+def counted_call(label, counters, want, fn, tap=None):
+    """fn(stream_cb) once with every launch counter at 0 (and the tap
+    cleared); raises unless the counts equal want. Returns (fn's result,
+    its numbers, the counts)."""
+    for c in counters.values():
+        c.launches = 0
+    if tap is not None:
+        tap.reset()
+    stamps = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(lambda b, toks: stamps.setdefault(len(toks),
+                                                  time.perf_counter()))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = {n: c.launches for n, c in counters.items()}
+    log(f"[{label}] launches {counts} (want {want})")
+    if counts != want:
+        raise RuntimeError(f"{label}: kernel launch counts {counts} != "
+                           f"{want}")
+    stats = {"call_s": t_end - t0}
+    if stamps:
+        t_first, n = min(stamps.values()), max(stamps)
+        stats.update(first_token_s=t_first - t0,
+                     ms_per_token=(t_end - t_first) / (n - 1) * 1e3)
+    if tap is not None and tap.verifies:
+        stats["verify_passes"] = len(tap.verifies)
+        if tap.accepted:
+            outs = result[0] if isinstance(result, tuple) else result
+            emitted = sum(len(o) - 1 for o in outs)
+            stats.update(tokens_per_pass=emitted / len(tap.verifies),
+                         accepted_drafts_mean=statistics.mean(tap.accepted))
+    log(f"[{label}] " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                  else f"{k} {v}" for k, v in stats.items()))
+    return result, stats, counts
+
+
+def run_speculation(name, base, cfg, frames, prompt, bucket, counters,
+                    batched: bool, session: bool):
+    """The "speculative + sessions" phase on a slice's weights, through an
+    Engine over base's params (no copy) with SPEC_ROOM rows after the
+    bucket and a second bucket for fresh prompts over a session's history.
+    B = 1 greedy speculation (k = SPEC_K, SPEC_NEW_TOKENS tokens) against
+    plain greedy; with `batched`, B = 16 against plain greedy over
+    NEW_TOKENS; with `session`, generate(return_session=True) and two
+    generate_continue turns, each against a fresh generate over the whole
+    history. Every call has exact launch counts (a speculative generate
+    whose budget suffices launches no decode kernel; a continued turn no
+    tower or prefill kernel); every comparison goes through check_tokens.
+    Returns the numbers and the launch counts of each call."""
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    packed = "kernel_q8" in base.params["llm"]["layers"]["qkv"]
+    eng = Engine(cfg, base.params, dtype=torch.bfloat16,
+                 max_len=bucket + SPEC_ROOM,
+                 buckets=(bucket, bucket + SPEC_ROOM // 2),
+                 decode_chunk=NEW_TOKENS, kv_bits=base.kv_bits,
+                 device="cuda")
+    out, counts = {}, {}
+    tap = LogitTap()
+
+    def call(label, B, prefill, decode_steps, fn):
+        res, out[label], counts[label] = counted_call(
+            f"{name} {label}", counters,
+            phase_launches(counters, cfg, B, prefill, decode_steps, packed),
+            fn, tap)
+        return res, tap.record()
+
+    def against_plain(B, n):
+        prompts, fr = [prompt] * B, frames[:B]
+        spec, spec_rec = call(
+            f"B{B} k{SPEC_K}", B, True, 0, lambda cb: eng.generate(
+                prompts, frames=fr, gen=GenerationConfig(
+                    max_new_tokens=n, speculative_k=SPEC_K),
+                eos_token_id=-1, stream_cb=cb))
+        plain, plain_rec = call(
+            f"B{B} plain", B, True, n - 1, lambda cb: eng.generate(
+                prompts, frames=fr, gen=GenerationConfig(max_new_tokens=n),
+                eos_token_id=-1, stream_cb=cb))
+        out[f"B{B} k{SPEC_K}"]["vs_plain"] = check_tokens(
+            f"{name} B{B} k{SPEC_K} vs plain", plain, spec,
+            lambda b, p: logits_at(plain_rec, b, p, False),
+            lambda b, p: logits_at(spec_rec, b, p, True),
+            (lambda firsts: verify_logits(eng, cfg, fr, prompt, bucket,
+                                          plain, firsts))
+            if packed else None)
+
+    gen = GenerationConfig(max_new_tokens=SESSION_NEW_TOKENS)
+    with tap, torch.inference_mode():
+        against_plain(1, SPEC_NEW_TOKENS)
+        if batched:
+            against_plain(frames.shape[0], NEW_TOKENS)
+        if session:
+            (_, sess), _ = call(
+                "session turn 1", 1, True, SESSION_NEW_TOKENS - 1,
+                lambda cb: eng.generate([prompt], frames=frames[:1], gen=gen,
+                                        eos_token_id=-1, stream_cb=cb,
+                                        return_session=True))
+            rng = np.random.default_rng(3)
+            for turn in (2, 3):
+                ids = [int(x) for x in rng.integers(10, 1000,
+                                                    SESSION_TURN_TOKENS)]
+                history = sess.token_history + ids
+                (cont, sess), cont_rec = call(
+                    f"session turn {turn}", 1, False, SESSION_NEW_TOKENS - 1,
+                    lambda cb: eng.generate_continue(
+                        sess, ids, gen=gen, eos_token_id=-1, stream_cb=cb))
+                fresh, fresh_rec = call(
+                    f"fresh turn {turn}", 1, True, SESSION_NEW_TOKENS - 1,
+                    lambda cb: eng.generate([history], frames=frames[:1],
+                                            gen=gen, eos_token_id=-1,
+                                            stream_cb=cb))
+                out[f"session turn {turn}"]["vs_fresh"] = check_tokens(
+                    f"{name} session turn {turn} vs fresh", fresh, cont,
+                    lambda b, p: logits_at(fresh_rec, b, p, False),
+                    lambda b, p: logits_at(cont_rec, b, p, False))
+                log(f"[{name}] turn {turn}: first token continued "
+                    f"{out[f'session turn {turn}']['first_token_s']:.4f} s "
+                    f"({SESSION_TURN_TOKENS + 1} tokens fed) against fresh "
+                    f"{out[f'fresh turn {turn}']['first_token_s']:.4f} s "
+                    f"({len(history)} prompt ids)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = [label for label, o in out.items()
+              if not o.get("vs_plain", o.get("vs_fresh", {})).get("ok", True)]
+    if failed:
+        raise RuntimeError(f"{name}: token differences beyond a near-tie "
+                           f"in {failed}")
+    return out, counts
+
+
+def run_chat(model, tok, clip, counters) -> tuple:
+    """The api model's chat entries: a 3-turn ChatSession (turns 2 and 3
+    from the cache: no tower or prefill launch) and two mm_infer_session
+    calls through one SessionStore (a miss, then a hit), each call with
+    exact launch counts. Returns the numbers and the counts."""
+    from videollama2_tpu_torch.inference import api
+    cfg = model.config
+    out, counts = {}, {}
+    steps = CHAT_NEW_TOKENS - 1
+
+    def call(label, cached, fn):
+        want = phase_launches(counters, cfg, 1, not cached, steps, True)
+        res, out[label], counts[label] = counted_call(
+            f"api {label}", counters, want, fn)
+        return res
+
+    questions = ["what happens in the video ?", "and after that ?",
+                 "why does it happen ?"]
+    chat = api.ChatSession(clip, model, tok, max_new_tokens=CHAT_NEW_TOKENS)
+    for turn, q in enumerate(questions, 1):
+        reply = call(f"ChatSession turn {turn}", turn > 1,
+                     lambda cb: chat.ask(q))
+        log(f"[api] ChatSession turn {turn}: {reply[:60]!r}...")
+    log(f"[api] ChatSession stats {chat.stats}")
+    if chat.stats["cached_turns"] < 2:
+        raise RuntimeError(f"api: ChatSession cached {chat.stats}")
+    out["chat_stats"] = dict(chat.stats)
+    store = api.SessionStore()
+    msgs = [{"role": "user", "content": questions[0]}]
+    for n, cached in ((1, False), (2, True)):
+        reply = call(f"mm_infer_session call {n}", cached,
+                     lambda cb: api.mm_infer_session(
+                         clip, [dict(m) for m in msgs], model, tok, store,
+                         max_new_tokens=CHAT_NEW_TOKENS, stream_cb=cb))
+        msgs += [{"role": "assistant", "content": reply},
+                 {"role": "user", "content": questions[1]}]
+    log(f"[api] SessionStore stats {store.stats}; first token continued "
+        f"{out['mm_infer_session call 2']['first_token_s']:.4f} s against "
+        f"fresh {out['mm_infer_session call 1']['first_token_s']:.4f} s")
+    if store.stats != {"hits": 1, "misses": 1}:
+        raise RuntimeError(f"api: SessionStore stats {store.stats}")
+    out["store_stats"] = dict(store.stats)
     return out, counts
 
 
@@ -1338,7 +1741,7 @@ def main() -> None:
     B = 16
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
     steps = NEW_TOKENS - 1
-    stages, slice_counts = {}, {}
+    stages, slice_counts, spec_stages = {}, {}, {}
     for slice_name, preset, bits, int8_embed in (
             ("bf16 slice", "videollama2_mistral", None, False),
             ("int8 slice", "videollama2_mistral", 8, False),
@@ -1380,6 +1783,13 @@ def main() -> None:
         else:
             check_decode_against_plain(eng, cfg, frames[:2], prompt, bucket,
                                        k3, dk, bits)
+        if slice_name in SPEC_SLICES:
+            # the "speculative + sessions" phase on this slice's weights
+            spec_stages[slice_name], counts = run_speculation(
+                slice_name, eng, cfg, frames, prompt, bucket, counters,
+                **SPEC_SLICES[slice_name])
+            slice_counts.update({f"{slice_name} {n}": c
+                                 for n, c in counts.items()})
         stages[slice_name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{slice_name}] peak device memory "
             f"{stages[slice_name]['peak_gb']:.1f} GB")
@@ -1388,6 +1798,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     log(json.dumps({"stages": stages}))
+    log(json.dumps({"speculative": spec_stages}))
 
     # -- the public API on a released-layout checkpoint ----------------------
     api_stage, api_counts = run_api_phase(counters, attn, k1, k2, k3, dk)

@@ -397,10 +397,6 @@ def test_api_surface_and_unported_parts(ckpt, port_loaded):
     with pytest.raises(NotImplementedError, match="item 12"):
         tapi.mm_infer(np.zeros((4, 8), np.float32), "hi", model, tok,
                       modal="audio")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapi.ChatSession(model, tok)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapi.mm_infer_session(None, "hi", model, tok)
     with pytest.raises(ValueError, match="Unsupported modal"):
         tapi.mm_infer_batch(None, ["hi"], model, tok, modal="text")
 

@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's host modules (core/config.py,
-constants.py, media/wire.py, multimodal/tokenizer.py) against the
-originals: every preset and tiny config field by field, the derived token
-counts, the token constants, the I420 pack/unpack on a seeded frame, and
-the modal-token splitters and model-name helper on a seeded word-level
-tokenizer."""
+constants.py, media/wire.py, multimodal/tokenizer.py,
+inference/speculative.py) against the originals: every preset and tiny
+config field by field, the derived token counts, the token constants, the
+I420 pack/unpack on a seeded frame, the modal-token splitters and
+model-name helper on a seeded word-level tokenizer, and the prompt-lookup
+drafts and greedy acceptance on seeded token streams."""
 
 import dataclasses
 
@@ -12,10 +13,12 @@ import pytest
 
 from videollama2_tpu import constants as jconst
 from videollama2_tpu.core import config as jcfg
+from videollama2_tpu.inference import speculative as jspec
 from videollama2_tpu.media import wire as jwire
 from videollama2_tpu.multimodal import tokenizer as jtok
 from videollama2_tpu_torch import constants as tconst
 from videollama2_tpu_torch.core import config as tcfg
+from videollama2_tpu_torch.inference import speculative as tspec
 from videollama2_tpu_torch.media import wire as twire
 from videollama2_tpu_torch.multimodal import tokenizer as ttok
 
@@ -142,3 +145,25 @@ def test_model_name_from_path():
                  "model"):
         assert (ttok.get_model_name_from_path(path)
                 == jtok.get_model_name_from_path(path))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_speculative_drafts_and_acceptance(seed):
+    """ngram_propose on seeded streams over a small alphabet (so n-grams
+    recur), at every k and n range the Engines use and a few more, and
+    accept_drafts on drafts that agree with the greedy ids for a seeded
+    stretch."""
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        ctx = [int(t) for t in rng.integers(0, 6, rng.integers(0, 30))]
+        for k in (0, 1, 3, 7):
+            for max_n, min_n in ((3, 1), (2, 1), (4, 2)):
+                assert (tspec.ngram_propose(ctx, k, max_n, min_n)
+                        == jspec.ngram_propose(ctx, k, max_n, min_n))
+        k = int(rng.integers(1, 6))
+        greedy = [int(t) for t in rng.integers(0, 6, k)]
+        drafts = greedy[:int(rng.integers(0, k))] + [int(t) for t in
+                                                     rng.integers(0, 6, k)]
+        drafts = drafts[:k - 1]
+        assert (tspec.accept_drafts(drafts, greedy)
+                == jspec.accept_drafts(drafts, greedy))

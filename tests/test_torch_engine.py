@@ -187,10 +187,10 @@ def test_unported_options_raise(tiny):
     cfg, _, tp = tiny
     eng = Engine(cfg, tp, dtype=torch.float32, max_len=128, buckets=(64,),
                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate([[1, 2]], gen=GenerationConfig(speculative_k=4))
-    with pytest.raises(NotImplementedError):
-        eng.generate([[1, 2]], return_session=True)
+    with pytest.raises(NotImplementedError, match="audio"):
+        eng.generate([[1, 2]], audio=np.zeros((1, 4, 128), np.float32))
+    with pytest.raises(NotImplementedError, match="grouped media"):
+        eng.generate([[1, 2]], frames=_videos(cfg, "rgb"), media_group=[0])
     with pytest.raises(ValueError):     # as the JAX Engine: 8 or 16 only
         Engine(cfg, tp, dtype=torch.float32, kv_bits=4, device="cpu")
     with pytest.raises(NotImplementedError):

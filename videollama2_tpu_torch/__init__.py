@@ -5,11 +5,13 @@ training path on an NVIDIA H100 (sm_90a): plain PyTorch for tensor code,
 hand-written CUDA kernels (csrc/) where the JAX package has Pallas kernels.
 The JAX package stays the reference; this package imports nothing of it
 and keeps its own copies of the host modules it needs (core.config,
-constants, media.wire, multimodal.tokenizer). Entry points: the public API
+constants, media.wire, multimodal.tokenizer, inference.speculative). Entry points: the public API
 `model_init(model_path, tokenizer=...) -> (model, processor, tokenizer)`,
 `mm_infer` and `mm_infer_batch` (inference.api, on a released checkpoint
-directory through checkpoint.convert_hf), inference.engine.Engine and
-train.trainer.Trainer.
+directory through checkpoint.convert_hf), the prefix-cached chat entries
+`ChatSession` and `mm_infer_session` (inference.api),
+inference.engine.Engine (with speculative decoding and
+`generate_continue`) and train.trainer.Trainer.
 """
 
 __version__ = "0.1.0"

@@ -15,13 +15,16 @@ tokenizer or image library:
   need PIL or the native media reader. `mm_infer` takes frames already
   decoded: float32 (normalized), uint8 RGB or planar I420 uint8.
 
-Chat sessions and the audio and AV modals raise NotImplementedError until
-their port (ROADMAP queue 1 items 5 and 12).
+`ChatSession`, `SessionStore` and `mm_infer_session` serve multi-turn chat
+from a prefix-cached KV (Engine.generate_continue). The audio and AV modals
+raise NotImplementedError until their port (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
+import threading
 from dataclasses import dataclass
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
@@ -47,8 +50,6 @@ MISTRAL_SYSTEM = (
     """If a question does not make any sense, or is not factually coherent, explain why instead of answering something not correct. If you don't know the answer to a question, please don't share false information.\n<</SYS>>""")
 
 _AUDIO = "audio and AV prompts are not ported yet (ROADMAP queue 1 item 12)"
-_SESSIONS = ("chat sessions are not ported yet: they wait for Engine "
-             "sessions (ROADMAP queue 1 item 5)")
 
 
 @dataclass
@@ -274,20 +275,142 @@ def mm_infer_batch(image_or_video, instructs, model: VideoLLaMA2, tokenizer,
 
 
 class ChatSession:
-    """Multi-turn chat with a prefix-cached KV (JAX inference/api.py);
-    waits for Engine sessions."""
+    """Multi-turn chat with a prefix-cached KV (JAX `ChatSession`).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SESSIONS)
+    Each turn renders the whole message history through the chat template
+    and tokenizes it (build_prompt_ids). When the ids consumed so far are a
+    strict prefix of the new render, only the new suffix feeds the engine
+    (Engine.generate_continue): the media is encoded once and the history
+    prefilled once for the whole conversation. A prefix mismatch or a full
+    cache falls back to a fresh generate, so the replies are always those
+    of per-turn mm_infer calls. `stats` counts both kinds of turn. Takes
+    the modals mm_infer takes, on frames already decoded.
+    """
+
+    def __init__(self, image_or_video, model: VideoLLaMA2, tokenizer,
+                 modal: str = "video", **gen_kwargs):
+        if modal in ("audio", "av"):
+            raise NotImplementedError(_AUDIO)
+        self.model = model
+        self.tokenizer = tokenizer
+        self.modal = modal
+        self.media = image_or_video
+        self.gen_kwargs = dict(gen_kwargs)
+        self.messages: list = []
+        self._session = None
+        self.stats = {"cached_turns": 0, "fresh_turns": 0}
+
+    def ask(self, text: str) -> str:
+        cfg = self.model.config
+        eng = self.model.engine
+        gen = _generation(self.gen_kwargs,
+                          self.gen_kwargs.get("speculative_k", 0))
+        eos = self.tokenizer.eos_token_id
+        self.messages.append({"role": "user", "content": text})
+        full_ids = build_prompt_ids(copy.deepcopy(self.messages), cfg,
+                                    self.tokenizer, self.modal)
+        sess = self._session
+        outs = None
+        if sess is not None and _extends(full_ids, sess.token_history):
+            try:
+                outs, self._session = eng.generate_continue(
+                    sess, full_ids[len(sess.token_history):], gen=gen,
+                    eos_token_id=eos)
+                self.stats["cached_turns"] += 1
+            except ValueError:  # the cache is full
+                outs = None
+        if outs is None:
+            frames = (None if self.modal == "text"
+                      else _frames(self.media, cfg, self.modal))
+            outs, self._session = eng.generate(
+                [full_ids], frames=frames, gen=gen, eos_token_id=eos,
+                image_mode=(self.modal == "image"), return_session=True)
+            self.stats["fresh_turns"] += 1
+        reply = self.tokenizer.decode(
+            outs[0], skip_special_tokens=True).strip()
+        self.messages.append({"role": "assistant", "content": reply})
+        return reply
+
+
+def _extends(full_ids, known) -> bool:
+    """Whether full_ids strictly extends the ids a session consumed."""
+    return len(full_ids) > len(known) and full_ids[:len(known)] == list(known)
 
 
 class SessionStore:
-    """Server-side ChatSession registry (JAX inference/api.py); waits for
-    Engine sessions."""
+    """Thread-safe LRU of engine Sessions keyed by a media digest and
+    matched by token prefix (JAX `SessionStore`): a stateless server's way
+    into prefix caching.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SESSIONS)
+    `take` finds a stored session over the same media whose consumed ids
+    are a strict prefix of the incoming render and removes it: its cache is
+    written in place by generate_continue, so a session serves one request
+    until the reply's session is `put` back. Each session holds a whole KV
+    cache on the device, so the default cap is small.
+    """
+
+    def __init__(self, cap: int = 2):
+        self.cap = cap
+        self._entries: list = []          # [(digest, Session)]
+        self._lock = threading.Lock()
+        self.stats = {"hits": 0, "misses": 0}
+
+    @staticmethod
+    def media_digest(media) -> Optional[str]:
+        """md5 of decoded frames' bytes and shape; None for text."""
+        if media is None:
+            return None
+        arr = np.ascontiguousarray(np.asarray(media))
+        return hashlib.md5(
+            arr.tobytes() + str(arr.shape).encode()).hexdigest()
+
+    def take(self, digest, full_ids):
+        with self._lock:
+            for i, (d, sess) in enumerate(self._entries):
+                if d == digest and _extends(full_ids, sess.token_history):
+                    self._entries.pop(i)
+                    self.stats["hits"] += 1
+                    return sess
+            self.stats["misses"] += 1
+            return None
+
+    def put(self, digest, session) -> None:
+        with self._lock:
+            self._entries.append((digest, session))
+            while len(self._entries) > self.cap:
+                self._entries.pop(0)
 
 
-def mm_infer_session(*args, **kwargs):
-    raise NotImplementedError(_SESSIONS)
+def mm_infer_session(image_or_video, instruct, model: VideoLLaMA2,
+                     tokenizer, store: SessionStore, modal: str = "video",
+                     **kwargs) -> str:
+    """mm_infer with prefix caching through a SessionStore (JAX
+    `mm_infer_session`): the reply is mm_infer's; when the rendered
+    prompt extends a stored session's ids over the same media, only the
+    new tokens feed the engine (Engine.generate_continue)."""
+    if modal in ("audio", "av"):
+        raise NotImplementedError(_AUDIO)
+    cfg = model.config
+    full_ids = build_prompt_ids(instruct, cfg, tokenizer, modal)
+    digest = store.media_digest(None if modal == "text" else image_or_video)
+    gen = _generation(kwargs, kwargs.get("speculative_k", 0))
+    eos = tokenizer.eos_token_id
+    stream_cb = kwargs.get("stream_cb")
+    sess = store.take(digest, full_ids)
+    outs = None
+    if sess is not None:
+        try:
+            outs, sess = model.engine.generate_continue(
+                sess, full_ids[len(sess.token_history):], gen=gen,
+                eos_token_id=eos, stream_cb=stream_cb)
+        except ValueError:  # the cache is full: a fresh generate
+            outs = None
+    if outs is None:
+        frames = (None if modal == "text"
+                  else _frames(image_or_video, cfg, modal))
+        outs, sess = model.engine.generate(
+            [full_ids], frames=frames, gen=gen, eos_token_id=eos,
+            image_mode=(modal == "image"), stream_cb=stream_cb,
+            return_session=True)
+    store.put(digest, sess)
+    return tokenizer.decode(outs[0], skip_special_tokens=True).strip()

@@ -10,9 +10,12 @@ streams. Every packed dense the engine reaches runs W8A8 or W4A8
 (ops/layers.dense), as the JAX Engine's programs do under its
 quant_inference and w8a8_prefill contexts; with int8 (or int4) packs on
 every LLM projection, decode runs on the layered int8 (or int4) kernels
-(models/llm._decode_step_q8). Speculative decoding,
-sessions, audio, grouped media and sharding raise NotImplementedError
-until their port.
+(models/llm._decode_step_q8). Greedy requests with speculative_k >= 2
+decode by prompt-lookup speculation (inference/speculative.py: K-slot
+verify passes, models/llm.decode_verify), token-identical to plain greedy;
+`generate(..., return_session=True)` and `generate_continue` keep a batch-1
+chat's cache for its next turn. Audio, grouped media and sharding raise
+NotImplementedError until their port.
 """
 
 from __future__ import annotations
@@ -30,9 +33,14 @@ from ..models import videollama2 as vl2
 from ..multimodal import splice as splice_lib
 from ..ops import quant as quant_lib
 from . import sampling
+from . import speculative as spec
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 DECODE_CHUNK = 32
+# the rows up to which a verify pass takes the W8A8/W4A8 branch of packed
+# weights: the JAX Engine verifies under quant_inference, whose dense takes
+# the serving branch for at most 64 rows and dequantizes above
+VERIFY_W8A8_ROWS = 64
 
 
 @dataclass
@@ -45,6 +53,23 @@ class GenerationConfig:
     max_new_tokens: int = 2048
     seed: int = 0
     speculative_k: int = 0
+
+
+@dataclass
+class Session:
+    """A batch-1 chat's state after a turn (JAX `Session`): the live KV
+    cache, so that the next turn feeds only its new tokens through verify
+    passes (Engine.generate_continue) instead of encoding the media and
+    prefilling the whole history again. RoPE positions go on across turns
+    (valid_len + steps_done), so a continued turn gives the tokens of a
+    fresh generate over the whole history. The cache is written in place:
+    a session that generate_continue took is used up (its cache is None)."""
+    cache: Optional[llm_lib.KVCache]
+    bucket: int
+    steps_done: int          # tokens embedded at cache rows [bucket, ...)
+    valid_len: np.ndarray    # [1] spliced prompt length of turn 1
+    last_token: int          # newest emitted token (its k/v not written)
+    token_history: list      # prompt ids (modal tags included) and after
 
 
 def check_device(device) -> torch.device:
@@ -148,17 +173,16 @@ class Engine:
         [B, T, H*3/2, W], as numpy or a device tensor (see upload_frames);
         with share_media, [1, ...] shared by every prompt; with image_mode,
         the first frame of each slot is encoded once and broadcast.
-        Returns the new token ids per sample, EOS included.
+        Returns the new token ids per sample, EOS included; with
+        return_session (batch 1 only), (ids, Session) for the next turn's
+        generate_continue.
         """
         if audio is not None:
             raise NotImplementedError("audio prompts are not ported yet")
         if media_group is not None:
             raise NotImplementedError("grouped media is not ported yet")
-        if return_session:
-            raise NotImplementedError("sessions are not ported yet")
-        if gen.speculative_k >= 2 and not gen.do_sample:
-            # as the JAX Engine, a sampled request ignores speculative_k
-            raise NotImplementedError("speculative decoding is not ported")
+        if return_session and len(batch_input_ids) != 1:
+            raise ValueError("sessions are batch-1 (multi-turn chat)")
         cfg = self.cfg
         eos = eos_token_id if eos_token_id is not None else cfg.llm.eos_token_id
         B = len(batch_input_ids)
@@ -221,20 +245,142 @@ class Engine:
         if stream_cb is not None:
             for b in range(B):
                 stream_cb(b, outs[b])
-        return self._decode_tail(outs, done_np, cache, valid_len, bucket,
-                                 first, generator, eos, gen, stop_fn,
-                                 stream_cb)
+        contexts = [[t for t in ids if t >= 0] for ids in batch_input_ids]
+        outs, cache = self._decode_tail(
+            outs, done_np, cache, valid_len, bucket, 0, first, generator,
+            eos, gen, stop_fn, stream_cb, contexts)
+        if return_session:
+            # token i of outs sits at row bucket + i and outs[-1] is not
+            # written yet, so exactly len(outs) - 1 rows belong to the
+            # sequence (a chunk or verify round that ends on EOS writes rows
+            # beyond, which are overwritten before any mask reaches them)
+            session = Session(
+                cache=cache, bucket=bucket, steps_done=len(outs[0]) - 1,
+                valid_len=plan.valid_len.copy(), last_token=outs[0][-1],
+                token_history=list(batch_input_ids[0]) + list(outs[0]))
+            return outs, session
+        return outs
 
-    def _decode_tail(self, outs, done_np, cache, valid_len, bucket, tokens,
-                     generator, eos, gen, stop_fn, stream_cb):
-        """Chunked decode after the first token. Generated tokens occupy
-        cache rows [bucket, max_len)."""
-        cfg = self.cfg
+    def _verify(self, tokens, cache, valid_len, bucket, step0):
+        """One verify pass over tokens [B, K] (JAX `_get_verify`) at
+        frontier step0 (an int, or a [B] tensor of per-row frontiers).
+        Returns each slot's greedy id [B, K], the last slot's logits
+        [B, V] (a continuation's first token) and the cache."""
+        ids = torch.as_tensor(np.asarray(tokens, dtype=np.int64),
+                              device=self.device)
+        B, K = ids.shape
+        te = llm_lib.embed_tokens(self.params["llm"], ids, self.dtype)
+        logits, cache = llm_lib.decode_verify(
+            self.params["llm"], self.cfg.llm, te, cache, valid_len, bucket,
+            step0, w8a8=B * K <= VERIFY_W8A8_ROWS)
+        return torch.argmax(logits, dim=-1), logits[:, -1], cache
+
+    @staticmethod
+    def _emit(outs, done_np, b, tokens, eos, stop_fn) -> None:
+        """Append row b's tokens up to EOS or stop_fn."""
+        for t in tokens:
+            outs[b].append(t)
+            if t == eos or (stop_fn is not None and stop_fn(outs[b])):
+                done_np[b] = True
+                break
+
+    def _decode_speculative(self, outs, done_np, cache, valid_len, bucket,
+                            eos, gen, stop_fn, stream_cb, context, step0=0):
+        """Greedy batch-1 speculative decode (JAX `_decode_speculative`):
+        k-slot verify rounds while k rows of cache remain. Returns (outs,
+        cache, steps_done, done_np); the caller's plain loop finishes any
+        tail of the cache budget."""
+        k = gen.speculative_k
+        budget = self.max_len - bucket
+        while (not done_np[0] and len(outs[0]) < gen.max_new_tokens
+               and step0 + k <= budget):
+            last = outs[0][-1]
+            drafts = spec.ngram_propose(context + outs[0], k - 1)
+            drafts += [last] * (k - 1 - len(drafts))  # padding: rejected
+            greedy, _, cache = self._verify([[last] + drafts], cache,
+                                            valid_len, bucket, step0)
+            emitted, accepted = spec.accept_drafts(drafts,
+                                                   greedy[0].tolist())
+            # never emit past max_new_tokens
+            emitted = emitted[:gen.max_new_tokens - len(outs[0])]
+            self._emit(outs, done_np, 0, emitted, eos, stop_fn)
+            if stream_cb is not None:
+                stream_cb(0, outs[0])
+            step0 += accepted + 1
+        return outs, cache, step0, done_np
+
+    def _decode_speculative_batched(self, outs, done_np, cache, valid_len,
+                                    bucket, eos, gen, stop_fn, stream_cb,
+                                    contexts, step0=0):
+        """Per-row speculative decode for B > 1 (JAX
+        `_decode_speculative_batched`). Each row drafts from its own
+        context and advances by its own acceptance count, so rows write
+        and attend at their own cache frontiers. Rows that are done or out
+        of room ride along re-verifying their last token with their
+        frontier frozen; what they write lies past their committed rows
+        and is never read. Runs to completion: k-slot rounds while some
+        live row has k rows of room, then 1-slot rounds for the budget
+        tail. Returns (outs, cache)."""
         B = len(outs)
+        budget = self.max_len - bucket
+        steps = np.full(B, step0, np.int64)
+
+        def live(b, room_rows):
+            return (not done_np[b] and len(outs[b]) < gen.max_new_tokens
+                    and steps[b] + room_rows <= budget)
+
+        for k_round in (gen.speculative_k, 1):
+            while any(live(b, k_round) for b in range(B)):
+                tokens, drafts_by_row = [], []
+                for b in range(B):
+                    last = outs[b][-1]
+                    drafts = []
+                    if live(b, k_round):
+                        drafts = spec.ngram_propose(contexts[b] + outs[b],
+                                                    k_round - 1)
+                    drafts += [last] * (k_round - 1 - len(drafts))
+                    drafts_by_row.append(drafts)
+                    tokens.append([last] + drafts)
+                greedy, _, cache = self._verify(
+                    tokens, cache, valid_len, bucket,
+                    torch.from_numpy(steps).to(self.device))
+                greedy = greedy.tolist()
+                for b in range(B):
+                    if not live(b, k_round):
+                        continue
+                    emitted, accepted = spec.accept_drafts(drafts_by_row[b],
+                                                           greedy[b])
+                    emitted = emitted[:gen.max_new_tokens - len(outs[b])]
+                    self._emit(outs, done_np, b, emitted, eos, stop_fn)
+                    if stream_cb is not None:
+                        stream_cb(b, outs[b])
+                    steps[b] += accepted + 1
+        return outs, cache
+
+    def _decode_tail(self, outs, done_np, cache, valid_len, bucket,
+                     steps_done, tokens, generator, eos, gen, stop_fn,
+                     stream_cb, contexts):
+        """Decode after the first token from step steps_done: speculation
+        when the request is greedy with speculative_k >= 2, then chunked
+        decode for what is left. Generated tokens occupy cache rows
+        [bucket, max_len). contexts: each row's prompt ids, the drafts'
+        source. Returns (outs, cache)."""
+        B = len(outs)
+        if gen.speculative_k >= 2 and not gen.do_sample:
+            if B > 1:
+                # per-row frontiers do not fit the lockstep loop below
+                return self._decode_speculative_batched(
+                    outs, done_np, cache, valid_len, bucket, eos, gen,
+                    stop_fn, stream_cb, contexts, steps_done)
+            outs, cache, steps_done, done_np = self._decode_speculative(
+                outs, done_np, cache, valid_len, bucket, eos, gen, stop_fn,
+                stream_cb, contexts[0], steps_done)
+            tokens = torch.tensor([outs[0][-1]], device=self.device)
+        cfg = self.cfg
         done = torch.from_numpy(done_np).to(self.device)
         budget = self.max_len - bucket
-        steps_done = 0
-        remaining = min(gen.max_new_tokens - len(outs[0]), budget)
+        remaining = min(gen.max_new_tokens - len(outs[0]),
+                        budget - steps_done)
         while remaining > 0 and not done_np.all():
             steps = min(self.decode_chunk, remaining)
             emitted = []
@@ -257,15 +403,79 @@ class Engine:
             for b in range(B):
                 if done_np[b]:
                     continue
-                for t in emitted_np[b]:
-                    outs[b].append(int(t))
-                    if int(t) == eos or (stop_fn is not None
-                                         and stop_fn(outs[b])):
-                        done_np[b] = True
-                        break
+                self._emit(outs, done_np, b, [int(t) for t in emitted_np[b]],
+                           eos, stop_fn)
                 if stream_cb is not None:
                     stream_cb(b, outs[b])
             remaining -= steps
             steps_done += steps
             done = done | torch.from_numpy(done_np).to(self.device)
-        return outs
+        return outs, cache
+
+    @torch.inference_mode()
+    def generate_continue(self, session: Session, new_ids: Sequence[int],
+                          gen: GenerationConfig = GenerationConfig(),
+                          eos_token_id: Optional[int] = None,
+                          stop_fn: Optional[Callable] = None,
+                          stream_cb: Optional[Callable] = None):
+        """Continue a Session with a new text-only turn (prefix caching;
+        JAX `generate_continue`).
+
+        Feeds [last_token] + new_ids through verify passes of up to
+        VERIFY_W8A8_ROWS slots into the session's cache (the media stays encoded, the
+        history prefilled), then decodes as generate does. The tokens are
+        those of a fresh generate over the whole history. Raises
+        ValueError when the turn and one more token do not fit the cache
+        (callers fall back to a fresh generate), when new_ids hold a modal
+        tag (media goes through generate) and when the session was used
+        up by an earlier call. Returns (new token ids, the next Session).
+        """
+        eos = (eos_token_id if eos_token_id is not None
+               else self.cfg.llm.eos_token_id)
+        if any(t < 0 for t in new_ids):
+            raise ValueError("continuation turns are text-only; re-send "
+                             "media via generate()")
+        if session.cache is None:
+            raise ValueError("this session was continued already; continue "
+                             "the Session that call returned")
+        feed = [session.last_token] + [int(t) for t in new_ids]
+        budget = self.max_len - session.bucket
+        if session.steps_done + len(feed) + 1 > budget:
+            raise ValueError("session cache exhausted: "
+                             f"{session.steps_done + len(feed)} generated+fed"
+                             f" tokens > budget {budget}")
+        valid_len = torch.from_numpy(session.valid_len).to(self.device)
+        cache, session.cache = session.cache, None
+        steps_done = session.steps_done
+        # W8A8 quantizes each row on its own and the mask is slot-causal,
+        # so a slot's arithmetic does not depend on how the feed is split
+        # (the JAX Engine's 32/8/1 chunks are static shapes for XLA)
+        for pos in range(0, len(feed), VERIFY_W8A8_ROWS):
+            _, last_logits, cache = self._verify(
+                [feed[pos:pos + VERIFY_W8A8_ROWS]], cache, valid_len,
+                session.bucket, steps_done + pos)
+        steps_done += len(feed)
+
+        generator = None
+        if gen.do_sample:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(gen.seed)
+        first = sampling.select_token(generator, last_logits, gen.do_sample,
+                                      gen.temperature, gen.top_p)
+        outs = [[int(first[0])]]
+        done_np = np.array([outs[0][0] == eos])
+        if stream_cb is not None:
+            stream_cb(0, outs[0])
+        history = session.token_history + list(new_ids)
+        feed_end = steps_done            # rows committed after the feed
+        outs, cache = self._decode_tail(
+            outs, done_np, cache, valid_len, session.bucket, steps_done,
+            first, generator, eos, gen, stop_fn, stream_cb,
+            [[t for t in history if t >= 0]])
+        # as in generate: len(outs) - 1 decode rows after the feed are the
+        # sequence's
+        return outs, Session(
+            cache=cache, bucket=session.bucket,
+            steps_done=feed_end + len(outs[0]) - 1,
+            valid_len=session.valid_len, last_token=outs[0][-1],
+            token_history=history + list(outs[0]))

@@ -2,8 +2,8 @@
 
 Mistral/Llama/Qwen2-style dense decoders with GQA, RoPE in the rotate-half
 layout and RMSNorm; floating, int8-packed or folded-int4-packed weights; a
-bf16 or int8 KV cache. MoE and the verify step raise NotImplementedError
-until their port.
+bf16 or int8 KV cache; prefill, one-token decode and the K-slot speculative
+verify pass. MoE raises NotImplementedError until its port.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
   embed.weight [V, D]   final_norm.scale [D]
@@ -95,20 +95,31 @@ def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _store_kv(cache: KVCache, i: int, start: int, k: torch.Tensor,
+def _store_kv(cache: KVCache, i: int, start, k: torch.Tensor,
               v: torch.Tensor) -> None:
     """Write layer i's rows [start, start + n) in place from k/v
-    [B, n, Hkv, hd]; an int8 cache stores them through _quantize_kv_rows."""
+    [B, n, Hkv, hd]; an int8 cache stores them through _quantize_kv_rows.
+    start is an int shared by the batch or a [B] tensor of per-row
+    offsets; with offsets, rows past the cache's end land on its last
+    row."""
     B, n = k.shape[:2]
-    rows = slice(start, start + n)
+    if isinstance(start, torch.Tensor):
+        b = torch.arange(B, device=k.device)[:, None]
+        rows = torch.clamp(start[:, None] + torch.arange(n, device=k.device),
+                           max=cache.max_len - 1)
     for dst, scales, x in ((cache.k, cache.k_scale, k),
                            (cache.v, cache.v_scale, v)):
         if cache.quantized:
-            q, s = _quantize_kv_rows(x)            # [B,n,K,hd], [B,n,K]
-            dst[i, :, rows] = q.reshape(B, n, -1)
-            scales[i, :, :, rows] = s.transpose(1, 2)
+            x, s = _quantize_kv_rows(x)            # [B,n,K,hd], [B,n,K]
+            if isinstance(start, torch.Tensor):
+                scales[i][b, :, rows] = s
+            else:
+                scales[i, :, :, start:start + n] = s.transpose(1, 2)
+        x = x.reshape(B, n, -1).to(dst.dtype)
+        if isinstance(start, torch.Tensor):
+            dst[i][b, rows] = x
         else:
-            dst[i, :, rows] = x.reshape(B, n, -1)
+            dst[i, :, start:start + n] = x
 
 
 def _read_kv(cache: KVCache, i: int, rows: slice, kv_heads: int, dtype):
@@ -340,6 +351,81 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
         x = x + _ffn(h, lp, w8a8)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x[:, 0], w8a8), cache
+
+
+def decode_verify(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
+                  cache: KVCache, valid_len: torch.Tensor, prompt_len: int,
+                  step0, w8a8: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """K-slot speculative verify pass (JAX `decode_verify`).
+
+    Runs K candidate tokens (the last accepted token and K-1 drafts)
+    through the decoder in one pass, so every weight is read once for K
+    tokens. Slot i of row b lives at cache row prompt_len + step0[b] + i,
+    takes the RoPE position valid_len[b] + step0[b] + i and attends the
+    prompt rows [0, valid_len[b]) and the generated rows
+    [prompt_len, prompt_len + step0[b] + i]: slot-causal over the block,
+    so its logits are those of the sequential decode_steps over the same
+    tokens. Rows written for slots rejected later are overwritten by the
+    next pass before any mask reaches them.
+
+    step0 is an int (or 0-d tensor) shared by the batch (B = 1 and
+    sessions), whose block must fit the cache, or a [B] tensor of per-row
+    frontiers (batched speculation). There a row that rides along without
+    room for the block writes its slots past the cache's end into the last
+    row, which it has not committed: JAX moves the whole block back over
+    committed rows instead, which makes the row diverge from plain greedy
+    once it resumes on 1-slot passes (ROADMAP §3).
+
+    Attention is the plain `mha` over layer i of the cache read back whole
+    (an int8 cache dequantized, each slot's own row included), as the JAX
+    package's is plain XLA; no kernel takes K tokens a row. w8a8 selects
+    the serving branch of int8 and int4 packs (the Engine passes it for
+    B * K <= 64 rows, JAX's quant_inference limit). token_embeds:
+    [B, K, D]. Returns (logits [B, K, V] fp32, the cache written in place).
+    """
+    _check_supported(cfg)
+    B, K, _ = token_embeds.shape
+    M = cache.max_len
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = token_embeds.device
+    per_row = isinstance(step0, torch.Tensor) and step0.dim() == 1
+    if per_row:
+        step = step0.to(device=dev, dtype=torch.long)
+        start = prompt_len + step
+    else:
+        step = torch.full((B,), int(step0), dtype=torch.long, device=dev)
+        start = prompt_len + int(step0)
+        if start + K > M:
+            raise ValueError(f"verify rows [{start}, {start + K}) run past "
+                             f"the cache's {M}")
+    offs = torch.arange(K, device=dev)
+    valid = valid_len.to(dev).long()
+    positions = (valid + step)[:, None] + offs                  # [B, K]
+    cos, sin = rope_table(positions, hd, cfg.rope_theta)
+    ki = torch.arange(M, device=dev)[None, None, :]             # [1, 1, M]
+    frontier = (prompt_len + positions - valid[:, None])[..., None]
+    mask = (ki < valid[:, None, None]) | ((ki >= prompt_len)
+                                          & (ki <= frontier))
+    if cfg.sliding_window is not None:
+        logical_k = torch.where(ki < prompt_len, ki,
+                                valid[:, None, None] + (ki - prompt_len))
+        mask = mask & (positions[..., None] - logical_k
+                       < cfg.sliding_window)
+    mask = mask[:, None]                                        # [B,1,K,M]
+    x = token_embeds
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
+        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
+        q, k = apply_rope(q, k, cos, sin)
+        _store_kv(cache, i, start, k, v)
+        k_read, v_read = _read_kv(cache, i, slice(None), Kh, q.dtype)
+        out = attn_ops.mha(q, k_read, v_read, mask=mask)
+        x = x + dense(out.reshape(B, K, H * hd), lp["o"], w8a8)
+        h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
+        x = x + _ffn(h, lp, w8a8)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
+    return lm_logits(params, cfg, x, w8a8), cache
 
 
 def _decode_step_q8(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
