@@ -23,7 +23,15 @@ against fresh generates, each call with exact launch counts and every
 token difference held to a near-tie. The "api" phase loads a checkpoint
 in the released 7B-16F layout (LLM cut to 8 layers) through model_init
 and answers through mm_infer, mm_infer_batch, a 3-turn ChatSession and
-mm_infer_session. Last, the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
+mm_infer_session. The "av" phase runs VideoLLaMA2.1-AV (the 2.1 slice's
+model with the BEATs audio tower and its projector) on the 2.1 int8
+slice's weights plus a seeded bf16 audio branch: 16 audio-visual prompts
+(16 frames and 10.24 s of audio each, fbank made on the host) twice, 16
+audio-only ones twice, the BEATs encode timed, and first-token and decode
+logits held against the plain versions; its api calls load a checkpoint
+in the released VideoLLaMA2.1-AV layout (LLM cut to 8 layers) and answer
+through mm_infer (audio on a .wav, and av) and mm_infer_session. Last,
+the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
 only the connector trains) runs two optimizer steps of 16 videos
 (grad_accum 2 x 8) at seq 2048 through Trainer.train, twice, with the
 flash-attention LSE forward (K2) and backward kernels (K8, K9), and one
@@ -94,6 +102,14 @@ MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "manifests", "videollama2_7b_16f.json")
 API_LLM_LAYERS = 8
 API_BATCH = 16
+# the "av" phase: VideoLLaMA2.1-AV on the 2.1 int8 slice's tree plus a
+# seeded bf16 audio branch; each row's 10.24 s of 16 kHz audio makes 1022
+# fbank frames, padded to audio.max_frames (1024: 512 BEATs tokens). Its
+# api calls load a checkpoint in the released VideoLLaMA2.1-AV layout with
+# the LLM cut to API_LLM_LAYERS of 28 layers.
+AV_SECONDS = 10.24
+MANIFEST_AV = os.path.join(os.path.dirname(MANIFEST),
+                           "videollama2_1_7b_av.json")
 # the "speculative + sessions" phase: prompt-lookup speculation at k = 4
 # (B = 1 over SPEC_NEW_TOKENS tokens; B = 16, 64 verify rows, over
 # NEW_TOKENS), a session of two continued turns that feed
@@ -484,25 +500,30 @@ def _leaves(tree):
             yield v
 
 
-def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want):
-    """Two generate runs of 16 videos; checks the launch counts of every
-    kernel on the path (counters: name -> wrapper) against `want`, the
-    token shapes, and that both runs gave the same tokens. Returns the
-    counts and the stage split of the second run."""
-    B = frames.shape[0]
+def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want,
+              audio=None):
+    """Two generate runs of 16 videos (or, with `audio`, fbank features:
+    16 audio-visual prompts, or audio-only ones where frames is None);
+    checks the launch counts of every kernel on the path (counters: name
+    -> wrapper) against `want`, the token shapes, and that both runs gave
+    the same tokens. Returns the counts and the stage split of the second
+    run."""
+    media = [m for m in (frames, audio) if m is not None]
+    B = media[0].shape[0]
     runs, stage = [], {}
     for run in range(2):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dev_frames = eng.upload_frames(frames)
+        dev_frames, dev_audio = (None if m is None else eng.upload_frames(m)
+                                 for m in (frames, audio))
         torch.cuda.synchronize()
         t_upload = time.perf_counter() - t0
         stamps = {}
         t0 = time.perf_counter()
-        out = eng.generate([prompt] * B, frames=dev_frames, gen=gcfg,
-                           eos_token_id=-1,
+        out = eng.generate([prompt] * B, frames=dev_frames, audio=dev_audio,
+                           gen=gcfg, eos_token_id=-1,
                            stream_cb=lambda b, toks: stamps.setdefault(
                                len(toks), time.perf_counter()))
         t_end = time.perf_counter()
@@ -524,7 +545,8 @@ def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want):
                      (t_end - t_first) / (NEW_TOKENS - 1) * 1e3,
                  "generate_s": t_end - t0}
         log(f"[{name}] run {run + 1}: upload {t_upload * 1e3:.1f} ms "
-            f"({frames.nbytes / 1e6:.0f} MB), encode+prefill+first token "
+            f"({sum(m.nbytes for m in media) / 1e6:.0f} MB), "
+            f"encode+prefill+first token "
             f"{stage['encode_prefill_first_token_s']:.3f} s, decode "
             f"{stage['decode_ms_per_token']:.2f} ms/token, generate "
             f"{stage['generate_s']:.3f} s")
@@ -535,16 +557,33 @@ def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want):
     return counts, stage
 
 
-def _plan_args(cfg, frames, prompt, dev, bucket):
+def _plan_args(cfg, frames, prompt, dev, bucket, B=None, tpm=None):
+    """The prefill's inputs for B copies of prompt (B: frames' rows by
+    default): frames on the device (None stays None) and the splice plan
+    (tpm: the tokens a modal tag stands for, cfg.tokens_per_video by
+    default)."""
     from videollama2_tpu_torch.multimodal import splice as splice_lib
-    plan = splice_lib.plan_batch([prompt] * frames.shape[0],
-                                 cfg.tokens_per_video, bucket)
-    return (torch.from_numpy(frames).to(dev),
+    plan = splice_lib.plan_batch([prompt] * (B or frames.shape[0]),
+                                 tpm or cfg.tokens_per_video, bucket)
+    return (None if frames is None else torch.from_numpy(frames).to(dev),
             torch.from_numpy(plan.text_ids).to(dev).long(),
             torch.from_numpy(plan.is_visual).to(dev),
             torch.from_numpy(plan.vis_index).to(dev),
             torch.from_numpy(plan.positions).to(dev),
             torch.from_numpy(plan.valid_len).to(dev))
+
+
+def _prefill(eng, cfg, args, cache, fbank=None, w8a8=False):
+    """Prefill of _plan_args' args into cache: prefill_multimodal, or with
+    fbank features the audio / audio-visual prefill. -> (last, cache)."""
+    from videollama2_tpu_torch.models import videollama2 as vl2
+    if fbank is None:
+        return vl2.prefill_multimodal(eng.params, cfg, *args, cache,
+                                      w8a8=w8a8)
+    return vl2.prefill_audio_visual(
+        eng.params, cfg, args[0],
+        torch.from_numpy(fbank).to(eng.device, eng.dtype), *args[1:], cache,
+        w8a8=w8a8)
 
 
 def compare_logits(name, fast, plain) -> None:
@@ -578,22 +617,27 @@ def compare_logits(name, fast, plain) -> None:
 
 
 def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
-                        k2) -> None:
-    """First-token logits of two videos through the kernels and through
-    the plain attention path (attend swapped for attend_plain), both at
-    full width in bf16. The two differ only by rounding inside attention
-    (the order of the fp32 sums, exp), which the tower's and the LLM's
-    bf16 layers amplify."""
+                        k2, fbank=None, tpm=None, label="bf16") -> None:
+    """First-token logits of two videos (with fbank, two audio-visual or,
+    frames None, audio-only prompts) through the kernels and through the
+    plain attention path (attend swapped for attend_plain), both at full
+    width in bf16. The two differ only by rounding inside attention (the
+    order of the fp32 sums, exp), which the tower's and the LLM's bf16
+    layers amplify. Int8 packs take their dequantize branch here: under
+    W8A8 that rounding also flips activations' int8 steps from layer to
+    layer, which these bounds are not set for (the AV model's W8A8
+    first-token logits differ by 0.80 at most and 0.135 on average,
+    against bounds of 0.48 and 0.06, on an H100 80GB HBM3 at 700 W)."""
     from videollama2_tpu_torch.models import llm as llm_lib
-    from videollama2_tpu_torch.models import videollama2 as vl2
 
-    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
+    B = len(frames if frames is not None else fbank)
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket, B, tpm)
 
     def first_logits():
-        cache = llm_lib.init_cache(cfg.llm, frames.shape[0], bucket,
-                                   torch.bfloat16, device=eng.device)
+        cache = llm_lib.init_cache(cfg.llm, B, bucket, torch.bfloat16,
+                                   device=eng.device)
         with torch.inference_mode():
-            last, _ = vl2.prefill_multimodal(eng.params, cfg, *args, cache)
+            last, _ = _prefill(eng, cfg, args, cache, fbank)
             return llm_lib.lm_logits(eng.params["llm"], cfg.llm, last)
 
     before = (k1.encoder_attention.launches, k2.flash_attention.launches)
@@ -609,26 +653,28 @@ def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
     finally:
         attn.attend = kernel_attend
     torch.cuda.synchronize()
-    compare_logits("bf16 first-token logits", fast, plain)
+    compare_logits(f"{label} first-token logits", fast, plain)
 
 
 def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
-                               bits) -> None:
-    """Decode logits of two videos over the int8 (bits 8) or int4 (bits 4)
-    packs and the int8 cache: a W8A8/W4A8 prefill fills the cache, then
+                               bits, fbank=None, tpm=None,
+                               label=None) -> None:
+    """Decode logits of two videos (with fbank, two audio-visual or,
+    frames None, audio-only prompts) over the int8 (bits 8) or int4 (bits
+    4) packs and the int8 cache: a W8A8/W4A8 prefill fills the cache, then
     DECODE_CHECK_STEPS teacher-forced decode steps run once on K3 and
     K4/K5 (or K6/K7) and once, from a copy of the same cache, with their
     plain versions swapped in. Both run in bf16."""
     from videollama2_tpu_torch.models import llm as llm_lib
-    from videollama2_tpu_torch.models import videollama2 as vl2
 
-    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
+    B = len(frames if frames is not None else fbank)
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket, B, tpm)
     valid = args[-1]
-    B, L = frames.shape[0], cfg.llm.num_layers
+    L = cfg.llm.num_layers
     cache = llm_lib.init_cache(cfg.llm, B, eng.max_len, kv_bits=8,
                                device=eng.device)
     with torch.inference_mode():
-        vl2.prefill_multimodal(eng.params, cfg, *args, cache, w8a8=True)
+        _prefill(eng, cfg, args, cache, fbank, w8a8=True)
     snapshot = llm_lib.KVCache(*(t.clone() for t in (
         cache.k, cache.v, cache.k_scale, cache.v_scale)))
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
@@ -667,8 +713,8 @@ def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
         for (m, n, _), fn in zip(swaps, saved):
             setattr(m, n, fn)
     torch.cuda.synchronize()
-    compare_logits(f"int{bits} decode logits, {DECODE_CHECK_STEPS} "
-                   "teacher-forced steps", fast, plain)
+    compare_logits(f"{label or f'int{bits}'} decode logits, "
+                   f"{DECODE_CHECK_STEPS} teacher-forced steps", fast, plain)
 
 
 PTXAS_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -1070,11 +1116,12 @@ def write_safetensors(path, shapes, make) -> None:
 def api_init(name, shape, gen) -> torch.Tensor:
     """A released key's seeded bf16 value on the card, with
     utils/synthetic.py's scales: biases 0, norm scales (the 1-D weights)
-    1, the connector's convolutions He-normal and its readout
-    1/sqrt(fan_in), every other weight normal(0, 0.02)."""
+    and BEATs's gate constants 1, the connector's convolutions He-normal
+    and its readout 1/sqrt(fan_in), every other weight normal(0, 0.02)."""
     if name.endswith(".bias"):
         return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
-    if len(shape) == 1 and name.endswith(".weight"):
+    if (len(shape) == 1 and name.endswith(".weight")) \
+            or name.endswith(".gru_rel_pos_const"):
         return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
     std = 0.02
     if name.startswith("model.mm_projector."):
@@ -1381,15 +1428,17 @@ def verify_logits(eng, cfg, frames, prompt, bucket, tokens, firsts) -> dict:
     return out
 
 
-def phase_launches(counters, cfg, B, prefill, decode_steps, packed):
-    """Launch counts of a call: the tower (K1) and the prefill (K2) when
-    it prefills B videos, and K3-K5 for each plain decode step of packed
-    int8 weights; 0 for every other kernel."""
+def phase_launches(counters, cfg, B, prefill, decode_steps, packed,
+                   frames=True):
+    """Launch counts of a call: the tower (K1; not for an audio-only
+    prompt, frames False) and the prefill (K2) when it prefills B prompts,
+    and K3-K5 for each plain decode step of packed int8 weights; 0 for
+    every other kernel."""
     L = cfg.llm.num_layers
     want = dict.fromkeys(counters, 0)
     if prefill:
         want.update(encoder_attention=vit_layers(cfg)
-                    * (B * cfg.num_frames // 128 or 1),
+                    * (B * cfg.num_frames // 128 or 1) if frames else 0,
                     flash_attention=L)
     if packed and decode_steps:
         want.update(decode_attention=decode_steps * L,
@@ -1596,6 +1645,300 @@ def slice_inputs(cfg, B: int):
     return frames, prompt, -(-spliced // 128) * 128
 
 
+def av_inputs(cfg, B: int, prompt):
+    """The "av" phase's inputs: B seeded waveforms of AV_SECONDS made into
+    BEATs fbank features on the host by the port's media/audio.py (padded
+    to audio.max_frames), the 2.1 slice's prompt with <audio> after its
+    <video> tag and its audio-only twin (<audio> in place of <video>), the
+    tokens each modal tag stands for and both prompts' buckets (their
+    spliced lengths rounded up to a multiple of 128). Returns (fbank,
+    prompts {"av", "audio"}, tpm, buckets, host seconds of the fbank)."""
+    from videollama2_tpu_torch.constants import (AUDIO_TOKEN_INDEX,
+                                                 VIDEO_TOKEN_INDEX)
+    from videollama2_tpu_torch.media import audio as audio_lib
+    rng = np.random.default_rng(4)
+    T = cfg.audio.max_frames
+    t0 = time.perf_counter()
+    feats = []
+    for _ in range(B):
+        wav = rng.standard_normal(int(audio_lib.SAMPLE_RATE * AV_SECONDS))
+        fb = audio_lib.beats_preprocess((0.3 * wav).clip(-1, 1))
+        feats.append(np.pad(fb, ((0, max(0, T - len(fb))), (0, 0)))[:T])
+    fbank = np.stack(feats).astype(np.float32)
+    host_s = time.perf_counter() - t0
+    i = prompt.index(VIDEO_TOKEN_INDEX)
+    prompts = {"av": prompt[:i + 1] + [AUDIO_TOKEN_INDEX] + prompt[i + 1:],
+               "audio": prompt[:i] + [AUDIO_TOKEN_INDEX] + prompt[i + 1:]}
+    tpm = av_tpm(cfg)
+    buckets = {m: -(-n // 128) * 128
+               for m, n in spliced_length_of(prompts, tpm).items()}
+    return fbank, prompts, tpm, buckets, host_s
+
+
+def av_tpm(cfg) -> dict:
+    """The tokens each modal tag of an audio-visual prompt stands for."""
+    from videollama2_tpu_torch.constants import (AUDIO_TOKEN_INDEX,
+                                                 IMAGE_TOKEN_INDEX,
+                                                 VIDEO_TOKEN_INDEX)
+    return {IMAGE_TOKEN_INDEX: cfg.tokens_per_video,
+            VIDEO_TOKEN_INDEX: cfg.tokens_per_video,
+            AUDIO_TOKEN_INDEX: cfg.tokens_per_audio}
+
+
+def run_av_phase(base, base_cfg, frames, prompt, counters, attn, k1, k2, k3,
+                 dk):
+    """The "av" phase: VideoLLaMA2.1-AV (`preset("videollama2_qwen2_av")`,
+    16 frames) through an Engine over the 2.1 int8 slice's tree (base's
+    params, no copy) plus a seeded bf16 audio branch. B = 16 rows of
+    frames and AV_SECONDS of audio: two audio-visual generates, then two
+    audio-only ones, each with exact launch counts; the BEATs + projector
+    encode timed at B = 16; first-token and decode logits of two rows
+    (audio-visual and audio-only) through the kernels against the plain
+    versions. Returns the numbers and the launch counts of each run."""
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.models import beats
+    from videollama2_tpu_torch.models import videollama2 as vl2
+    from videollama2_tpu_torch.utils.synthetic import synthetic_audio_params
+
+    cfg = cfglib.preset("videollama2_qwen2_av").replace(num_frames=16)
+    if dataclasses.replace(cfg, audio=None) != base_cfg:
+        raise RuntimeError("av: the AV preset is not the 2.1 slice's model "
+                           "with an audio branch")
+    B = frames.shape[0]
+    fbank, prompts, tpm, buckets, host_s = av_inputs(cfg, B, prompt)
+    audio = synthetic_audio_params(cfg, dtype=torch.bfloat16, device="cuda",
+                                   seed=1)
+    eng = Engine(cfg, dict(base.params, audio=audio), dtype=torch.bfloat16,
+                 max_len=buckets["av"] + NEW_TOKENS,
+                 buckets=(buckets["audio"], buckets["av"]),
+                 decode_chunk=NEW_TOKENS, kv_bits=8, device="cuda")
+    out = {"fbank_host_s": host_s, "audio_params_m": sum(
+        t.numel() for t in _leaves(audio)) / 1e6}
+    log(f"[av] {cfg.tokens_per_audio} audio tokens a row "
+        f"({fbank.shape[1]} fbank frames, {B} rows made on the host in "
+        f"{host_s:.3f} s), audio branch {out['audio_params_m']:.1f} M "
+        f"params bf16; prompts {spliced_length_of(prompts, tpm)}, buckets "
+        f"{buckets}, max_len {eng.max_len}")
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    counts = {}
+    for mode, fr in (("av", frames), ("audio", None)):
+        counts[mode], out[mode] = run_slice(
+            mode, eng, cfg, fr, prompts[mode], gcfg, counters,
+            phase_launches(counters, cfg, B, True, NEW_TOKENS - 1, True,
+                           frames=fr is not None), audio=fbank)
+
+    dev_fbank = torch.from_numpy(fbank).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        tokens = vl2.encode_audio(eng.params, cfg, dev_fbank)
+        torch.cuda.synchronize()
+        if tokens.shape != (B, cfg.tokens_per_audio, cfg.llm.hidden_size) \
+                or not torch.isfinite(tokens).all():
+            raise RuntimeError(f"av: audio tokens {tuple(tokens.shape)}")
+        out["beats_ms"] = cuda_ms(lambda: beats.forward(
+            eng.params["audio"]["encoder"], cfg.audio, dev_fbank))
+        out["encode_audio_ms"] = cuda_ms(
+            lambda: vl2.encode_audio(eng.params, cfg, dev_fbank))
+    del tokens, dev_fbank
+    log(f"[av] BEATs at B {B} ([{B},{fbank.shape[1]},128] bf16): "
+        f"{out['beats_ms']:.3f} ms; BEATs + projector (encode_audio) "
+        f"{out['encode_audio_ms']:.3f} ms (CUDA events, median of "
+        f"{TIMING_ITERS})")
+    for mode, fr in (("av", frames[:2]), ("audio", None)):
+        check_against_plain(eng, cfg, fr, prompts[mode], buckets[mode], attn,
+                            k1, k2, fbank=fbank[:2], tpm=tpm, label=mode)
+    check_decode_against_plain(eng, cfg, frames[:2], prompts["av"],
+                               buckets["av"], k3, dk, 8, fbank=fbank[:2],
+                               tpm=tpm, label="av int8")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def spliced_length_of(prompts, tpm) -> dict:
+    """{name: the spliced length of prompts[name]}."""
+    from videollama2_tpu_torch.multimodal.splice import spliced_length
+    return {m: spliced_length(p, tpm) for m, p in prompts.items()}
+
+
+def write_wav(path, seconds: float) -> None:
+    """A seeded 44.1 kHz stereo int16 .wav (the api phase resamples and
+    downmixes it through media/audio.load_wav)."""
+    import wave
+    rate = 44100
+    rng = np.random.default_rng(5)
+    data = (rng.standard_normal((int(rate * seconds), 2)) * 6000).clip(
+        -32767, 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(data.tobytes())
+
+
+def run_api_av_phase(counters, attn, k1, k2, k3, dk):
+    """The public API on the audio-visual model: writes a checkpoint with
+    every key of the released VideoLLaMA2.1-AV layout (LLM depth
+    API_LLM_LAYERS of 28) and a 44.1 kHz stereo .wav, loads it with
+    model_init(load_8bit=True, kv_bits=8) and answers through
+    mm_infer(modal="audio") on the .wav, mm_infer(modal="av") on
+    {"video": frames, "audio": the .wav}, and two mm_infer_session AV
+    calls through one SessionStore (a miss, then a hit whose tokens must
+    equal stateless mm_infer's, or differ first at a near-tie), each call
+    with exact launch counts; then holds the loaded model's audio-visual
+    first-token and decode logits against the plain paths. Returns the
+    phase's numbers and the launch counts of each call."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        model_config_to_hf
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.inference import api
+
+    base = cfglib.preset("videollama2_qwen2_av").replace(num_frames=16)
+    cfg = base.replace(llm=dataclasses.replace(base.llm,
+                                               num_layers=API_LLM_LAYERS))
+    with open(MANIFEST_AV) as f:
+        manifest = json.load(f)
+    shapes = {k: s for k, s in manifest.items()
+              if not re.match(r"model\.layers\.(\d+)\.", k)
+              or int(k.split(".")[2]) < API_LLM_LAYERS}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(dict(model_config_to_hf(cfg),
+                           mm_audio_tower="BEATs_iter3_plus_AS2M"), f)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        weights = os.path.join(ckpt, "model.safetensors")
+        write_safetensors(weights, shapes, lambda n, s: api_init(n, s, gen))
+        out["checkpoint_gb"] = os.path.getsize(weights) / 1e9
+        log(f"[api av] wrote {len(shapes)} of {len(manifest)} released "
+            f"VideoLLaMA2.1-AV keys (LLM layers 0-{API_LLM_LAYERS - 1} of "
+            f"28), {n_params / 1e9:.3f} B params, "
+            f"{out['checkpoint_gb']:.2f} GB bf16 safetensors in "
+            f"{time.perf_counter() - t0:.1f} s")
+        wav = os.path.join(ckpt, "clip.wav")
+        write_wav(wav, AV_SECONDS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, processor, tok = api.model_init(
+            ckpt, load_8bit=True, kv_bits=8, max_len=2048,
+            buckets=(640, 1920), tokenizer=ToyTokenizer(cfg.llm.vocab_size))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        os.remove(weights)
+        log(f"[api av] model_init(load_8bit=True, kv_bits=8): "
+            f"{out['load_s']:.2f} s, peak device memory "
+            f"{out['load_peak_gb']:.2f} GB")
+        if dataclasses.asdict(model.config) != dataclasses.asdict(cfg):
+            raise RuntimeError(f"api av: loaded config {model.config} != "
+                               f"{cfg}")
+        eng = model.engine
+        audio_leaves = list(_leaves(eng.params["audio"]))
+        if "kernel_q8" not in eng.params["llm"]["layers"]["qkv"] \
+                or "kernel_q8" not in eng.params["vision"]["layers"]["qkv"] \
+                or eng.kv_bits != 8 or set(processor) != {
+                    "image", "video", "audio", "av"} \
+                or not all(t.dtype == torch.bfloat16 for t in audio_leaves):
+            raise RuntimeError("api av: load_8bit did not give int8 packs "
+                               "and a bf16 audio branch")
+
+        H = cfg.vision.image_size
+        rng = np.random.default_rng(6)
+        clips = rng.integers(0, 256, (2, cfg.num_frames, H + H // 2, H),
+                             dtype=np.uint8)
+        question = "what do you hear and see in the clip ?"
+        av_media = {"video": clips[0], "audio": wav}
+        tap = LogitTap()
+
+        def call(label, want, fn):
+            """fn through counted_call; returns the answer, the greedy ids
+            of the tap's picks and the tap's record."""
+            answer, out[label], counts[label] = counted_call(
+                f"api av {label}", counters, want, fn, tap)
+            if not (isinstance(answer, str) and answer):
+                raise RuntimeError(f"api av {label}: answer {answer!r}")
+            log(f"[api av] {label}: {answer[:60]!r}...")
+            return (answer, [[int(l[0].argmax()) for l in tap.picks]],
+                    tap.record())
+
+        def fresh(frames, new_tokens):
+            return phase_launches(counters, cfg, 1, True, new_tokens - 1,
+                                  True, frames=frames)
+
+        def session_call(msgs, store):
+            return lambda cb: api.mm_infer_session(
+                av_media, [dict(m) for m in msgs], model, tok, store,
+                modal="av", max_new_tokens=CHAT_NEW_TOKENS, stream_cb=cb)
+
+        with tap:
+            call("mm_infer audio", fresh(False, NEW_TOKENS),
+                 lambda cb: api.mm_infer(wav, question, model, tok,
+                                         modal="audio",
+                                         max_new_tokens=NEW_TOKENS,
+                                         stream_cb=cb))
+            call("mm_infer av", fresh(True, NEW_TOKENS),
+                 lambda cb: api.mm_infer(av_media, question, model, tok,
+                                         modal="av",
+                                         max_new_tokens=NEW_TOKENS,
+                                         stream_cb=cb))
+            store = api.SessionStore()
+            msgs = [{"role": "user", "content": question}]
+            reply, _, _ = call("mm_infer_session call 1",
+                               fresh(True, CHAT_NEW_TOKENS),
+                               session_call(msgs, store))
+            msgs += [{"role": "assistant", "content": reply},
+                     {"role": "user", "content": "and why does it sound so ?"}]
+            # the hit continues the stored session: no tower or prefill
+            _, cont, cont_rec = call(
+                "mm_infer_session call 2",
+                phase_launches(counters, cfg, 1, False, CHAT_NEW_TOKENS - 1,
+                               True),
+                session_call(msgs, store))
+            _, stateless, stateless_rec = call(
+                "mm_infer turn 2", fresh(True, CHAT_NEW_TOKENS),
+                lambda cb: api.mm_infer(av_media, [dict(m) for m in msgs],
+                                        model, tok, modal="av",
+                                        max_new_tokens=CHAT_NEW_TOKENS,
+                                        stream_cb=cb))
+        if store.stats != {"hits": 1, "misses": 1}:
+            raise RuntimeError(f"api av: SessionStore stats {store.stats}")
+        out["session_vs_stateless"] = check_tokens(
+            "api av mm_infer_session call 2 vs stateless mm_infer",
+            stateless, cont, lambda b, p: stateless_rec["picks"][p][b],
+            lambda b, p: cont_rec["picks"][p][b])
+        if not out["session_vs_stateless"]["ok"]:
+            raise RuntimeError("api av: the continued turn differs from "
+                               "stateless mm_infer beyond a near-tie")
+        log(f"[api av] SessionStore stats {store.stats}; first token "
+            f"continued {out['mm_infer_session call 2']['first_token_s']:.4f}"
+            f" s against fresh "
+            f"{out['mm_infer_session call 1']['first_token_s']:.4f} s")
+
+        # the loaded model's audio-visual logits against the plain paths
+        tpm = av_tpm(cfg)
+        prompt = api.build_prompt_ids(question, cfg, tok, "av")
+        fbank = np.repeat(api._prep_audio(wav, cfg), 2, axis=0)
+        bucket = -(-spliced_length_of({"av": prompt}, tpm)["av"] // 128)             * 128
+        check_against_plain(eng, cfg, clips, prompt, bucket, attn, k1, k2,
+                            fbank=fbank, tpm=tpm, label="api av")
+        check_decode_against_plain(eng, cfg, clips, prompt, bucket, k3, dk,
+                                   8, fbank=fbank, tpm=tpm,
+                                   label="api av int8")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[api av] peak device memory {out['peak_gb']:.2f} GB")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1793,6 +2136,23 @@ def main() -> None:
         stages[slice_name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{slice_name}] peak device memory "
             f"{stages[slice_name]['peak_gb']:.1f} GB")
+        if slice_name == "2.1 int8 slice":
+            # the "av" phase: VideoLLaMA2.1-AV on this slice's weights
+            torch.cuda.reset_peak_memory_stats()
+            av_stage, av_counts = run_av_phase(eng, cfg, frames, prompt,
+                                               counters, attn, k1, k2, k3,
+                                               dk)
+            av_stage["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            slice_counts.update(av_counts)
+            video_first = stages[slice_name]["encode_prefill_first_token_s"]
+            log("[av] first token (encode + prefill + head, B 16): av "
+                f"{av_stage['av']['encode_prefill_first_token_s']:.3f} s, "
+                "audio-only "
+                f"{av_stage['audio']['encode_prefill_first_token_s']:.3f} s"
+                f", 2.1 int8 video-only {video_first:.3f} s; decode "
+                f"{av_stage['av']['decode_ms_per_token']:.2f} / "
+                f"{av_stage['audio']['decode_ms_per_token']:.2f} ms/token; "
+                f"peak device memory {av_stage['peak_gb']:.1f} GB")
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1806,6 +2166,11 @@ def main() -> None:
     log(json.dumps({"api": api_stage}))
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api_av_stage, api_av_counts = run_api_av_phase(counters, attn, k1, k2,
+                                                   k3, dk)
+    slice_counts.update({f"api av {n}": c for n, c in api_av_counts.items()})
+    log(json.dumps({"av": av_stage, "api av": api_av_stage}))
     torch.cuda.reset_peak_memory_stats()
 
     # -- the stage-1 training slice at full width ----------------------------

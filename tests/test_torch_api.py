@@ -156,14 +156,21 @@ def test_unported_directories_raise(ckpt, tmp_path):
     (lora / "adapter_model.bin").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="item 9.1"):
         tconv.load_videollama2(str(lora), model_base=ckpt)
+    # an AV config over weights without an audio tower: the branch is
+    # seeded, with a warning, as a missing vision tower is
     av = tmp_path / "av"
     av.mkdir()
     with open(os.path.join(ckpt, "config.json")) as f:
         cfg_json = json.load(f)
     with open(av / "config.json", "w") as f:
         json.dump(dict(cfg_json, mm_audio_tower="beats"), f)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tconv.load_videollama2(str(av))
+    shutil.copy(os.path.join(ckpt, "model.safetensors"),
+                av / "model.safetensors")
+    with pytest.warns(UserWarning, match="no audio tower"):
+        cfg, tree = tconv.load_videollama2(str(av))
+    assert cfg.audio == tcfglib.AudioConfig()
+    assert {p: tuple(t.shape) for p, t in _flat(tree["audio"])} == {
+        p: tuple(s) for p, s in _flat(tvl2.param_shapes(cfg)["audio"])}
 
 
 def test_model_config_round_trip_matches_jax():
@@ -276,10 +283,30 @@ def test_manifest_misnamed_key_fails_in_the_port():
 
 
 def test_av_manifest_raises_until_audio_is_ported():
-    _, sd = _manifest_sd(MANIFEST_AV)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tconv.videollama2_params_from_state_dict(
-            sd, tcfglib.preset("videollama2_qwen2_av"))
+    """The released VideoLLaMA2.1-AV layout goes through the port: every key
+    is read but the relative_attention_bias tables of BEATs layers 1-11
+    (BEATs, and both packages, use layer 0's for every layer) and SigLIP's
+    attention-pooling head (the features are hidden states, as in the JAX
+    package), and params_from_jax fills every port parameter, the audio
+    branch in bf16."""
+    manifest, sd = _manifest_sd(MANIFEST_AV)
+    cfg = tcfglib.preset("videollama2_qwen2_av")
+    tree = tconv.videollama2_params_from_state_dict(sd, cfg)
+    unread = set(manifest) - sd.read
+    pooling_head = {k for k in manifest
+                    if ".vision_tower.vision_model.head." in k}
+    assert pooling_head and unread - pooling_head == {
+        f"model.audio_tower.encoder.layers.{l}.self_attn."
+        "relative_attention_bias.weight" for l in range(1, 12)}
+    audio_keys = [k for k in manifest
+                  if k.startswith(("model.audio_tower.",
+                                   "model.mm_projector_a."))]
+    assert len(audio_keys) == 242
+    port = params_from_jax(tree, cfg)
+    got = {p: tuple(t.shape) for p, t in _flat(port)}
+    want = dict(_flat(tvl2.param_shapes(cfg)))
+    assert got == {p: tuple(s) for p, s in want.items()}
+    assert all(t.dtype == torch.bfloat16 for _, t in _flat(port))
 
 
 # -- tied embeddings -------------------------------------------------------------
@@ -394,7 +421,8 @@ def test_api_surface_and_unported_parts(ckpt, port_loaded):
     with pytest.raises(ValueError, match="wire"):
         videollama2_tpu_torch.model_init(ckpt, tokenizer=tok, device="cpu",
                                          wire="yuv")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the audio modal needs the AV model (its API: test_torch_audio.py)
+    with pytest.raises(ValueError, match="audio-visual model"):
         tapi.mm_infer(np.zeros((4, 8), np.float32), "hi", model, tok,
                       modal="audio")
     with pytest.raises(ValueError, match="Unsupported modal"):

@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host modules (core/config.py,
-constants.py, media/wire.py, multimodal/tokenizer.py,
+constants.py, media/wire.py, media/audio.py, multimodal/tokenizer.py,
 inference/speculative.py) against the originals: every preset and tiny
 config field by field, the derived token counts, the token constants, the
-I420 pack/unpack on a seeded frame, the modal-token splitters and
+I420 pack/unpack on a seeded frame, the fbank front end's constants, mel
+banks and features on a seeded waveform, the modal-token splitters and
 model-name helper on a seeded word-level tokenizer, and the prompt-lookup
 drafts and greedy acceptance on seeded token streams."""
 
@@ -14,11 +15,13 @@ import pytest
 from videollama2_tpu import constants as jconst
 from videollama2_tpu.core import config as jcfg
 from videollama2_tpu.inference import speculative as jspec
+from videollama2_tpu.media import audio as jaudio
 from videollama2_tpu.media import wire as jwire
 from videollama2_tpu.multimodal import tokenizer as jtok
 from videollama2_tpu_torch import constants as tconst
 from videollama2_tpu_torch.core import config as tcfg
 from videollama2_tpu_torch.inference import speculative as tspec
+from videollama2_tpu_torch.media import audio as taudio
 from videollama2_tpu_torch.media import wire as twire
 from videollama2_tpu_torch.multimodal import tokenizer as ttok
 
@@ -92,6 +95,25 @@ def test_wire_pack_and_unpack():
     np.testing.assert_array_equal(packed, jwire.rgb_to_i420(rgb))
     np.testing.assert_array_equal(twire.i420_to_rgb(packed),
                                   jwire.i420_to_rgb(packed))
+
+
+def test_audio_front_end():
+    """The fbank copy (tests/test_torch_audio.py holds it on more
+    waveforms and the .wav reader): constants, mel banks at the BEATs and
+    at another rate, and the features of a seeded 2 s waveform."""
+    for name in ("SAMPLE_RATE", "FRAME_LENGTH_MS", "FRAME_SHIFT_MS",
+                 "NUM_MEL_BINS", "LOW_FREQ", "PREEMPH", "FBANK_MEAN",
+                 "FBANK_STD"):
+        assert getattr(taudio, name) == getattr(jaudio, name), name
+    for args in ((128, 512, 16000), (64, 1024, 44100)):
+        np.testing.assert_array_equal(taudio.mel_banks(*args),
+                                      jaudio.mel_banks(*args))
+    wav = np.random.default_rng(6).uniform(-0.5, 0.5, 32000)
+    np.testing.assert_array_equal(taudio.beats_preprocess(wav),
+                                  jaudio.beats_preprocess(wav))
+    assert taudio._next_pow2(400) == jaudio._next_pow2(400) == 512
+    np.testing.assert_array_equal(taudio._povey_window(400),
+                                  jaudio._povey_window(400))
 
 
 class _Encoded:

@@ -97,7 +97,8 @@ def test_port_reaches_no_jax():
                 "encoder_attention"):
         assert PORT / "ops" / f"{mod}.py" in closure
     for path in ("inference/api.py", "checkpoint/convert_hf.py",
-                 "multimodal/tokenizer.py"):
+                 "multimodal/tokenizer.py", "media/audio.py",
+                 "models/beats.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"

@@ -328,10 +328,12 @@ def test_mm_infer_session_matches_jax_and_mm_infer(loaded):
 
 
 def test_session_api_refuses_audio(loaded):
+    """On a model without the audio branch the audio and AV modals raise
+    (the AV model's sessions: tests/test_torch_audio.py)."""
     _, (tmodel, ttok) = loaded
     for modal in ("audio", "av"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="audio-visual model"):
             tapi.ChatSession(None, tmodel, ttok, modal=modal)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="audio-visual model"):
             tapi.mm_infer_session(None, "hi", tmodel, ttok,
                                   tapi.SessionStore(), modal=modal)

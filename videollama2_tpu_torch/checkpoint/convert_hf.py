@@ -14,9 +14,10 @@ Safetensors shards go through this module's own reader (read_safetensors):
 each tensor is a view over a copy-on-write mmap of its file, so a shard is
 never copied whole; stacking the layers makes the first host copy. The
 paths of the JAX loader are (c)/(d), the full checkpoint, and (b), the
-pretrain directory (`mm_projector.bin` beside a `model_base`); (a), the
-LoRA directory, and the audio/AV branch raise NotImplementedError until
-their port.
+pretrain directory (`mm_projector.bin` beside a `model_base`), both with
+the audio-visual model's audio branch (BEATs under `model.audio_tower.`
+and its projector `model.mm_projector_a.`); (a), the LoRA directory,
+raises NotImplementedError until its port.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from typing import Dict, Iterable, Mapping
 import torch
 
 from ..core import config as cfglib
-from ..core.config import (ConnectorConfig, LLMConfig, ModelConfig,
-                           VisionConfig)
+from ..core.config import (AudioConfig, ConnectorConfig, LLMConfig,
+                           ModelConfig, VisionConfig)
 
 # safetensors dtype names -> torch dtypes
 ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
@@ -309,6 +310,103 @@ def connector_params_from_state_dict(sd: Mapping, cfg: ConnectorConfig,
 
 
 # ---------------------------------------------------------------------------
+# Audio tower (BEATs, VideoLLaMA2.1-AV)
+# ---------------------------------------------------------------------------
+
+# the audio tower's two key prefixes in released AV checkpoints
+AUDIO_PREFIXES = ("model.audio_tower.audio_tower.", "model.audio_tower.")
+
+
+def audio_params_from_state_dict(sd: Mapping, cfg: AudioConfig,
+                                 prefix: str) -> dict:
+    """Convert a BEATs state_dict (microsoft/unilm layout): patch_embedding
+    (Conv2d, no bias), layer_norm, post_extract_proj, encoder.pos_conv.0
+    (a weight-normed grouped Conv1d: weight_g, weight_v), encoder.layer_norm
+    (the post-norm backbone's input LN), encoder.layers.{l}: self_attn.
+    {q,k,v,out}_proj (k_proj without bias), grep_linear and
+    gru_rel_pos_const, self_attn_layer_norm, final_layer_norm, fc1, fc2.
+    Only layer 0's relative_attention_bias is read: BEATs computes the
+    position bias once, from layer 0's table, and shares it with every
+    layer, so the tables of layers 1-11 are never read."""
+    L = cfg.num_layers
+
+    def lk(l, s):
+        return f"{prefix}encoder.layers.{l}.{s}"
+
+    def linear(name, bias=True):
+        out = {"kernel": _stack(_t(sd, lk(l, f"{name}.weight"))
+                                for l in range(L))}
+        if bias:
+            out["bias"] = _stack(_a(sd, lk(l, f"{name}.bias"))
+                                 for l in range(L))
+        return out
+
+    def ln(name):
+        return {"scale": _stack(_a(sd, lk(l, f"{name}.weight"))
+                                for l in range(L)),
+                "bias": _stack(_a(sd, lk(l, f"{name}.bias"))
+                               for l in range(L))}
+
+    # weight norm (fairseq: weight_norm(conv, dim=2), weight_g [1, 1, K]):
+    # the norm runs over the axes where g has size 1, in fp32; the kernel
+    # [D, D/g, K] becomes [K, D/g, D]
+    wg = _a(sd, f"{prefix}encoder.pos_conv.0.weight_g")
+    wv = _a(sd, f"{prefix}encoder.pos_conv.0.weight_v")
+    axes = tuple(i for i, n in enumerate(wg.shape) if n == 1)
+    v32 = wv.float()
+    norm = torch.sqrt((v32 ** 2).sum(dim=axes, keepdim=True))
+    w = wg.float() * v32 / torch.clamp(norm, min=1e-8)
+    layers = {
+        "q": linear("self_attn.q_proj"),
+        "k": linear("self_attn.k_proj", bias=False),
+        "v": linear("self_attn.v_proj"),
+        "o": linear("self_attn.out_proj"),
+        "grep": linear("self_attn.grep_linear"),
+        "grep_a": _stack(_a(sd, lk(l, "self_attn.gru_rel_pos_const"))[0]
+                         for l in range(L)),
+        "ln1": ln("self_attn_layer_norm"),
+        "ln2": ln("final_layer_norm"),
+        "fc1": linear("fc1"),
+        "fc2": linear("fc2"),
+    }
+    return {
+        "patch_embed": {"kernel": _a(sd, f"{prefix}patch_embedding.weight")
+                        .permute(2, 3, 1, 0)},       # [E, 1, 16, 16] -> HWIO
+        "pre_ln": {"scale": _a(sd, f"{prefix}layer_norm.weight"),
+                   "bias": _a(sd, f"{prefix}layer_norm.bias")},
+        "post_extract_proj": {
+            "kernel": _t(sd, f"{prefix}post_extract_proj.weight"),
+            "bias": _a(sd, f"{prefix}post_extract_proj.bias")},
+        "pos_conv": {"kernel": w.permute(2, 1, 0).to(wv.dtype),
+                     "bias": _a(sd, f"{prefix}encoder.pos_conv.0.bias")},
+        "enc_ln": {"scale": _a(sd, f"{prefix}encoder.layer_norm.weight"),
+                   "bias": _a(sd, f"{prefix}encoder.layer_norm.bias")},
+        # nn.Embedding(num_buckets, num_heads): [320, H] as it is
+        "rel_embed": _a(sd, lk(0, "self_attn.relative_attention_bias."
+                               "weight")),
+        "layers": layers,
+    }
+
+
+def _audio_branch(sd: Mapping, cfg: ModelConfig) -> dict:
+    """The AV model's audio branch from a state dict: BEATs under either
+    prefix and the projector `model.mm_projector_a.{0,2}`; without an audio
+    tower, the port's seeded init (fp32) with a warning, as for a missing
+    vision tower (its values differ from the JAX package's PRNGKey(0)
+    init)."""
+    for prefix in AUDIO_PREFIXES:
+        if f"{prefix}patch_embedding.weight" in sd:
+            return {"encoder": audio_params_from_state_dict(sd, cfg.audio,
+                                                            prefix),
+                    "projector": _mlp_seq(sd, "model.mm_projector_a", 2)}
+    from ..utils.synthetic import synthetic_audio_params
+    warnings.warn("AV config but no audio tower weights found; audio "
+                  "branch randomly initialized")
+    return synthetic_audio_params(cfg, dtype=torch.float32, device="cpu",
+                                  seed=0)
+
+
+# ---------------------------------------------------------------------------
 # Whole-model assembly from a checkpoint directory
 # ---------------------------------------------------------------------------
 
@@ -454,15 +552,11 @@ def model_config_to_hf(cfg: ModelConfig) -> dict:
     return out
 
 
-_AUDIO = "the audio/AV branch is not ported yet (ROADMAP queue 1 item 12)"
-
-
 def videollama2_params_from_state_dict(sd: Mapping, cfg: ModelConfig) -> dict:
     """Full checkpoint: model.* (LLM), model.vision_tower.vision_tower.* ,
-    model.mm_projector.* (reference save layout)."""
-    if cfg.audio is not None:
-        raise NotImplementedError(_AUDIO)
-    return {
+    model.mm_projector.* (reference save layout); AV checkpoints add
+    model.audio_tower.* and model.mm_projector_a.*."""
+    params = {
         "llm": llm_params_from_state_dict(sd, cfg.llm, prefix="model."),
         "vision": vision_params_from_state_dict(
             sd, cfg.vision,
@@ -470,6 +564,9 @@ def videollama2_params_from_state_dict(sd: Mapping, cfg: ModelConfig) -> dict:
         "connector": connector_params_from_state_dict(
             sd, cfg.connector, prefix="model.mm_projector."),
     }
+    if cfg.audio is not None:
+        params["audio"] = _audio_branch(sd, cfg)
+    return params
 
 
 def load_videollama2(path: str, model_base: str = None,
@@ -478,7 +575,8 @@ def load_videollama2(path: str, model_base: str = None,
     model/__init__.py:48-193):
 
       (b) pretrain dir (mm_projector.bin) + model_base: base LLM + converted
-          projector, vision tower from `vision_tower_path` or seeded random;
+          projector, vision tower from `vision_tower_path` or seeded random
+          (an AV config's audio branch from model_base, else seeded random);
       (c) full SFT checkpoint: everything from the one directory;
       (d) plain LLM checkpoint: falls back to (c) shapes minus mm modules.
 
@@ -488,8 +586,6 @@ def load_videollama2(path: str, model_base: str = None,
     with open(os.path.join(path, "config.json")) as f:
         cfg_json = json.load(f)
     cfg = model_config_from_hf(cfg_json)
-    if cfg.audio is not None:
-        raise NotImplementedError(_AUDIO)
     files = set(os.listdir(path))
     if any(f.startswith("adapter_model") for f in files):
         raise NotImplementedError("LoRA checkpoint directories are not "
@@ -508,6 +604,8 @@ def load_videollama2(path: str, model_base: str = None,
             "vision": _vision_params(cfg, vision_tower_path),
             "connector": load_pretrain_adapter(path, cfg.connector),
         }
+        if cfg.audio is not None:
+            params["audio"] = _audio_branch(base_sd, cfg)
         return cfg, params
 
     # (c)/(d) full checkpoint

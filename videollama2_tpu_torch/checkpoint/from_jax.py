@@ -10,7 +10,9 @@ split (ops/quant.quantize_llm_params, quantize_vision_params) or already
 fused (ops/quant.fuse_qkv); the int4 fold is over the input axis, so the
 output-axis concatenation fuses them unchanged; an int8 embedding
 ("weight_q8", quantize_llm_params(include_embed=True)) is taken as it is.
-The tower is CLIP's or SigLIP's, as `cfg.vision` says. It raises if a JAX
+The tower is CLIP's or SigLIP's, as `cfg.vision` says; the audio-visual
+model's "audio" branch (BEATs and its projector) keeps the JAX layouts and
+is copied leaf by leaf. It raises if a JAX
 leaf is left unused or a port parameter is left unfilled, so both packages
 compute the same function. Leaves may be numpy arrays (a JAX tree) or torch
 tensors in any dtype (checkpoint/convert_hf's tree of a released bf16
@@ -58,8 +60,9 @@ def _tensor(leaf) -> torch.Tensor:
 
 
 def params_from_jax(jax_params: dict, cfg) -> dict:
-    """jax_params: {"llm", "vision", "connector"} tree of torch tensors or
-    numpy (or array-like) leaves. Returns the port's tree as contiguous
+    """jax_params: {"llm", "vision", "connector"[, "audio"]} tree (the
+    audio branch when cfg.audio is set) of torch tensors or numpy (or
+    array-like) leaves. Returns the port's tree as contiguous
     tensors on the leaves' device, in their dtype (the Engine moves and
     casts them)."""
     src = {p: _tensor(a) for p, a in _flatten(jax_params)}

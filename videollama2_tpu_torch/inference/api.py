@@ -11,18 +11,23 @@ tokenizer or image library:
   `transformers.AutoTokenizer.from_pretrained(model_path)`); any object
   with `__call__(text, add_special_tokens=False).input_ids`,
   `apply_chat_template`, `decode` and `eos_token_id` will do.
-* The processors' image and video entries raise NotImplementedError: they
-  need PIL or the native media reader. `mm_infer` takes frames already
-  decoded: float32 (normalized), uint8 RGB or planar I420 uint8.
+* The processors' image, video and av entries, and audio from any file
+  but a .wav, raise NotImplementedError: they need PIL or the native media
+  reader. `mm_infer` takes frames already decoded: float32 (normalized),
+  uint8 RGB or planar I420 uint8.
 
-`ChatSession`, `SessionStore` and `mm_infer_session` serve multi-turn chat
-from a prefix-cached KV (Engine.generate_continue). The audio and AV modals
-raise NotImplementedError until their port (ROADMAP queue 1 item 12).
+On the audio-visual model (VideoLLaMA2.1-AV, cfg.audio set) the "audio"
+modal takes a .wav path, a 16 kHz waveform or BEATs fbank features, and
+"av" a dict {"video": frames, "audio": one of those}; `mm_infer_batch`
+stays video and image only, as in the JAX package. `ChatSession`,
+`SessionStore` and `mm_infer_session` serve multi-turn chat in every modal
+from a prefix-cached KV (Engine.generate_continue).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import hashlib
 import threading
 from dataclasses import dataclass
@@ -38,6 +43,7 @@ from ..constants import (DEFAULT_AUDIO_TOKEN, DEFAULT_IMAGE_TOKEN,
                          DEFAULT_VIDEO_TOKEN)
 from ..core import config as cfglib
 from ..core.config import ModelConfig
+from ..media import audio as audio_lib
 from ..multimodal.tokenizer import (tokenizer_multimodal_token,
                                     tokenizer_multimodal_tokens)
 from ..ops import quant
@@ -48,9 +54,6 @@ MISTRAL_SYSTEM = (
     """<<SYS>>\nYou are a helpful, respectful and honest assistant. Always answer as helpfully as possible, while being safe.  Your answers should not include any harmful, unethical, racist, sexist, toxic, dangerous, or illegal content. Please ensure that your responses are socially unbiased and positive in nature."""
     """\n"""
     """If a question does not make any sense, or is not factually coherent, explain why instead of answering something not correct. If you don't know the answer to a question, please don't share false information.\n<</SYS>>""")
-
-_AUDIO = "audio and AV prompts are not ported yet (ROADMAP queue 1 item 12)"
-
 
 @dataclass
 class VideoLLaMA2:
@@ -68,16 +71,26 @@ def _media_not_ported(*args, **kwargs):
     raise NotImplementedError("media decoding is not ported yet")
 
 
-# the processor entries of model_init: decoding images and videos needs
-# PIL or the native reader, which the port does not have yet
-PROCESSOR = {"image": _media_not_ported, "video": _media_not_ported}
+def _processors(cfg: ModelConfig) -> dict:
+    """The processor entries of model_init. Decoding images and video
+    containers needs PIL or the native reader, which the port does not
+    have yet, so those entries raise; that includes "av", which takes a
+    container for its frames and its own audio track. The audio-visual
+    model's "audio" entry gives [1, audio.max_frames, 128] fbank features
+    (_prep_audio)."""
+    processor = {"image": _media_not_ported, "video": _media_not_ported}
+    if cfg.audio is not None:
+        processor["audio"] = functools.partial(_prep_audio, cfg=cfg)
+        processor["av"] = _media_not_ported
+    return processor
 
 
 def _quantize_on_device(params: dict, device, bits: int,
                         vision: bool) -> None:
     """The JAX model_init's load_8bit / load_4bit packs, made on `device`:
     the LLM's projections as int8 (bits 8) or folded int4 (bits 4) packs
-    with an int8 head, and with `vision` the tower's linears as int8 packs.
+    with an int8 head, and with `vision` the tower's linears as int8 packs
+    (the audio-visual model's audio branch stays floating, as in JAX).
     Each layer moves to the device and is widened to fp32 before it is
     quantized, as the JAX package quantizes the fp32 tree its loader makes,
     so the packs are the JAX package's bit for bit."""
@@ -128,7 +141,7 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     if model_path.startswith("synthetic://"):
         model = _model_init_synthetic(model_path, dtype, max_len, device,
                                       **kwargs)
-        return model, dict(PROCESSOR), tokenizer
+        return model, _processors(model.config), tokenizer
 
     cfg, tree = convert_hf.load_videollama2(
         model_path, model_base=model_base,
@@ -140,7 +153,7 @@ def model_init(model_path: Optional[str] = None, dtype=None,
                             vision=load_8bit)
     engine = Engine(cfg, params, dtype=dtype, max_len=max_len,
                     device=device, **kwargs)
-    return VideoLLaMA2(config=cfg, engine=engine), dict(PROCESSOR), tokenizer
+    return VideoLLaMA2(config=cfg, engine=engine), _processors(cfg), tokenizer
 
 
 def _model_init_synthetic(model_path: str, dtype, max_len: int, device,
@@ -205,6 +218,44 @@ def build_prompt_ids(instruct, cfg, tokenizer, modal: str = "video"):
     return tokenizer_multimodal_token(prompt, tokenizer, modal_token)
 
 
+def _prep_audio(audio_input, cfg) -> np.ndarray:
+    """A .wav path, a waveform [samples] or fbank features [T, 128] /
+    [1, T, 128] -> [1, audio.max_frames, 128] BEATs features, zero-padded
+    or trimmed (JAX `_prep_audio`). Other paths raise NotImplementedError
+    (media/audio.load_audio)."""
+    if isinstance(audio_input, str):
+        feats = audio_lib.beats_preprocess(audio_lib.load_audio(audio_input))
+    else:
+        arr = np.asarray(audio_input, dtype=np.float32)
+        if arr.ndim == 3:  # [1, T, 128] from the processor
+            arr = arr[0]
+        feats = audio_lib.beats_preprocess(arr) if arr.ndim == 1 else arr
+    T = cfg.audio.max_frames
+    if feats.shape[0] < T:
+        feats = np.pad(feats, ((0, T - feats.shape[0]), (0, 0)))
+    return feats[None, :T]
+
+
+def _inputs(media, cfg, modal: str):
+    """(frames, audio) for Engine.generate from a request's media: None for
+    "text"; "audio" takes what _prep_audio takes; "av" a dict {"video":
+    frames, "audio": ...}; a container path for "av" raises
+    NotImplementedError (its frames and audio track need the decoder)."""
+    if modal == "text":
+        return None, None
+    if modal in ("audio", "av") and cfg.audio is None:
+        raise ValueError(f"modal {modal!r} needs the audio-visual model "
+                         "(cfg.audio is None)")
+    if modal == "audio":
+        return None, _prep_audio(media, cfg)
+    if modal == "av":
+        if not isinstance(media, dict):
+            _media_not_ported()
+        return (_frames(media["video"], cfg, modal),
+                _prep_audio(media["audio"], cfg))
+    return _frames(media, cfg, modal), None
+
+
 def _frames(image_or_video, cfg, modal: str) -> np.ndarray:
     """[1, T, ...] frames for the Engine: uint8 (RGB or I420) rides
     through, anything else becomes float32; an image is repeated to
@@ -235,15 +286,15 @@ def mm_infer(image_or_video, instruct, model: VideoLLaMA2, tokenizer,
 
     image_or_video: [T, H, W, 3] numpy, float32 (normalized on the host)
     or uint8 (resized raw RGB, normalized on the device), or planar I420
-    [T, H*3/2, W] uint8; None for modal "text".
+    [T, H*3/2, W] uint8; None for modal "text"; for "audio", a .wav path,
+    a 16 kHz waveform or fbank features; for "av", {"video": frames,
+    "audio": one of those}.
     """
-    if modal in ("audio", "av"):
-        raise NotImplementedError(_AUDIO)
     cfg = model.config
-    frames = None if modal == "text" else _frames(image_or_video, cfg, modal)
+    frames, audio = _inputs(image_or_video, cfg, modal)
     input_ids = build_prompt_ids(instruct, cfg, tokenizer, modal)
     outs = model.engine.generate(
-        [input_ids], frames=frames,
+        [input_ids], frames=frames, audio=audio,
         gen=_generation(kwargs, kwargs.get("speculative_k", 0)),
         eos_token_id=tokenizer.eos_token_id, image_mode=(modal == "image"),
         stream_cb=kwargs.get("stream_cb"))
@@ -284,17 +335,15 @@ class ChatSession:
     prefilled once for the whole conversation. A prefix mismatch or a full
     cache falls back to a fresh generate, so the replies are always those
     of per-turn mm_infer calls. `stats` counts both kinds of turn. Takes
-    the modals mm_infer takes, on frames already decoded.
+    the modals and media mm_infer takes, prepared once here.
     """
 
     def __init__(self, image_or_video, model: VideoLLaMA2, tokenizer,
                  modal: str = "video", **gen_kwargs):
-        if modal in ("audio", "av"):
-            raise NotImplementedError(_AUDIO)
+        self._inputs = _inputs(image_or_video, model.config, modal)
         self.model = model
         self.tokenizer = tokenizer
         self.modal = modal
-        self.media = image_or_video
         self.gen_kwargs = dict(gen_kwargs)
         self.messages: list = []
         self._session = None
@@ -320,10 +369,10 @@ class ChatSession:
             except ValueError:  # the cache is full
                 outs = None
         if outs is None:
-            frames = (None if self.modal == "text"
-                      else _frames(self.media, cfg, self.modal))
+            frames, audio = self._inputs
             outs, self._session = eng.generate(
-                [full_ids], frames=frames, gen=gen, eos_token_id=eos,
+                [full_ids], frames=frames, audio=audio, gen=gen,
+                eos_token_id=eos,
                 image_mode=(self.modal == "image"), return_session=True)
             self.stats["fresh_turns"] += 1
         reply = self.tokenizer.decode(
@@ -357,9 +406,16 @@ class SessionStore:
 
     @staticmethod
     def media_digest(media) -> Optional[str]:
-        """md5 of decoded frames' bytes and shape; None for text."""
+        """md5 of decoded media's bytes and shape, of a path's name (a .wav
+        file), or, for an AV dict, its entries' digests joined by "+" in
+        key order; None for text."""
         if media is None:
             return None
+        if isinstance(media, dict):
+            return "+".join(SessionStore.media_digest(media[k])
+                            for k in sorted(media))
+        if isinstance(media, str):
+            return hashlib.md5(b"path:" + media.encode()).hexdigest()
         arr = np.ascontiguousarray(np.asarray(media))
         return hashlib.md5(
             arr.tobytes() + str(arr.shape).encode()).hexdigest()
@@ -388,8 +444,6 @@ def mm_infer_session(image_or_video, instruct, model: VideoLLaMA2,
     `mm_infer_session`): the reply is mm_infer's; when the rendered
     prompt extends a stored session's ids over the same media, only the
     new tokens feed the engine (Engine.generate_continue)."""
-    if modal in ("audio", "av"):
-        raise NotImplementedError(_AUDIO)
     cfg = model.config
     full_ids = build_prompt_ids(instruct, cfg, tokenizer, modal)
     digest = store.media_digest(None if modal == "text" else image_or_video)
@@ -406,10 +460,10 @@ def mm_infer_session(image_or_video, instruct, model: VideoLLaMA2,
         except ValueError:  # the cache is full: a fresh generate
             outs = None
     if outs is None:
-        frames = (None if modal == "text"
-                  else _frames(image_or_video, cfg, modal))
+        frames, audio = _inputs(image_or_video, cfg, modal)
         outs, sess = model.engine.generate(
-            [full_ids], frames=frames, gen=gen, eos_token_id=eos,
+            [full_ids], frames=frames, audio=audio, gen=gen,
+            eos_token_id=eos,
             image_mode=(modal == "image"), stream_cb=stream_cb,
             return_session=True)
     store.put(digest, sess)

@@ -14,8 +14,10 @@ every LLM projection, decode runs on the layered int8 (or int4) kernels
 decode by prompt-lookup speculation (inference/speculative.py: K-slot
 verify passes, models/llm.decode_verify), token-identical to plain greedy;
 `generate(..., return_session=True)` and `generate_continue` keep a batch-1
-chat's cache for its next turn. Audio, grouped media and sharding raise
-NotImplementedError until their port.
+chat's cache for its next turn. On the audio-visual model, `audio` (BEATs
+fbank features) gives the "audio" and "av" prefills; the decode tail,
+sessions and speculation after them are shared. Grouped media and sharding
+raise NotImplementedError until their port.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..constants import (AUDIO_TOKEN_INDEX, IMAGE_TOKEN_INDEX,
+                         VIDEO_TOKEN_INDEX)
 from ..core.config import ModelConfig
 
 from ..models import llm as llm_lib
@@ -172,28 +176,41 @@ class Engine:
         sample, [B, T, H, W, 3] (uint8 or float) or uint8 I420
         [B, T, H*3/2, W], as numpy or a device tensor (see upload_frames);
         with share_media, [1, ...] shared by every prompt; with image_mode,
-        the first frame of each slot is encoded once and broadcast.
-        Returns the new token ids per sample, EOS included; with
+        the first frame of each slot is encoded once and broadcast. audio
+        (the audio-visual model): normalized fbank features [B,
+        audio.max_frames, 128] (numpy or a tensor), cast to the engine dtype
+        before BEATs; with frames too the prompt is audio-visual, its
+        <video> tag before <audio>, and image_mode and share_media do not
+        apply. Returns the new token ids per sample, EOS included; with
         return_session (batch 1 only), (ids, Session) for the next turn's
         generate_continue.
         """
-        if audio is not None:
-            raise NotImplementedError("audio prompts are not ported yet")
+        cfg = self.cfg
+        if audio is not None and cfg.audio is None:
+            raise ValueError("audio given to a model without an audio "
+                             "branch (cfg.audio is None)")
         if media_group is not None:
             raise NotImplementedError("grouped media is not ported yet")
         if return_session and len(batch_input_ids) != 1:
             raise ValueError("sessions are batch-1 (multi-turn chat)")
-        cfg = self.cfg
         eos = eos_token_id if eos_token_id is not None else cfg.llm.eos_token_id
         B = len(batch_input_ids)
-        mode = ("text" if frames is None else "image" if image_mode
-                else "vision_shared" if share_media else "vision")
+        if audio is not None:
+            mode = "audio" if frames is None else "av"
+        else:
+            mode = ("text" if frames is None else "image" if image_mode
+                    else "vision_shared" if share_media else "vision")
         if mode == "vision_shared":
             frames = frames[:1]
         if mode == "image":
             frames = frames[:, :1]
 
         tpm = cfg.tokens_per_video
+        if audio is not None:
+            # an audio-only prompt holds no visual tag's tokens
+            tpv = tpm if mode == "av" else 0
+            tpm = {IMAGE_TOKEN_INDEX: tpv, VIDEO_TOKEN_INDEX: tpv,
+                   AUDIO_TOKEN_INDEX: cfg.tokens_per_audio}
         lengths = [splice_lib.spliced_length(ids, tpm)
                    for ids in batch_input_ids]
         bucket = self.pick_bucket(max(lengths))
@@ -227,6 +244,13 @@ class Engine:
             last, cache = llm_lib.prefill(params["llm"], cfg.llm, embeds,
                                           positions, valid_len, cache,
                                           w8a8=True)
+        elif mode in ("audio", "av"):
+            fbank = torch.as_tensor(audio).to(self.device, self.dtype)
+            last, cache = vl2.prefill_audio_visual(
+                params, cfg,
+                self._frames_to_device(frames) if mode == "av" else None,
+                fbank, text_ids, is_visual, vis_index, positions, valid_len,
+                cache, w8a8=True)
         else:
             last, cache = vl2.prefill_multimodal(
                 params, cfg, self._frames_to_device(frames), text_ids,

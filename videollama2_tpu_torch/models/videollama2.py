@@ -1,9 +1,12 @@
-"""Multimodal assembly, video path (port of
-videollama2_tpu/models/videollama2.py): frames -> CLIP or SigLIP tower ->
-STC connector -> splice -> LLM prefill (serving) or LLM forward, head and
-shifted cross-entropy (training, `forward_train`).
+"""Multimodal assembly (port of videollama2_tpu/models/videollama2.py):
+frames -> CLIP or SigLIP tower -> STC connector, and on the audio-visual
+model fbank -> BEATs -> 2-layer MLP projector (`encode_audio`); then the
+splice -> LLM prefill (serving) or LLM forward, head and shifted
+cross-entropy (training, `forward_train`, video only as in the JAX
+package).
 
-Params tree: {"llm": ..., "vision": ..., "connector": ...}.
+Params tree: {"llm": ..., "vision": ..., "connector": ...} and, when
+cfg.audio is set, "audio": {"encoder": BEATs, "projector": MLP}.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from ..constants import IGNORE_INDEX
 from ..core.config import ModelConfig
 from ..media import wire
 from ..multimodal import splice as splice_lib
+from . import beats as beats_lib
 from . import connector as connector_lib
 from . import llm as llm_lib
 from . import vit as vit_lib
@@ -29,13 +33,21 @@ def param_shapes(cfg: ModelConfig, llm_bits: Optional[int] = None,
                  int8_embed: bool = False) -> dict:
     """Shapes of the whole tree; llm_bits (8 or 4) / int8_vision /
     int8_embed give the layouts of ops/quant.quantize_llm_params(bits)
-    (int8 head included; include_embed) and quantize_vision_params."""
+    (int8 head included; include_embed) and quantize_vision_params. With
+    cfg.audio, the tree has the audio branch: BEATs and its projector
+    (encoder_dim -> hidden -> hidden), never packed (the JAX package's
+    quantizers leave it floating)."""
+    shapes = {"llm": llm_lib.param_shapes(cfg.llm, bits=llm_bits,
+                                          int8_embed=int8_embed),
+              "vision": vit_lib.param_shapes(cfg.vision, int8=int8_vision),
+              "connector": connector_lib.param_shapes(cfg.connector)}
     if cfg.audio is not None:
-        raise NotImplementedError("the audio branch is not ported yet")
-    return {"llm": llm_lib.param_shapes(cfg.llm, bits=llm_bits,
-                                        int8_embed=int8_embed),
-            "vision": vit_lib.param_shapes(cfg.vision, int8=int8_vision),
-            "connector": connector_lib.param_shapes(cfg.connector)}
+        D, C = cfg.audio.encoder_dim, cfg.llm.hidden_size
+        shapes["audio"] = {
+            "encoder": beats_lib.param_shapes(cfg.audio),
+            "projector": {"fc1": {"kernel": (D, C), "bias": (C,)},
+                          "fc2": {"kernel": (C, C), "bias": (C,)}}}
+    return shapes
 
 
 def _i420_to_rgb(buf: torch.Tensor) -> torch.Tensor:
@@ -114,6 +126,15 @@ def _tower_features(params: dict, cfg: ModelConfig, flat: torch.Tensor,
                       for i in range(0, N, chunk)])
 
 
+def encode_audio(params: dict, cfg: ModelConfig,
+                 fbank_feats: torch.Tensor) -> torch.Tensor:
+    """Frozen BEATs + the audio projector: fbank [B, audio.max_frames, 128]
+    -> [B, tokens_per_audio, hidden]."""
+    feats = beats_lib.forward(params["audio"]["encoder"], cfg.audio,
+                              fbank_feats)
+    return connector_lib._mlp(feats, params["audio"]["projector"])
+
+
 def temporal_aggregator(params: dict, cfg: ModelConfig,
                         frame_feats: torch.Tensor) -> torch.Tensor:
     """[B, T, N, D_vision] -> [B, tokens, D_llm] through the connector;
@@ -138,6 +159,31 @@ def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                                     dtype=vis_tokens.dtype)
     embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
                                        vis_index)
+    return llm_lib.prefill(params["llm"], cfg.llm, embeds, positions,
+                           valid_len, cache, w8a8=w8a8)
+
+
+def prefill_audio_visual(params: dict, cfg: ModelConfig,
+                         frames: Optional[torch.Tensor],
+                         fbank_feats: torch.Tensor, text_ids: torch.Tensor,
+                         is_visual: torch.Tensor, vis_index: torch.Tensor,
+                         positions: torch.Tensor, valid_len: torch.Tensor,
+                         cache: llm_lib.KVCache, w8a8: bool = False
+                         ) -> Tuple[torch.Tensor, llm_lib.KVCache]:
+    """Inference prefill of an audio (frames None) or audio-visual prompt
+    (the JAX Engine's prefill_audio / prefill_av) -> (last_hidden, cache).
+
+    Each sample's media tokens are its video tokens, then its audio tokens
+    (the AV template puts <video> before <audio>); the text is embedded in
+    the fbank's dtype, the Engine's."""
+    media = encode_audio(params, cfg, fbank_feats)
+    if frames is not None:
+        vis = encode_frames(params, cfg, frames, w8a8=w8a8)
+        dtype = torch.promote_types(vis.dtype, media.dtype)
+        media = torch.cat([vis.to(dtype), media.to(dtype)], dim=1)
+    text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
+                                    dtype=fbank_feats.dtype)
+    embeds = splice_lib.compose_embeds(text_emb, media, is_visual, vis_index)
     return llm_lib.prefill(params["llm"], cfg.llm, embeds, positions,
                            valid_len, cache, w8a8=w8a8)
 

@@ -3,8 +3,9 @@
 Released checkpoints are not needed to run or time the model: this builds
 every parameter of `models/videollama2.param_shapes(cfg)` from one seeded
 torch.Generator, with the JAX package's init scales (normal(0, 0.02)
-kernels and embeddings, ones for norm scales, zeros for biases, He-normal
-connector convs, 1/sqrt(fan_in) readout). Random values, unlike constant
+kernels and embeddings, ones for norm scales and BEATs's gate constants,
+zeros for biases, He-normal connector convs, 1/sqrt(fan_in) readout and
+audio projector). Random values, unlike constant
 fills, give every attention row a different softmax, so a kernel bug shows
 up in the output. The quantized variants (int8 or folded int4 LLM layers,
 an int8 head and tower) quantize that same tree on the device with
@@ -32,7 +33,7 @@ from ..train.data import Batch
 
 def _init(path, shape, dtype, device, generator) -> torch.Tensor:
     name = path[-1]
-    if name == "scale":
+    if name in ("scale", "grep_a"):
         return torch.ones(shape, dtype=dtype, device=device)
     if name == "bias":
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -40,6 +41,8 @@ def _init(path, shape, dtype, device, generator) -> torch.Tensor:
     if path[0] == "connector":
         fan_in = math.prod(shape[:-1])
         std = math.sqrt((1.0 if path[1] == "readout" else 2.0) / fan_in)
+    elif path[:2] == ("audio", "projector"):
+        std = math.sqrt(1.0 / shape[0])
     w = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     return w.mul_(std)
 
@@ -65,7 +68,8 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
     quantized from the seeded floating weights. With quantize_embed, the
     embedding becomes an int8 pack with per-row scales (include_embed:
     bench.py quantizes it for BENCH_MODEL=qwen2, whose 152k-row table is
-    1.1 GB in bf16)."""
+    1.1 GB in bf16). The audio-visual model's audio branch stays floating,
+    as the JAX package's quantizers leave it."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     params = _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
@@ -91,6 +95,17 @@ def synthetic_vision_params(vision_cfg, dtype=torch.bfloat16,
     generator.manual_seed(seed)
     return _build(vit.param_shapes(vision_cfg), ("vision",), dtype,
                   torch.device(device), generator)
+
+
+def synthetic_audio_params(cfg, dtype=torch.bfloat16, device="cuda",
+                           seed: int = 0) -> dict:
+    """The audio branch alone (BEATs and its projector), seeded and
+    initialised as in synthetic_params, to add to a tree built without it
+    (an audio-visual model over a video model's weights)."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    shapes = vl2.param_shapes(cfg)["audio"]
+    return _build(shapes, ("audio",), dtype, torch.device(device), generator)
 
 
 def synthetic_train_batch(cfg, rng: np.random.Generator, n: int,
