@@ -36,7 +36,15 @@ only the connector trains) runs two optimizer steps of 16 videos
 (grad_accum 2 x 8) at seq 2048 through Trainer.train, twice, with the
 flash-attention LSE forward (K2) and backward kernels (K8, K9), and one
 microbatch's loss and connector gradient are held against the plain
-attention.
+attention. Last, the "lora" phase runs the reference's LoRA and QLoRA
+finetune recipes (adapters r 128 on every LLM projection, 16 videos a
+step as 4 x 4, over the bf16 base and over folded int4 layers) twice
+each with the same checks (every adapter b and the connector moved,
+every frozen tensor bit-unchanged, adapter gradients against the plain
+attention), reads the QLoRA adapters' split save back bit for bit, serves
+the unmerged QLoRA tree (the packed decode kernels at 0), and loads a
+LoRA directory over the api phase's checkpoint through model_init, its
+int8 packs held bit-equal to an independent quantize(base + a @ b * s).
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -127,6 +135,17 @@ CHAT_NEW_TOKENS = 8
 # qkv bias)
 SPEC_SLICES = {"int8 slice": dict(batched=True, session=True),
                "2.1 bf16 slice": dict(batched=False, session=False)}
+# the "lora" phase: the reference's LoRA and QLoRA finetune recipes
+# (scripts/custom/finetune_lora.sh, finetune_qlora.sh: adapters r 128,
+# alpha 256 on q, k, v, o, gate, up and down, 8 frames, per-device batch
+# 4, grad-accum 4, learning rate and mm_projector_lr 2e-5, cosine after a
+# 3% warmup; QLoRA over a 4-bit base) at full width, LORA_STEPS steps;
+# then the QLoRA tree served unmerged (LORA_NEW_TOKENS greedy tokens) and
+# a LoRA directory over the api phase's checkpoint through model_init
+LORA_R, LORA_ALPHA = 128, 256
+LORA_MB, LORA_ACCUM, LORA_STEPS = 4, 4, 2
+LORA_LR = 2e-5
+LORA_NEW_TOKENS = 8
 
 
 def log(msg: str) -> None:
@@ -873,31 +892,33 @@ def _checksums(tensors) -> list:
                       dtype=torch.int64).item() for t in tensors]
 
 
-def run_training(cfg, params, batches, counters, want, out_dir) -> dict:
-    """Two runs of TRAIN_STEPS optimizer steps through Trainer.train from
-    the same params; checks launch counts, losses (finite, equal in both
-    runs), that the connector changed and that no frozen tensor did."""
-    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
-                                                       flatten)
+def run_training(label, cfg, params, batches, counters, want, out_dir,
+                 opt_cfg, grad_accum, each_changes=()) -> dict:
+    """Two runs of len(batches) optimizer steps through Trainer.train
+    (opt_cfg, grad_accum microbatches a step) from the same params;
+    checks launch counts, losses (finite, equal in both runs), that the
+    connector and every tensor of `each_changes` (paths) changed and that
+    no frozen tensor did (every leaf the trainable mask leaves out)."""
+    from videollama2_tpu_torch.train.optimizer import (flatten,
+                                                       trainable_mask)
     from videollama2_tpu_torch.train.trainer import Trainer, TrainerConfig
     flat = flatten(params)
-    conn = {p: t for p, t in flat.items() if p[0] == "connector"}
-    conn0 = {p: t.detach().clone() for p, t in conn.items()}
-    frozen = [t for p, t in flat.items() if p[0] != "connector"]
+    mask = trainable_mask(params, opt_cfg)
+    trained = {p: t for p, t in flat.items() if mask[p]}
+    start = {p: t.detach().clone() for p, t in trained.items()}
+    frozen = [t for p, t in flat.items() if not mask[p]]
     frozen0 = _checksums(frozen)
     valid_tokens = [int(b.valid_len.sum()) for b in batches]
     runs = []
     for run in range(2):
         with torch.no_grad():
-            for p, t in conn.items():
-                t.copy_(conn0[p])
+            for p, t in trained.items():
+                t.copy_(start[p])
         trainer = Trainer(
-            cfg, params,
-            OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0,
-                            weight_decay=0.0, tune_mm_mlp_adapter=True),
+            cfg, params, opt_cfg,
             TrainerConfig(output_dir=out_dir,
-                          gradient_accumulation_steps=GRAD_ACCUM,
-                          max_steps=TRAIN_STEPS, log_steps=1,
+                          gradient_accumulation_steps=grad_accum,
+                          max_steps=len(batches), log_steps=1,
                           save_steps=10 ** 9))
         inner, steps = trainer.step_fn, []
 
@@ -922,33 +943,43 @@ def run_training(cfg, params, batches, counters, want, out_dir) -> dict:
         t_train = time.perf_counter() - t0
         counts = {n: fn.launches for n, fn in counters.items()}
         for i, st in enumerate(steps):
-            log(f"[training slice] run {run + 1} step {i + 1}: "
-                f"{st['s']:.3f} s, {valid_tokens[i] / st['s']:.0f} valid "
+            st["valid_tokens_per_s"] = valid_tokens[i] / st["s"]
+            log(f"[{label}] run {run + 1} step {i + 1}: "
+                f"{st['s']:.3f} s, {st['valid_tokens_per_s']:.0f} valid "
                 f"tokens/s ({valid_tokens[i]} tokens, {st['num_tokens']} "
                 f"supervised), loss {st['loss']:.6f}, accuracy "
                 f"{st['accuracy']:.4f}, peak {st['peak_gb']:.1f} GB")
-        log(f"[training slice] run {run + 1}: Trainer.train {t_train:.1f} s "
-            f"with the projector save; launches {counts} (want {want})")
+        log(f"[{label}] run {run + 1}: Trainer.train {t_train:.1f} s "
+            f"with its save; launches {counts} (want {want})")
         if counts != want:
-            raise RuntimeError(f"training: launch counts {counts} != {want}")
+            raise RuntimeError(f"{label}: launch counts {counts} != {want}")
         if not all(np.isfinite(st["loss"]) for st in steps):
-            raise RuntimeError("training: non-finite loss")
-        if run == 0 and all(torch.equal(t, conn0[p])
-                            for p, t in conn.items()):
-            raise RuntimeError("training: the connector did not change")
+            raise RuntimeError(f"{label}: non-finite loss")
+        if run == 0:
+            if all(torch.equal(t, start[p]) for p, t in trained.items()
+                   if p[0] == "connector"):
+                raise RuntimeError(f"{label}: the connector did not change")
+            same = [p for p in each_changes
+                    if torch.equal(trained[p], start[p])]
+            if same:
+                raise RuntimeError(f"{label}: unchanged: {same}")
         runs.append([st["loss"] for st in steps])
         stats = steps
     if runs[0] != runs[1]:
-        raise RuntimeError(f"training: the two runs' losses differ: {runs}")
+        raise RuntimeError(f"{label}: the two runs' losses differ: {runs}")
     if _checksums(frozen) != frozen0:
-        raise RuntimeError("training: a frozen tensor changed")
-    log(f"[training slice] losses identical in both runs {runs[1]}; the "
-        f"connector changed; all {len(frozen)} frozen tensors unchanged "
-        "(bit checksums)")
-    return {"steps": stats, "valid_tokens": valid_tokens}
+        raise RuntimeError(f"{label}: a frozen tensor changed")
+    b_note = (f" and all {len(each_changes)} tensors of b" if each_changes
+              else "")
+    log(f"[{label}] losses identical in both runs {runs[1]}; the "
+        f"connector{b_note} changed; all {len(frozen)} frozen tensors "
+        "unchanged (bit checksums)")
+    return {"steps": stats, "valid_tokens": valid_tokens,
+            "trainer_train_s": t_train}
 
 
-def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
+def check_training_against_plain(label, cfg, params, batch, k2, counters,
+                                 tensors) -> dict:
     """One microbatch of 2 rows through forward_train and its backward,
     with the flash kernels, with FlashAttention's halves swapped for their
     plain versions, and with the kernels' attention outputs and gradients
@@ -964,20 +995,21 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
     exactly that moves the connector gradient on this batch (the rounding
     floor), so the kernel-vs-plain difference is held to twice the floor's
     relative L2; besides, cosine >= TRAIN_GRAD_COS and the loss to
-    TRAIN_LOSS_REL_TOL."""
+    TRAIN_LOSS_REL_TOL. The gradient is that of `tensors` (the connector's,
+    or the LoRA adapters'), concatenated."""
     from videollama2_tpu_torch.train.data import Batch
     from videollama2_tpu_torch.train.optimizer import flatten
     from videollama2_tpu_torch.train.step import loss_fn
     mb = Batch(*(a[:2] for a in batch))
-    conn = list(flatten(params["connector"]).values())
+    leaves = list(flatten(params).values())
+    for t in tensors:
+        t.requires_grad_(True)
 
     def loss_and_grad():
-        for t in conn:
-            t.grad = None
         loss, _ = loss_fn(params, cfg, mb)
         loss.backward()
-        g = torch.cat([t.grad.float().flatten() for t in conn])
-        for t in conn:
+        g = torch.cat([t.grad.float().flatten() for t in tensors])
+        for t in leaves:
             t.grad = None
         return loss.item(), g
 
@@ -1040,14 +1072,14 @@ def check_training_against_plain(cfg, params, batch, k2, counters) -> dict:
            "floor_loss_rel_diff": abs(loss_j - loss_k) / abs(loss_k),
            "floor_grad_rel_l2": rel_l2(g_j, g_k),
            "floor_grad_cosine": cos(g_j, g_k, dim=0).item()}
-    log(f"[training vs plain attention] {json.dumps(res)} (bounds: loss "
+    log(f"[{label} vs plain attention] {json.dumps(res)} (bounds: loss "
         f"{TRAIN_LOSS_REL_TOL}, rel L2 2 x floor = "
         f"{2 * res['floor_grad_rel_l2']:.4f}, cosine >= {TRAIN_GRAD_COS})")
     if not (res["loss_rel_diff"] <= TRAIN_LOSS_REL_TOL
             and res["grad_rel_l2"] <= 2 * res["floor_grad_rel_l2"]
             and res["grad_cosine"] >= TRAIN_GRAD_COS):
-        raise RuntimeError("training: kernel and plain-attention loss or "
-                           "connector gradient differ beyond the bounds")
+        raise RuntimeError(f"{label}: kernel and plain-attention loss or "
+                           "gradient differ beyond the bounds")
     return res
 
 
@@ -1131,24 +1163,31 @@ def api_init(name, shape, gen) -> torch.Tensor:
                        device="cuda").mul_(std)
 
 
-def run_api_phase(counters, attn, k1, k2, k3, dk):
+def api_config():
+    """The api phase's model: VideoLLaMA2-7B-16F with the LLM cut to
+    API_LLM_LAYERS layers."""
+    from videollama2_tpu_torch.core import config as cfglib
+    base = cfglib.preset("videollama2_mistral").replace(num_frames=16)
+    return base.replace(llm=dataclasses.replace(base.llm,
+                                               num_layers=API_LLM_LAYERS))
+
+
+def run_api_phase(ckpt, counters, attn, k1, k2, k3, dk):
     """The public API on a released-layout checkpoint: writes it (LLM depth
-    API_LLM_LAYERS, everything else as released) into a temporary
-    directory, loads it with model_init(load_8bit=True, kv_bits=8), answers
-    one 16-frame I420 clip through mm_infer and API_BATCH questions about
-    one shared clip through mm_infer_batch (twice: the answers must agree)
-    and chats through ChatSession and mm_infer_session (run_chat), each
-    call with exact launch counts of every kernel, then holds the first-
-    token and decode logits of the loaded model against the plain paths.
+    API_LLM_LAYERS, everything else as released) into the directory
+    `ckpt` (the "lora" phase's model_base later), loads it with
+    model_init(load_8bit=True, kv_bits=8), answers one 16-frame I420 clip
+    through mm_infer and API_BATCH questions about one shared clip through
+    mm_infer_batch (twice: the answers must agree) and chats through
+    ChatSession and mm_infer_session (run_chat), each call with exact
+    launch counts of every kernel, then holds the first-token and decode
+    logits of the loaded model against the plain paths.
     Returns the phase's numbers and the launch counts of each call."""
     from videollama2_tpu_torch.checkpoint.convert_hf import \
         model_config_to_hf
-    from videollama2_tpu_torch.core import config as cfglib
     from videollama2_tpu_torch.inference import api
 
-    base = cfglib.preset("videollama2_mistral").replace(num_frames=16)
-    cfg = base.replace(llm=dataclasses.replace(base.llm,
-                                               num_layers=API_LLM_LAYERS))
+    cfg = api_config()
     with open(MANIFEST) as f:
         manifest = json.load(f)
     shapes = {k: s for k, s in manifest.items()
@@ -1156,30 +1195,29 @@ def run_api_phase(counters, attn, k1, k2, k3, dk):
               or int(k.split(".")[2]) < API_LLM_LAYERS}
     n_params = sum(math.prod(s) for s in shapes.values())
     out = {}
-    with tempfile.TemporaryDirectory() as ckpt:
-        t0 = time.perf_counter()
-        with open(os.path.join(ckpt, "config.json"), "w") as f:
-            json.dump(model_config_to_hf(cfg), f)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        write_safetensors(os.path.join(ckpt, "model.safetensors"), shapes,
-                          lambda n, s: api_init(n, s, gen))
-        out["checkpoint_gb"] = os.path.getsize(
-            os.path.join(ckpt, "model.safetensors")) / 1e9
-        log(f"[api] wrote {len(shapes)} of {len(manifest)} released keys "
-            f"(LLM layers 0-{API_LLM_LAYERS - 1} of 32), "
-            f"{n_params / 1e9:.3f} B params, {out['checkpoint_gb']:.2f} GB "
-            f"bf16 safetensors in {time.perf_counter() - t0:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model, processor, tok = api.model_init(
-            ckpt, load_8bit=True, kv_bits=8, max_len=1792, buckets=(BUCKET,),
-            tokenizer=ToyTokenizer(cfg.llm.vocab_size))
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t0
-        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(model_config_to_hf(cfg), f)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    write_safetensors(os.path.join(ckpt, "model.safetensors"), shapes,
+                      lambda n, s: api_init(n, s, gen))
+    out["checkpoint_gb"] = os.path.getsize(
+        os.path.join(ckpt, "model.safetensors")) / 1e9
+    log(f"[api] wrote {len(shapes)} of {len(manifest)} released keys "
+        f"(LLM layers 0-{API_LLM_LAYERS - 1} of 32), "
+        f"{n_params / 1e9:.3f} B params, {out['checkpoint_gb']:.2f} GB "
+        f"bf16 safetensors in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, processor, tok = api.model_init(
+        ckpt, load_8bit=True, kv_bits=8, max_len=1792, buckets=(BUCKET,),
+        tokenizer=ToyTokenizer(cfg.llm.vocab_size))
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[api] model_init(load_8bit=True, kv_bits=8): {out['load_s']:.2f} s "
         f"(read + map + quantize + move, the file in the page cache), peak "
         f"device memory {out['load_peak_gb']:.2f} GB")
@@ -1939,6 +1977,261 @@ def run_api_av_phase(counters, attn, k1, k2, k3, dk):
     return out, counts
 
 
+def lora_training(label, cfg, bits, batches, counters, want, k2):
+    """One run of the "lora" phase's training: VideoLLaMA2-7B-8F's seeded
+    bf16 tree (LLM layers as folded int4 packs with bits 4, the QLoRA base;
+    head, embedding and tower stay bf16) with adapters injected on the card
+    (fp32 masters), two passes of LORA_STEPS steps through Trainer.train
+    under lora_enable (run_training: launch counts, equal losses, every b
+    and the connector changed, every frozen tensor bit-unchanged), then one
+    microbatch's loss and adapter gradients against the plain attention.
+    Returns (params, numbers, the split save's numbers for bits 4)."""
+    from videollama2_tpu_torch.ops import quant
+    from videollama2_tpu_torch.train import lora as lora_lib
+    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                       flatten)
+    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
+                              seed=0)
+    if bits:
+        quant.quantize_in_place(params["llm"]["layers"],
+                                quant.LLM_PROJECTIONS, bits)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params["llm"] = lora_lib.inject_lora(
+        gen, params["llm"], lora_lib.LoraConfig(r=LORA_R, alpha=LORA_ALPHA),
+        cfg.llm)
+    torch.cuda.synchronize()
+    flat = flatten(params)
+    adapters = [t for p, t in flat.items()
+                if "lora" in p and p[p.index("lora") + 1] in ("a", "b")]
+    b_paths = [p for p in flat if "lora" in p and p[p.index("lora") + 1]
+               == "b"]
+    n_adapter = sum(t.numel() for t in adapters)
+    log(f"[{label}] weights made on the card in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({sum(t.nbytes for t in flat.values()) / 1e9:.2f} GB: LLM layers "
+        f"{'int4 packs' if bits else 'bf16'}, adapters r {LORA_R} alpha "
+        f"{LORA_ALPHA} on q, k, v, o, gate, up, down: {n_adapter / 1e6:.1f} "
+        f"M params, {n_adapter * 4 / 1e9:.2f} GB fp32)")
+    opt = OptimizerConfig(learning_rate=LORA_LR, mm_projector_lr=LORA_LR,
+                          warmup_ratio=0.03, schedule="cosine",
+                          lora_enable=True)
+    split = None
+    with tempfile.TemporaryDirectory() as out_dir:
+        res = run_training(label, cfg, params, batches, counters, want,
+                           out_dir, opt, LORA_ACCUM, b_paths)
+        saved = os.path.join(out_dir, f"lora-{LORA_STEPS}")
+        files = sorted(os.listdir(saved))
+        if files != ["adapter_config.json", "adapter_model.bin",
+                     "config.json", "non_lora_trainables.bin"]:
+            raise RuntimeError(f"{label}: Trainer saved {files}")
+        if bits:
+            split = check_split_save(cfg, params)
+    res["vs_plain"] = check_training_against_plain(
+        label, cfg, params, batches[0], k2, counters, adapters)
+    res["adapter_params"] = n_adapter
+    return params, res, split
+
+
+def check_split_save(cfg, params) -> dict:
+    """(b): export_lora_split of the trained adapters (timed, its bytes),
+    read back by the loader's path-(a) reader: every adapter equal to the
+    trained fp32 one bit for bit, r and alpha as trained."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        load_lora_adapters
+    from videollama2_tpu_torch.checkpoint.projector_io import \
+        export_lora_split
+    from videollama2_tpu_torch.train.lora import extract_lora
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_lora_split(d, params["llm"], params["connector"], cfg)
+        out["export_s"] = time.perf_counter() - t0
+        out["bytes"] = {f: os.path.getsize(os.path.join(d, f))
+                        for f in sorted(os.listdir(d))}
+        t0 = time.perf_counter()
+        got, lcfg = load_lora_adapters(d, cfg.llm)
+        out["read_s"] = time.perf_counter() - t0
+    want = extract_lora(params["llm"])["layers"]
+    if (lcfg.r, lcfg.alpha) != (LORA_R, LORA_ALPHA) \
+            or set(got["layers"]) != set(want):
+        raise RuntimeError(f"split save: read back {lcfg}, "
+                           f"{sorted(got['layers'])}")
+    for name, ab in want.items():
+        for k in ("a", "b"):
+            if not torch.equal(got["layers"][name][k],
+                               ab[k].detach().cpu()):
+                raise RuntimeError(f"split save: {name}.{k} differs")
+    log(f"[lora split save] export_lora_split {out['export_s']:.2f} s, "
+        f"{sum(out['bytes'].values()) / 1e9:.3f} GB {out['bytes']}; read "
+        f"back through the path-(a) reader in {out['read_s']:.2f} s: all "
+        f"{2 * len(want)} adapter tensors bit-equal to the trained fp32 "
+        "ones")
+    return out
+
+
+def run_lora_serving(cfg, params, counters) -> dict:
+    """(c): the QLoRA-trained tree served unmerged (int4 packs with their
+    adapters, bf16 head and tower, int8 KV cache) at B = 16 with bench.py's
+    prompt, LORA_NEW_TOKENS greedy tokens, twice: K1 and K2 as any
+    prefill, and no decode kernel (the packed decode stands aside for
+    adapters); the same tokens both times."""
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.models.llm import _packed_decode
+    B = 16
+    frames, prompt, bucket = slice_inputs(cfg, B)
+    eng = Engine(cfg, params, dtype=torch.bfloat16,
+                 max_len=bucket + LORA_NEW_TOKENS, buckets=(bucket,),
+                 decode_chunk=LORA_NEW_TOKENS, kv_bits=8, device="cuda")
+    if _packed_decode(eng.params["llm"]["layers"]) is not None:
+        raise RuntimeError("lora serve: the packed decode took the tree")
+    want = phase_launches(counters, cfg, B, True, LORA_NEW_TOKENS - 1,
+                          packed=False)
+    dev_frames = eng.upload_frames(frames)
+    gen = GenerationConfig(max_new_tokens=LORA_NEW_TOKENS)
+    runs, out = [], {}
+    for run in range(2):
+        toks, out[f"run {run + 1}"], _ = counted_call(
+            f"lora serve run {run + 1}", counters, want,
+            lambda cb: eng.generate([prompt] * B, frames=dev_frames,
+                                    gen=gen, eos_token_id=-1, stream_cb=cb))
+        runs.append(np.asarray(toks))
+    if runs[0].shape != (B, LORA_NEW_TOKENS) \
+            or not np.array_equal(runs[0], runs[1]):
+        raise RuntimeError("lora serve: bad or unequal tokens")
+    out["bucket"] = bucket
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lora serve] {B}x{LORA_NEW_TOKENS} tokens at bucket {bucket}, "
+        f"identical in both runs; first row {runs[1][0].tolist()}; peak "
+        f"{out['peak_gb']:.1f} GB")
+    return out
+
+
+def run_api_lora(ckpt, counters) -> dict:
+    """(d): a LoRA directory over the api phase's checkpoint `ckpt` (its
+    LLM layers 0-7 of 32) through model_init(lora_dir, model_base=ckpt,
+    load_8bit=True, kv_bits=8). The seeded adapters (r LORA_R on every
+    target, b nonzero) are small multiples of powers of two, so a @ b * s
+    and its sum with a bf16 kernel are exact in fp32 in any order: the
+    loader's packs must equal quantize(base + a @ b * s) made here on the
+    card bit for bit. Then mm_infer (launch counts as the api phase's) and
+    an Engine over that independent tree must give the same tokens."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import read_safetensors
+    from videollama2_tpu_torch.checkpoint.projector_io import \
+        export_lora_split
+    from videollama2_tpu_torch.inference import api
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.ops.quant import quantize_int8
+    from videollama2_tpu_torch.train.lora import PEFT_NAME
+    from videollama2_tpu_torch.utils.synthetic import \
+        synthetic_connector_params
+    cfg = api_config()
+    L, s = cfg.llm.num_layers, LORA_ALPHA / LORA_R
+    sd = read_safetensors(os.path.join(ckpt, "model.safetensors"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    adapters = {}
+    for name, peft in PEFT_NAME.items():
+        d_out, d_in = sd[f"model.layers.0.{peft}.weight"].shape
+        a = torch.randint(-4, 5, (L, d_in, LORA_R), generator=gen,
+                          device="cuda").float() / 64
+        b = torch.randint(-4, 5, (L, LORA_R, d_out), generator=gen,
+                          device="cuda").float() / 4096
+        adapters[name] = {"a": a, "b": b,
+                          "s": torch.full((L, 1, 1), s, device="cuda")}
+    connector = synthetic_connector_params(cfg.connector, torch.bfloat16,
+                                           "cuda", seed=3)
+    out = {}
+    with tempfile.TemporaryDirectory() as lora_dir:
+        t0 = time.perf_counter()
+        export_lora_split(lora_dir, {"layers": {
+            n: {"lora": lo} for n, lo in adapters.items()}}, connector, cfg)
+        out["export_s"] = time.perf_counter() - t0
+        out["lora_dir_gb"] = sum(os.path.getsize(os.path.join(lora_dir, f))
+                                 for f in os.listdir(lora_dir)) / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, _, tok = api.model_init(
+            lora_dir, model_base=ckpt, load_8bit=True, kv_bits=8,
+            max_len=1792, buckets=(BUCKET,),
+            tokenizer=ToyTokenizer(cfg.llm.vocab_size))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lora api] export_lora_split {out['export_s']:.2f} s "
+        f"({out['lora_dir_gb']:.3f} GB); model_init(lora_dir, model_base, "
+        f"load_8bit=True, kv_bits=8): {out['load_s']:.2f} s (read, merge, "
+        f"quantize, move), peak device memory {out['load_peak_gb']:.2f} GB")
+    eng = model.engine
+    layers = eng.params["llm"]["layers"]
+    merged, moved = {}, {}
+    for name in ("qkv", "o", "gate", "up", "down"):
+        packs, base_packs = [], []
+        for n in (("q", "k", "v") if name == "qkv" else (name,)):
+            w = torch.stack([sd[f"model.layers.{i}.{PEFT_NAME[n]}.weight"]
+                             .to("cuda").T.float() for i in range(L)])
+            lo = adapters[n]
+            packs.append(quantize_int8(
+                w + torch.matmul(lo["a"], lo["b"]) * s, axis=-2))
+            base_packs.append(quantize_int8(w, axis=-2))
+        # the Engine holds pack scales in its dtype (as the JAX Engine)
+        got = layers[name]["kernel_q8"]
+        pack = {"q": torch.cat([p["q"] for p in packs], -1),
+                "scale": torch.cat([p["scale"] for p in packs], -1).to(
+                    got["scale"].dtype)}
+        if not (torch.equal(got["q"], pack["q"])
+                and torch.equal(got["scale"], pack["scale"])):
+            raise RuntimeError(f"lora api: {name}'s int8 pack is not "
+                               "quantize(base + a @ b * s)")
+        moved[name] = (torch.cat([p["q"] for p in base_packs], -1)
+                       != pack["q"]).float().mean().item()
+        merged[name] = {"kernel_q8": pack}
+    log(f"[lora api] the loaded int8 packs equal quantize(base + a @ b * s) "
+        f"made on the card, bit for bit; share of int8 weights the adapters "
+        f"moved: {json.dumps(moved)}")
+    if min(moved.values()) <= 0:
+        raise RuntimeError("lora api: an adapter moved no weight")
+    out["moved_share"] = moved
+
+    H = cfg.vision.image_size
+    clip = np.random.default_rng(5).integers(
+        0, 256, (cfg.num_frames, H + H // 2, H), dtype=np.uint8)
+    question = "what happens in the video ?"
+    streamed = {}
+
+    def ask(cb):
+        def both(b, toks):
+            streamed[b] = list(toks)
+            cb(b, toks)
+        return api.mm_infer(clip, question, model, tok,
+                            max_new_tokens=NEW_TOKENS, stream_cb=both)
+    answer, out["mm_infer"], counts = counted_call(
+        "lora api mm_infer", counters,
+        phase_launches(counters, cfg, 1, True, NEW_TOKENS - 1, True), ask)
+    tree = dict(eng.params, llm=dict(eng.params["llm"],
+                                     layers=dict(layers, **merged)))
+    ref = Engine(cfg, tree, dtype=torch.bfloat16, max_len=1792,
+                 buckets=(BUCKET,), kv_bits=8, device="cuda")
+    want = ref.generate([api.build_prompt_ids(question, cfg, tok, "video")],
+                        frames=clip[None],
+                        gen=GenerationConfig(max_new_tokens=NEW_TOKENS),
+                        eos_token_id=tok.eos_token_id)[0]
+    if streamed[0] != want or len(want) != NEW_TOKENS:
+        raise RuntimeError(f"lora api: mm_infer {streamed[0]} != the "
+                           f"merged tree's Engine {want}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lora api] mm_infer's {NEW_TOKENS} tokens equal the Engine's over "
+        f"the independently merged tree; answer {answer[:60]!r}...; peak "
+        f"{out['peak_gb']:.2f} GB")
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1955,6 +2248,8 @@ def main() -> None:
     from videollama2_tpu_torch.ops import flash_attention as k2
     from videollama2_tpu_torch.ops import quant_matmul as qm
     from videollama2_tpu_torch.ops.quant import quantize_int4, quantize_int8
+    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                       flatten)
     from videollama2_tpu_torch.utils.synthetic import (synthetic_params,
                                                        synthetic_train_batch)
 
@@ -2161,7 +2456,10 @@ def main() -> None:
     log(json.dumps({"speculative": spec_stages}))
 
     # -- the public API on a released-layout checkpoint ----------------------
-    api_stage, api_counts = run_api_phase(counters, attn, k1, k2, k3, dk)
+    # (the checkpoint stays for the "lora" phase's model_base)
+    api_dir = tempfile.TemporaryDirectory()
+    api_stage, api_counts = run_api_phase(api_dir.name, counters, attn, k1,
+                                          k2, k3, dk)
     slice_counts.update({f"api {n}": c for n, c in api_counts.items()})
     log(json.dumps({"api": api_stage}))
     gc.collect()
@@ -2202,11 +2500,54 @@ def main() -> None:
     log(f"[training slice] launches a microbatch wanted: {per_mb} (x "
         f"{micro} microbatches a run)")
     with tempfile.TemporaryDirectory() as out_dir:
-        train = run_training(cfg, params, batches, counters, want, out_dir)
-    train["vs_plain"] = check_training_against_plain(cfg, params, batches[0],
-                                                     k2, counters)
+        train = run_training(
+            "training slice", cfg, params, batches, counters, want, out_dir,
+            OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0,
+                            weight_decay=0.0, tune_mm_mlp_adapter=True),
+            GRAD_ACCUM)
+    train["vs_plain"] = check_training_against_plain(
+        "training", cfg, params, batches[0], k2, counters,
+        list(flatten(params["connector"]).values()))
     log(json.dumps({"training": train}))
     del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the "lora" phase: LoRA and QLoRA finetuning at full width -----------
+    rng = np.random.default_rng(2)
+    batches = [synthetic_train_batch(cfg, rng, LORA_ACCUM * LORA_MB, TRAIN_S,
+                                     TRAIN_MIN_VALID)
+               for _ in range(LORA_STEPS)]
+    micro = LORA_ACCUM * LORA_STEPS
+    per_mb_lora = {"encoder_attention": vit_layers(cfg)
+                   * (LORA_MB * cfg.num_frames // 128 or 1),
+                   "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                   "flash_attention_bwd_dkv": L}
+    want_lora = dict.fromkeys(counters, 0)
+    want_lora.update({n: c * micro for n, c in per_mb_lora.items()})
+    log(f"[lora] {LORA_STEPS} steps of {LORA_ACCUM} x {LORA_MB} videos, "
+        f"seq {TRAIN_S}; launches a microbatch wanted: {per_mb_lora} (x "
+        f"{micro} microbatches a run)")
+    lora = {}
+    for label, bits in (("lora", None), ("qlora", 4)):
+        torch.cuda.reset_peak_memory_stats()
+        params, lora[label], split = lora_training(
+            label, cfg, bits, batches, counters, want_lora, k2)
+        if bits:
+            lora["split_save"] = split
+            torch.cuda.reset_peak_memory_stats()
+            lora["serve"] = run_lora_serving(cfg, params, counters)
+            slice_counts["lora serve"] = {n: c.launches
+                                          for n, c in counters.items()}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.reset_peak_memory_stats()
+    lora["api"], slice_counts["lora api mm_infer"] = run_api_lora(
+        api_dir.name, counters)
+    api_dir.cleanup()
+    log(json.dumps({"lora": lora}))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2230,7 +2571,8 @@ def main() -> None:
         return {"name": name, "route": "cuda",
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
-                "launches": want[name], **train_kernels[key], **extra}
+                "launches": want[name], "launches_lora_run": want_lora[name],
+                **train_kernels[key], **extra}
 
     def registers(kernel):
         return {n: u for n, (u, _) in ptxas.items()

@@ -33,6 +33,7 @@ from videollama2_tpu.inference import api as japi
 from videollama2_tpu.models import llm as jllm
 from videollama2_tpu.models import videollama2 as jvl2
 from videollama2_tpu.multimodal import splice as jsplice
+from videollama2_tpu.ops import layers as jlayers
 from videollama2_tpu.ops import quant as jquant
 import videollama2_tpu_torch
 from videollama2_tpu_torch.checkpoint import convert_hf as tconv
@@ -150,12 +151,6 @@ def test_pretrain_directory_matches_jax(ckpt, tmp_path):
 
 
 def test_unported_directories_raise(ckpt, tmp_path):
-    lora = tmp_path / "lora"
-    lora.mkdir()
-    shutil.copy(os.path.join(ckpt, "config.json"), lora / "config.json")
-    (lora / "adapter_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 9.1"):
-        tconv.load_videollama2(str(lora), model_base=ckpt)
     # an AV config over weights without an audio tower: the branch is
     # seeded, with a warning, as a missing vision tower is
     av = tmp_path / "av"
@@ -171,6 +166,76 @@ def test_unported_directories_raise(ckpt, tmp_path):
     assert cfg.audio == tcfglib.AudioConfig()
     assert {p: tuple(t.shape) for p, t in _flat(tree["audio"])} == {
         p: tuple(s) for p, s in _flat(tvl2.param_shapes(cfg)["audio"])}
+
+
+def _lora_dir(ckpt, out):
+    """A LoRA directory over the tiny checkpoint, written by the JAX
+    package's export_lora_split (adapters r 4 on every target, b nonzero)
+    beside the checkpoint's tokenizer files. a and b are small multiples of
+    powers of two, so every a @ b * s and its sum with a kernel is exact in
+    fp32 whatever the order of the sums: the merged kernels, and the packs
+    made from them, are the JAX package's bit for bit."""
+    from videollama2_tpu.checkpoint import orbax_io as jorbax
+    from videollama2_tpu.train import lora as jlora
+    cfg, jtree = jconv.load_videollama2(ckpt)
+    rng = np.random.default_rng(9)
+    llm = jlora.inject_lora(jax.random.PRNGKey(1), jtree["llm"],
+                            jlora.LoraConfig(r=4, alpha=8))
+    layers = dict(llm["layers"])
+    for name, entry in llm["layers"].items():
+        if isinstance(entry, dict) and "lora" in entry:
+            lo = dict(entry["lora"])
+            lo["a"] = rng.integers(-4, 5, lo["a"].shape).astype(
+                np.float32) / 16
+            lo["b"] = rng.integers(-4, 5, lo["b"].shape).astype(
+                np.float32) / 1024
+            layers[name] = dict(entry, lora=lo)
+    jorbax.export_lora_split(out, dict(llm, layers=layers),
+                             jtree["connector"], cfg)
+    for f in os.listdir(ckpt):
+        if f not in ("config.json", "model.safetensors"):
+            shutil.copy(os.path.join(ckpt, f), out)
+    return out
+
+
+@pytest.mark.parametrize("load_8bit", [False, True])
+def test_model_init_loads_a_lora_directory(ckpt, tokenizer, tmp_path,
+                                           load_8bit):
+    """model_init(lora_dir, model_base=...) (path (a)): the adapters merged
+    into the base kernels, load_8bit's packs made from the merged tree;
+    the port's params equal the JAX model_init's fused by params_from_jax
+    bit for bit, and mm_infer gives JAX's answer."""
+    lora = _lora_dir(ckpt, str(tmp_path / "lora"))
+    tower = str(tmp_path / "tower")
+    _tower_dir(ckpt, tower)
+    kw = dict(model_base=ckpt, vision_tower_path=tower, max_len=256,
+              buckets=(128,), load_8bit=load_8bit,
+              kv_bits=8 if load_8bit else 16)
+    jmodel, _, jtok = videollama2_tpu.model_init(
+        lora, dtype=jnp.float32, attn_impl="xla", **kw)
+    tmodel, _, ttok = videollama2_tpu_torch.model_init(
+        lora, dtype=torch.float32, tokenizer=tokenizer, device="cpu", **kw)
+    want = params_from_jax(jax.tree.map(np.asarray, jmodel.engine.params),
+                           tmodel.config)
+    got = dict(_flat(tmodel.engine.params))
+    for path, w in _flat(want):
+        g = got.pop(path)
+        assert g.dtype == w.dtype and torch.equal(g, w), path
+    assert not got
+    if not load_8bit:
+        _, base = tconv.load_videollama2(ckpt)
+        for n in ("o", "gate", "up", "down"):
+            assert not torch.equal(
+                tmodel.engine.params["llm"]["layers"][n]["kernel"],
+                base["llm"]["layers"][n]["kernel"]), n
+    frames = _float_frames(tmodel.config, seed=2)
+    # the port's packed dense takes W8A8, the JAX Engine's on a TPU only
+    with jlayers.force_native_quant(load_8bit):
+        want_answer = japi.mm_infer(frames, "What happens ?", jmodel, jtok,
+                                    max_new_tokens=NEW_TOKENS)
+    got_answer = tapi.mm_infer(frames, "What happens ?", tmodel, ttok,
+                               max_new_tokens=NEW_TOKENS)
+    assert got_answer == want_answer
 
 
 def test_model_config_round_trip_matches_jax():

@@ -98,7 +98,8 @@ def test_port_reaches_no_jax():
         assert PORT / "ops" / f"{mod}.py" in closure
     for path in ("inference/api.py", "checkpoint/convert_hf.py",
                  "multimodal/tokenizer.py", "media/audio.py",
-                 "models/beats.py"):
+                 "models/beats.py", "train/lora.py",
+                 "checkpoint/projector_io.py", "train/trainer.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"

@@ -290,3 +290,23 @@ def test_dense_int4_branches_match_jax(shape):
     np.testing.assert_allclose(tlayers.dense(_t(x), tp).numpy(),
                                np.asarray(jlayers.dense(jnp.asarray(x), jp)),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_jax_moe_over_quantized_packs_lacks_its_expert_kernels():
+    """A fault of the reference, pinned (ROADMAP §3): JAX's
+    quantize_llm_params packs the Mixtral experts' gate/up/down kernels
+    (ops/quant.py:110-119), but its MoE FFN reads lp["gate"]["kernel"]
+    (models/llm.py:248-251), so a quantized Mixtral tree raises KeyError
+    and JAX runs Mixtral only in floating point. The port raises for MoE
+    (not ported yet)."""
+    cfg = cfglib.tiny_llm("mixtral")
+    params = jllm.init_params(jax.random.PRNGKey(0), cfg)
+    x = jnp.ones((1, 4, cfg.hidden_size), jnp.float32)   # 4 rows: dense
+    lp = jax.tree.map(lambda a: a[0], params["layers"])
+    assert jllm._ffn_moe(x, lp, cfg).shape == x.shape
+    qlp = jax.tree.map(lambda a: a[0], jquant.quantize_llm_params(
+        params, bits=8)["layers"])
+    with pytest.raises(KeyError, match="kernel"):
+        jllm._ffn_moe(x, qlp, cfg)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tllm.param_shapes(cfg, bits=8)

@@ -188,7 +188,7 @@ def test_trainer_loss_decreases_and_logs(tiny, tmp_path):
     out = str(tmp_path / "run")
     trainer = Trainer(cfg, _tparams(cfg, jparams), ocfg,
                       TrainerConfig(output_dir=out, max_steps=12,
-                                    log_steps=1))
+                                    log_steps=1), device="cpu")
     state = trainer.train(iter([batch] * 20))
     assert state.step == 12
     with open(os.path.join(out, "train_log.jsonl")) as f:
@@ -207,7 +207,7 @@ def test_pretrain_trainer_saves_a_projector_jax_reads(tiny, tmp_path):
                       topt.OptimizerConfig(learning_rate=1e-3,
                                            tune_mm_mlp_adapter=True),
                       TrainerConfig(output_dir=out, max_steps=2,
-                                    save_steps=1))
+                                    save_steps=1), device="cpu")
     trainer.train([batch, batch])
     assert sorted(os.listdir(out)) == ["adapter-1", "adapter-2",
                                        "train_log.jsonl"]

@@ -13,11 +13,11 @@ into the port's layout.
 Safetensors shards go through this module's own reader (read_safetensors):
 each tensor is a view over a copy-on-write mmap of its file, so a shard is
 never copied whole; stacking the layers makes the first host copy. The
-paths of the JAX loader are (c)/(d), the full checkpoint, and (b), the
+paths of the JAX loader are (c)/(d), the full checkpoint, (b), the
 pretrain directory (`mm_projector.bin` beside a `model_base`), both with
 the audio-visual model's audio branch (BEATs under `model.audio_tower.`
-and its projector `model.mm_projector_a.`); (a), the LoRA directory,
-raises NotImplementedError until its port.
+and its projector `model.mm_projector_a.`), and (a), the LoRA directory
+(the peft split save beside a `model_base`).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 from ..core import config as cfglib
 from ..core.config import (AudioConfig, ConnectorConfig, LLMConfig,
                            ModelConfig, VisionConfig)
+from ..train import lora as lora_lib
 
 # safetensors dtype names -> torch dtypes
 ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
@@ -569,30 +570,76 @@ def videollama2_params_from_state_dict(sd: Mapping, cfg: ModelConfig) -> dict:
     return params
 
 
+def load_lora_adapters(path: str, llm_cfg: LLMConfig):
+    """The adapters of a LoRA directory (reference model/__init__.py:
+    88-137): `adapter_model.safetensors` through this module's reader or
+    `adapter_model.bin` through torch.load(weights_only=True), r and alpha
+    from `adapter_config.json` (128 and 256 without it). Returns
+    ({"layers": {name: {"a" [L, in, r], "b" [L, r, out]}}} in fp32, the
+    JAX layout, q, k and v apart; train.lora.LoraConfig)."""
+    files = sorted(os.listdir(path))
+    adapter_file = next(f for f in files if f.startswith("adapter_model"))
+    if adapter_file.endswith(".safetensors"):
+        asd = read_safetensors(os.path.join(path, adapter_file))
+    else:
+        asd = torch.load(os.path.join(path, adapter_file),
+                         map_location="cpu", weights_only=True)
+    r, alpha = 128, 256
+    acfg_path = os.path.join(path, "adapter_config.json")
+    if os.path.exists(acfg_path):
+        with open(acfg_path) as f:
+            ac = json.load(f)
+        r, alpha = ac.get("r", r), ac.get("lora_alpha", alpha)
+    lcfg = lora_lib.LoraConfig(r=r, alpha=alpha)
+    return lora_lib.lora_params_from_peft_state_dict(asd, llm_cfg,
+                                                     lcfg), lcfg
+
+
 def load_videollama2(path: str, model_base: str = None,
                      vision_tower_path: str = None):
     """Load a VideoLLaMA2 checkpoint directory (reference
     model/__init__.py:48-193):
 
+      (a) LoRA dir (adapter_model.* + non_lora_trainables.bin) + model_base:
+          the base LLM from model_base, the projector from the non-LoRA
+          trainables (seeded random without them), the LoRA deltas merged
+          into the base kernels (train.lora.apply_lora) after they are
+          widened to fp32, as the JAX loader holds them;
       (b) pretrain dir (mm_projector.bin) + model_base: base LLM + converted
-          projector, vision tower from `vision_tower_path` or seeded random
-          (an AV config's audio branch from model_base, else seeded random);
+          projector;
       (c) full SFT checkpoint: everything from the one directory;
       (d) plain LLM checkpoint: falls back to (c) shapes minus mm modules.
 
-    (a), a LoRA dir (adapter_model.*), raises NotImplementedError until the
-    port has LoRA. Returns (ModelConfig, params dict in the JAX layout).
+    In (a) and (b) the vision tower comes from `vision_tower_path` or is
+    seeded random, and an AV config's audio branch from model_base (seeded
+    random without one). Returns (ModelConfig, params dict in the JAX
+    layout).
     """
     with open(os.path.join(path, "config.json")) as f:
         cfg_json = json.load(f)
     cfg = model_config_from_hf(cfg_json)
     files = set(os.listdir(path))
-    if any(f.startswith("adapter_model") for f in files):
-        raise NotImplementedError("LoRA checkpoint directories are not "
-                                  "ported yet (ROADMAP queue 1 item 9.1)")
+    is_lora = any(f.startswith("adapter_model") for f in files)
     is_pretrain = "mm_projector.bin" in files and not any(
         f.endswith(".safetensors") or f.startswith("pytorch_model")
         for f in files)
+
+    if is_lora:
+        # (a) model/__init__.py:88-137
+        if not model_base:
+            raise ValueError("LoRA checkpoints need model_base")
+        base_sd = load_state_dict_from_dir(model_base)
+        llm = llm_params_from_state_dict(base_sd, cfg.llm, prefix="model.")
+        adapters, lcfg = load_lora_adapters(path, cfg.llm)
+        for name in adapters["layers"]:
+            llm["layers"][name]["kernel"] = \
+                llm["layers"][name]["kernel"].float()
+        params = {"llm": lora_lib.apply_lora(llm, adapters, lcfg),
+                  "vision": _vision_params(cfg, vision_tower_path),
+                  "connector": _non_lora_connector(path, cfg.connector)}
+        if cfg.audio is not None:
+            params["audio"] = _audio_branch(base_sd, cfg)
+        return cfg, params
 
     if is_pretrain:
         # (b) model/__init__.py:138-164
@@ -611,6 +658,24 @@ def load_videollama2(path: str, model_base: str = None,
     # (c)/(d) full checkpoint
     sd = load_state_dict_from_dir(path)
     return cfg, videollama2_params_from_state_dict(sd, cfg)
+
+
+def _non_lora_connector(path: str, cfg: ConnectorConfig) -> dict:
+    """The projector of a LoRA directory's `non_lora_trainables.bin` (keys
+    under base_model.model.model.mm_projector.), else the port's seeded
+    init (fp32; its values differ from the JAX package's PRNGKey(0)
+    init)."""
+    non_lora = os.path.join(path, "non_lora_trainables.bin")
+    if not os.path.exists(non_lora):
+        from ..utils.synthetic import synthetic_connector_params
+        warnings.warn("no non_lora_trainables.bin: the projector is "
+                      "randomly initialized")
+        return synthetic_connector_params(cfg, seed=0)
+    nl = torch.load(non_lora, map_location="cpu", weights_only=True)
+    nl = {(k[len("base_model.model."):] if k.startswith("base_model.model.")
+           else k): v for k, v in nl.items()}
+    return connector_params_from_state_dict(nl, cfg,
+                                            prefix="model.mm_projector.")
 
 
 def _vision_params(cfg: ModelConfig, vision_tower_path) -> dict:

@@ -12,11 +12,15 @@ output-axis concatenation fuses them unchanged; an int8 embedding
 ("weight_q8", quantize_llm_params(include_embed=True)) is taken as it is.
 The tower is CLIP's or SigLIP's, as `cfg.vision` says; the audio-visual
 model's "audio" branch (BEATs and its projector) keeps the JAX layouts and
-is copied leaf by leaf. It raises if a JAX
-leaf is left unused or a port parameter is left unfilled, so both packages
-compute the same function. Leaves may be numpy arrays (a JAX tree) or torch
-tensors in any dtype (checkpoint/convert_hf's tree of a released bf16
-checkpoint), which are taken as they are, without a numpy round trip.
+is copied leaf by leaf. LoRA adapters injected into the LLM's layers
+(train/lora.inject_lora: {"a", "b", "s"} inside q, k, v, o, gate, up or
+down) come across inside the same entries, those of q, k and v combined
+into the fused qkv entry's adapter (train/lora.fuse_qkv_adapters). It
+raises if a JAX leaf is left unused or a port parameter is left unfilled,
+so both packages compute the same function. Leaves may be numpy arrays (a
+JAX tree) or torch tensors in any dtype (checkpoint/convert_hf's tree of a
+released bf16 checkpoint), which are taken as they are, without a numpy
+round trip.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..models import videollama2 as vl2
 from ..ops.quant import PACKS
+from ..train import lora as lora_lib
 
 
 def _flatten(tree, path=()):
@@ -92,7 +97,26 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
             raise ValueError(f"{'.'.join(path)}: JAX shape {arr.shape}, "
                              f"port expects {shape}")
         _set(out, path, arr.contiguous())
+    _carry_adapters(jax_params, cfg, take, out["llm"]["layers"])
     unused = sorted(".".join(p) for p in set(src) - consumed)
     if unused:
         raise ValueError(f"JAX leaves not consumed by the port: {unused}")
     return out
+
+
+def _carry_adapters(jax_params: dict, cfg, take, layers: dict) -> None:
+    """Put the JAX tree's LLM adapters into the port's layer entries
+    (`layers`, filled already), q/k/v's into the fused qkv entry."""
+    adapters = {
+        name: {k: take(("llm", "layers", name, "lora", k)).contiguous()
+               for k in ("a", "b", "s")}
+        for name, entry in jax_params.get("llm", {}).get("layers",
+                                                         {}).items()
+        if isinstance(entry, dict) and "lora" in entry}
+    qkv = lora_lib.fuse_qkv_adapters(
+        {n: adapters.pop(n) for n in lora_lib.QKV if n in adapters},
+        lora_lib.qkv_widths(cfg.llm))
+    if qkv is not None:
+        adapters["qkv"] = qkv
+    for name, lora in adapters.items():
+        layers[name]["lora"] = lora

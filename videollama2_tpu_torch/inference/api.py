@@ -113,9 +113,11 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     """Load a checkpoint directory; returns (model, processor, tokenizer).
 
     As the JAX model_init (reference videollama2/__init__.py:14-29 and
-    load_pretrained_model's pretrain-adapter and full paths through
-    model_base), plus `tokenizer`, the caller's tokenizer object (returned
-    as the third element; its pad token falls back to its unk token), and
+    load_pretrained_model's LoRA, pretrain-adapter and full paths through
+    model_base: a LoRA directory, the peft split save, is merged into
+    model_base's kernels before load_8bit / load_4bit), plus `tokenizer`,
+    the caller's tokenizer object (returned as the third element; its pad
+    token falls back to its unk token), and
     `device` ("cuda" by default; "cpu" runs the plain versions of the
     kernels). load_8bit quantizes the LLM (int8 head included) and the
     tower to int8 packs, load_4bit the LLM to folded int4 packs with an

@@ -16,6 +16,9 @@ With int8 weights every `kernel` above (the head's included) is a
 with int4 weights the layers' kernels are `kernel_q4` packs {q4 int8
 [.., in/2, out], scale [.., 1, out]} and the head stays a `kernel_q8` pack.
 An int8 embedding is embed.weight_q8 {q int8 [V, D], scale [V, 1]}.
+Any projection entry may carry a LoRA adapter ("lora", train/lora.py),
+which dense applies; decode then takes the generic path, since the
+layered kernels read the base packs alone.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..ops import attention as attn_ops
 from ..ops import decode_attention as dk_attn
 from ..ops import decode_matmul as dk
 from ..ops.layers import (apply_rope, dense, layer_params, rms_norm,
-                          rope_table)
+                          rope_table, unbind_layers)
 from ..ops.quant import PACKS, kernel_shapes
 
 
@@ -254,8 +257,8 @@ def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
         raise ValueError("remat is for training: it takes no cache")
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+    layers = unbind_layers(params["layers"], cfg.num_layers)
+    for i, lp in enumerate(layers):
         if remat:
             x = checkpoint(_layer, cfg, x, lp, cos, sin, valid_len, None, i,
                            w8a8, use_reentrant=False)

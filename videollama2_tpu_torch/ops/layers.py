@@ -1,8 +1,8 @@
 """Core neural-net primitives (port of videollama2_tpu/ops/layers.py).
 
 Dense takes floating kernels, int8 weight packs (dequantize or W8A8) and
-folded int4 packs (dequantize or W4A8); LoRA adapters raise
-NotImplementedError until their port.
+folded int4 packs (dequantize or W4A8), each with or without a LoRA
+adapter (train/lora.py).
 Normalization statistics run in fp32 whatever the compute dtype, and the
 cast points match the JAX package, because bf16 parity depends on them.
 """
@@ -104,12 +104,26 @@ def layer_params(layers: dict, i: int) -> dict:
             for n, e in layers.items()}
 
 
+def unbind_layers(layers: dict, n: int) -> list:
+    """Every layer of a stacked layer tree at once (views, torch.unbind):
+    the gradient of a trained stacked leaf is stacked once in the
+    backward, where indexing layer by layer adds a full-size gradient of
+    the leaf for each layer."""
+    out = [{} for _ in range(n)]
+    for name, e in layers.items():
+        parts = unbind_layers(e, n) if isinstance(e, dict) else e.unbind(0)
+        for i in range(n):
+            out[i][name] = parts[i]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dense
 # ---------------------------------------------------------------------------
 
 def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
-    """y = x @ kernel (+ bias); kernel is [in, out] as in the JAX tree.
+    """y = x @ kernel (+ LoRA delta) (+ bias); kernel is [in, out] as in
+    the JAX tree.
 
     A weight pack ("kernel_q8": {"q" [in, out], "scale" [1, out]}, or the
     folded int4 "kernel_q4": {"q4" [in/2, out], "scale" [1, out]}) takes
@@ -118,10 +132,14 @@ def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
     per row, an int8 x int8 -> int32 product), which the Engine selects for
     every packed dense it reaches, as the JAX Engine does under its
     quant_inference and w8a8_prefill contexts; without it the dequantize
-    branch (JAX's, which is exact under gradients).
+    branch (JAX's, which is exact under gradients), which training takes.
+
+    A "lora" entry ({"a" [in, r], "b" [r, out], "s" [1, 1]}, or the fused
+    qkv entry's form with one b block a projection, train/lora.py) adds
+    (x @ a) @ b * s, with a, b and s cast to x's dtype, after the base
+    product and before the bias, whatever the base and branch: under
+    w8a8 only the base is quantized, as in the JAX package.
     """
-    if "lora" in p:
-        raise NotImplementedError("LoRA adapters are not ported yet")
     if "kernel" in p:
         y = torch.matmul(x, p["kernel"].to(x.dtype))
     elif "kernel_q8" in p:
@@ -141,9 +159,34 @@ def dense(x: torch.Tensor, p: dict, w8a8: bool = False) -> torch.Tensor:
     else:
         raise NotImplementedError(
             f"dense packs {sorted(p)} are not ported yet")
+    if "lora" in p:
+        y = y + _lora_delta(x, p["lora"])
     if p.get("bias") is not None:
         y = y + p["bias"].to(x.dtype)
     return y
+
+
+def lora_b_product(xa: torch.Tensor, b) -> torch.Tensor:
+    """xa @ b in xa's dtype, b an adapter's [r, out] (or stacked) tensor,
+    or the fused qkv form's {"q", "k", "v"} blocks: each block takes its
+    own r-slice of xa, and the blocks' outputs are concatenated along the
+    output axis (train/lora.py)."""
+    if not isinstance(b, dict):
+        return torch.matmul(xa, b.to(xa.dtype))
+    parts, off = [], 0
+    for bj in b.values():
+        r = bj.shape[-2]
+        parts.append(torch.matmul(xa[..., off:off + r], bj.to(xa.dtype)))
+        off += r
+    return torch.cat(parts, dim=-1)
+
+
+def _lora_delta(x: torch.Tensor, lora: dict) -> torch.Tensor:
+    """(x @ a) @ b * s in x's dtype (JAX `dense`'s LoRA branch), with s
+    applied to the rank-r x @ a rather than to the full output."""
+    s = lora["s"].to(x.dtype)[..., 0, :]
+    xa = torch.matmul(x, lora["a"].to(x.dtype)) * s
+    return lora_b_product(xa, lora["b"])
 
 
 # torch._int_mm on CUDA takes only more than 16 rows (it raises "self.size(0)

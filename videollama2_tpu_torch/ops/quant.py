@@ -204,13 +204,18 @@ def quantize_vision_params(vit_params: dict) -> dict:
 def fuse_qkv(llm_params: dict) -> dict:
     """Fuse separate q/k/v packs (all int8 or all int4) into one `qkv`
     entry, concatenated on the output axis, which the int4 fold does not
-    touch (scales and biases alongside). Returns the input unchanged when
-    q/k/v are not all packs of one kind or carry LoRA adapters."""
+    touch (scales and biases alongside). LoRA adapters on any of the three
+    are fused too, into the qkv entry's adapter form (train/lora.py), which
+    the JAX package's fuse_qkv leaves unfused: the port's layer tree has
+    one layout. Returns the input unchanged when q/k/v are not all packs of
+    one kind."""
+    # imported here: train.lora imports ops.layers, which imports this module
+    from ..train.lora import fuse_qkv_adapters
     layers = llm_params.get("layers", {})
     names = ("q", "k", "v")
     kind = next((pk for pk in PACKS.values()
                  if all(pk[0] in layers.get(n, {}) for n in names)), None)
-    if kind is None or any("lora" in layers[n] for n in names):
+    if kind is None:
         return llm_params
     name, wk = kind
     packs = [layers[n][name] for n in names]
@@ -218,6 +223,11 @@ def fuse_qkv(llm_params: dict) -> dict:
                     for k in (wk, "scale")}}
     if all(layers[n].get("bias") is not None for n in names):
         fused["bias"] = torch.cat([layers[n]["bias"] for n in names], dim=-1)
+    lora = fuse_qkv_adapters(
+        {n: layers[n]["lora"] for n in names if "lora" in layers[n]},
+        {n: layers[n][name]["scale"].shape[-1] for n in names})
+    if lora is not None:
+        fused["lora"] = lora
     new_layers = {n: e for n, e in layers.items() if n not in names}
     new_layers["qkv"] = fused
     return dict(llm_params, layers=new_layers)

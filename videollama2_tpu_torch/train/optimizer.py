@@ -4,9 +4,11 @@ of videollama2_tpu/train/optimizer.py).
 The JAX package builds an optax.multi_transform over a label tree: the
 vision tower is frozen ("frozen": set_to_zero), the connector trains at
 `mm_projector_lr` ("projector") and the LLM at the base rate ("llm", frozen
-under tune_mm_mlp_adapter or freeze_backbone). Each trained group runs
-clip_by_global_norm(max_grad_norm) then optax.adamw. torch.optim.AdamW is
-not that update, so `GroupedAdamW` writes optax's arithmetic out:
+under tune_mm_mlp_adapter or freeze_backbone); under lora_enable only the
+LoRA adapters' a and b are "llm" and the rest of the LLM is frozen. Each
+trained group runs clip_by_global_norm(max_grad_norm) then optax.adamw.
+torch.optim.AdamW is not that update, so `GroupedAdamW` writes optax's
+arithmetic out:
 
   - the gradient norm is taken over the group's gradients only;
   - mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, with the dtype
@@ -48,6 +50,7 @@ class OptimizerConfig:
     max_grad_norm: float = 1.0
     tune_mm_mlp_adapter: bool = False  # pretrain: projector-only
     freeze_backbone: bool = False
+    lora_enable: bool = False          # train adapters only (+ projector)
 
 
 Path = Tuple[str, ...]
@@ -120,10 +123,21 @@ def _decay_mask(params: dict) -> Dict[Path, bool]:
     return {p: t.dim() > 1 for p, t in flatten(params).items()}
 
 
-def param_labels(params: dict) -> Dict[Path, str]:
-    """{path: "frozen" | "projector" | "llm"}: the vision tower and integer
-    (quantized) leaves are frozen, the connector is the projector, the rest
-    is the LLM. (LoRA's adapter labels are not ported yet.)"""
+def _is_adapter(path: Path) -> bool:
+    """A LoRA adapter's trained matrix: a, b, or a block of the fused qkv
+    adapter's b (train/lora.py); not its scale s."""
+    if "lora" not in path:
+        return False
+    return path[path.index("lora") + 1] in ("a", "b")
+
+
+def param_labels(params: dict, lora_enable: bool = False
+                 ) -> Dict[Path, str]:
+    """{path: "frozen" | "projector" | "llm"} (JAX `param_labels`): the
+    vision tower and integer (quantized) leaves are frozen and the
+    connector is the projector. Under lora_enable only the adapters' a and
+    b are "llm" and every other LLM leaf is frozen; without it the LLM is
+    "llm" but for the adapters' scales s (alpha / r, a constant)."""
 
     def label(path, leaf):
         if path[0] == "vision":
@@ -131,6 +145,10 @@ def param_labels(params: dict) -> Dict[Path, str]:
         if path[0] == "connector":
             return "projector"
         if not leaf.is_floating_point():
+            return "frozen"
+        if lora_enable:
+            return "llm" if _is_adapter(path) else "frozen"
+        if "lora" in path and path[-1] == "s":
             return "frozen"
         return "llm"
     return {p: label(p, t) for p, t in flatten(params).items()}
@@ -140,7 +158,7 @@ def trainable_mask(params: dict, cfg: OptimizerConfig) -> Dict[Path, bool]:
     """{path: True where gradients are needed}, mirroring the labels."""
     frozen_llm = cfg.tune_mm_mlp_adapter or cfg.freeze_backbone
     return {p: lb == "projector" or (lb == "llm" and not frozen_llm)
-            for p, lb in param_labels(params).items()}
+            for p, lb in param_labels(params, cfg.lora_enable).items()}
 
 
 class GroupedAdamW:
@@ -149,7 +167,7 @@ class GroupedAdamW:
 
     def __init__(self, params: dict, cfg: OptimizerConfig):
         self.cfg = cfg
-        labels = param_labels(params)
+        labels = param_labels(params, cfg.lora_enable)
         frozen_llm = cfg.tune_mm_mlp_adapter or cfg.freeze_backbone
         lrs = {"projector": cfg.mm_projector_lr or cfg.learning_rate,
                "llm": None if frozen_llm else cfg.learning_rate}

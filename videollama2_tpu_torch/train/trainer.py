@@ -3,10 +3,14 @@ without the mesh and without orbax).
 
 `Trainer.train` steps over an iterable of Batches (each holding
 gradient_accumulation_steps microbatches) up to max_steps, writes a
-train_log.jsonl line every log_steps steps and, for the pretrain stage
-(tune_mm_mlp_adapter), saves the projector alone every save_steps steps
-and at the end (checkpoint/projector_io). Saving and resuming the full
-train state, and the LoRA split save, are not ported yet.
+train_log.jsonl line every log_steps steps and, every save_steps steps and
+at the end, saves for the pretrain stage (tune_mm_mlp_adapter) the
+projector alone (adapter-{step}/) and under lora_enable the LoRA split
+(lora-{step}/: the peft adapters, the projector and config.json,
+checkpoint/projector_io.export_lora_split, which the loader's path (a)
+reads back). Saving and resuming the full train state is not ported yet.
+The params must all lie on `device` ("cuda" by default): the Trainer
+never moves them and never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Iterable
 
 from ..checkpoint import projector_io
 from ..core.config import ModelConfig
+from ..inference.engine import check_device
 from . import optimizer as opt_lib
 from . import step as step_lib
 from .data import Batch
@@ -37,7 +42,17 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, params: dict,
                  opt_cfg: opt_lib.OptimizerConfig,
-                 trainer_cfg: TrainerConfig):
+                 trainer_cfg: TrainerConfig, device="cuda"):
+        self.device = check_device(device)
+        want = self.device
+        elsewhere = sorted({str(t.device) for t in
+                            opt_lib.flatten(params).values()
+                            if t.device.type != want.type
+                            or want.index not in (None, t.device.index)})
+        if elsewhere:
+            raise ValueError(f"Trainer on {self.device}: params on "
+                             f"{elsewhere}; move them there first (pass "
+                             f"device='cpu' to train on the CPU)")
         self.model_cfg = model_cfg
         self.cfg = trainer_cfg
         self.opt_cfg = dataclasses.replace(opt_cfg,
@@ -75,7 +90,8 @@ class Trainer:
         return self.state
 
     def save(self, step: int) -> None:
-        """The pretrain stage's projector-only save, adapter-{step}/."""
+        """The pretrain stage's projector-only save, adapter-{step}/, and
+        the LoRA split save, lora-{step}/."""
         if step == self._last_saved:
             return
         self._last_saved = step
@@ -83,3 +99,8 @@ class Trainer:
             projector_io.save_projector_only(
                 os.path.join(self.cfg.output_dir, f"adapter-{step}"),
                 self.state.params["connector"])
+        if self.opt_cfg.lora_enable:
+            projector_io.export_lora_split(
+                os.path.join(self.cfg.output_dir, f"lora-{step}"),
+                self.state.params["llm"], self.state.params["connector"],
+                self.model_cfg)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
+from ..models import connector
 from ..models import videollama2 as vl2
 from ..models import vit
 from ..multimodal.splice import plan_batch
@@ -95,6 +96,17 @@ def synthetic_vision_params(vision_cfg, dtype=torch.bfloat16,
     generator.manual_seed(seed)
     return _build(vit.param_shapes(vision_cfg), ("vision",), dtype,
                   torch.device(device), generator)
+
+
+def synthetic_connector_params(connector_cfg, dtype=torch.float32,
+                               device="cpu", seed: int = 0) -> dict:
+    """The connector's parameter tree alone (models/connector.param_shapes),
+    seeded and initialised as in synthetic_params (the projector of a LoRA
+    directory saved without its non-LoRA trainables)."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return _build(connector.param_shapes(connector_cfg), ("connector",),
+                  dtype, torch.device(device), generator)
 
 
 def synthetic_audio_params(cfg, dtype=torch.bfloat16, device="cuda",
