@@ -20,7 +20,18 @@ versions. On the int8 and 2.1 bf16 slices' weights the "speculative +
 sessions" phase runs greedy prompt-lookup speculation (k = 4; B = 1 and
 B = 16) against plain greedy and a session's two continued turns
 against fresh generates, each call with exact launch counts and every
-token difference held to a near-tie. The "api" phase loads a checkpoint
+token difference held to a near-tie. On the int8 slice's Engine the
+"serve" phase runs the media layer and the serving plane: the
+processors on a 16-frame 480x640 directory (PNG and BMP frames, written
+here) and a 480x640 PNG; a controller and a model worker on localhost
+streaming a video and an image request (exact launch counts, the tokens
+of a direct Engine.generate); 16 concurrent video requests over 4
+videos plus 2 text ones on a dynamic-batching worker against the plain
+worker (requests/s; answers held to B = 1 up to near-ties; each
+distinct video of a batch encoded once); two chat completions of the
+OpenAI-compatible server; and the container paths (the decoder built
+from media/csrc where libavcodec is, else a named error and an
+error_code 1 answer). The "api" phase loads a checkpoint
 in the released 7B-16F layout (LLM cut to 8 layers) through model_init
 and answers through mm_infer, mm_infer_batch, a 3-turn ChatSession and
 mm_infer_session. The "av" phase runs VideoLLaMA2.1-AV (the 2.1 slice's
@@ -57,6 +68,7 @@ is non-zero; without a CUDA device it exits non-zero before printing
 anything on stdout.
 """
 
+import base64
 import dataclasses
 import functools
 import gc
@@ -73,6 +85,10 @@ import types
 import zlib
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the test writers of AVI, PNG and BMP files (another "tests" package may
+# be installed, so they are imported by their own names)
+sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -146,6 +162,13 @@ LORA_R, LORA_ALPHA = 128, 256
 LORA_MB, LORA_ACCUM, LORA_STEPS = 4, 4, 2
 LORA_LR = 2e-5
 LORA_NEW_TOKENS = 8
+# the "serve" phase on the int8 slice's Engine: SERVE_VIDEO_REQUESTS
+# concurrent video requests over SERVE_VIDEOS distinct 16-frame 480x640
+# videos plus SERVE_TEXT_REQUESTS text requests, on a worker with dynamic
+# batching and on the plain one
+SERVE_VIDEOS = 4
+SERVE_VIDEO_REQUESTS = 16
+SERVE_TEXT_REQUESTS = 2
 
 
 def log(msg: str) -> None:
@@ -1274,17 +1297,20 @@ class LogitTap:
     """Within `with tap:`, records what the Engine takes its tokens from and
     changes nothing: each select_token call's logits [B, V] (the first
     token of a generate or of a continued turn, then each plain decode
-    step), each verify pass's per-row frontiers and logits [B, K, V], and
-    each verify round's accepted draft count."""
+    step), each verify pass's per-row frontiers and logits [B, K, V] and
+    what it was fed (its embeddings and step0, for verify_logits' replay),
+    and each verify round's accepted draft count."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
         self.picks, self.verifies, self.accepted = [], [], []
+        self.fed = []
 
     def record(self) -> dict:
-        return {"picks": list(self.picks), "verifies": list(self.verifies)}
+        return {"picks": list(self.picks), "verifies": list(self.verifies),
+                "fed": list(self.fed)}
 
     def __enter__(self):
         from videollama2_tpu_torch.inference import sampling, speculative
@@ -1301,6 +1327,8 @@ class LogitTap:
 
         def decode_verify(params, cfg, embeds, cache, valid_len, prompt_len,
                           step0, w8a8=False):
+            self.fed.append((embeds.clone(), step0.clone()
+                             if isinstance(step0, torch.Tensor) else step0))
             logits, cache = verify(params, cfg, embeds, cache, valid_len,
                                    prompt_len, step0, w8a8)
             per_row = isinstance(step0, torch.Tensor) and step0.dim() == 1
@@ -1359,8 +1387,10 @@ def check_tokens(label, plain, other, plain_logits, other_logits,
     the bound holds weight-only verify against the plain path and the
     recorded W8A8 verify against the reference, and the margin is held
     against the reference's difference from the plain path (the W8A8
-    effect, reference minus weight-only, is logged). Returns the numbers
-    and "ok"."""
+    effect, reference minus weight-only, is logged). The recompute replays
+    the recorded run's verify passes, so each logit row comes from the
+    same pass and slot, over the same cache history, as the recorded one.
+    Returns the numbers and "ok"."""
     equal = sum(x == y for pr, orow in zip(plain, other)
                 for x, y in zip(pr, orow))
     total = sum(len(pr) for pr in plain)
@@ -1419,15 +1449,18 @@ def w8a8_reference(x: torch.Tensor, pack: dict) -> torch.Tensor:
     return (y * xs * pack["scale"][..., 0, :].float()).to(x.dtype)
 
 
-def verify_logits(eng, cfg, frames, prompt, bucket, tokens, firsts) -> dict:
-    """The verify path's logits behind token firsts[b] of row b, fed
-    tokens[b] teacher-forced, in two arithmetics: "weight_only" (w8a8
-    False, the weight-only int8 arithmetic of the decode kernels) and
-    "w8a8_reference" (w8a8 True with every packed dense through
-    w8a8_reference). The prompt is prefilled once into a fresh cache for
-    frames' B rows; each mode runs lockstep verify passes of up to SPEC_K
-    slots over every row's tokens on its own copy of that cache. Slot j at
-    step s predicts token s + 1 + j. Returns {mode: {row: logits}}."""
+def verify_logits(eng, cfg, frames, prompt, bucket, record, firsts) -> dict:
+    """The verify path's logits behind token firsts[b] of row b in two
+    arithmetics: "weight_only" (w8a8 False, the weight-only int8
+    arithmetic of the decode kernels) and "w8a8_reference" (w8a8 True with
+    every packed dense through w8a8_reference). The prompt is prefilled
+    once into a fresh cache for frames' B rows; each mode replays, on its
+    own copy of that cache, the verify passes of `record` (a LogitTap
+    record of a speculative run) with their embeddings and per-row
+    frontiers, and takes token p from the pass and slot that logits_at
+    takes it from in the record. Lockstep passes from other frontiers
+    would write the cache from other passes, which at full width alone
+    moves a logit by about 0.4 std. Returns {mode: {row: logits}}."""
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
     from videollama2_tpu_torch.ops import layers
@@ -1448,18 +1481,15 @@ def verify_logits(eng, cfg, frames, prompt, bucket, tokens, firsts) -> dict:
             if mode == "w8a8_reference":
                 layers.dense_w8a8 = w8a8_reference
             try:
-                out[mode] = {}
-                for s in range(0, max(firsts.values()), SPEC_K):
-                    n = min(SPEC_K, max(firsts.values()) - s)
-                    ids = torch.tensor([row[s:s + n] for row in tokens],
-                                       device=eng.device)
+                verifies = []
+                for (fronts, _), (embeds, step0) in zip(record["verifies"],
+                                                        record["fed"]):
                     logits, cache = llm_lib.decode_verify(
-                        params, cfg.llm,
-                        llm_lib.embed_tokens(params, ids, eng.dtype), cache,
-                        args[-1], bucket, s, w8a8=mode != "weight_only")
-                    for b, p in firsts.items():
-                        if 0 <= p - 1 - s < n:
-                            out[mode][b] = logits[b, p - 1 - s]
+                        params, cfg.llm, embeds, cache, args[-1], bucket,
+                        step0, w8a8=mode != "weight_only")
+                    verifies.append((fronts, logits))
+                out[mode] = {b: logits_at({"verifies": verifies}, b, p, True)
+                             for b, p in firsts.items()}
             finally:
                 layers.dense_w8a8 = saved
             del cache
@@ -1569,7 +1599,7 @@ def run_speculation(name, base, cfg, frames, prompt, bucket, counters,
             lambda b, p: logits_at(plain_rec, b, p, False),
             lambda b, p: logits_at(spec_rec, b, p, True),
             (lambda firsts: verify_logits(eng, cfg, fr, prompt, bucket,
-                                          plain, firsts))
+                                          spec_rec, firsts))
             if packed else None)
 
     gen = GenerationConfig(max_new_tokens=SESSION_NEW_TOKENS)
@@ -2232,6 +2262,483 @@ def run_api_lora(ckpt, counters) -> dict:
     return out, counts
 
 
+def smooth_frames(rng, n, h, w) -> np.ndarray:
+    """n seeded [h, w, 3] uint8 frames: a gradient that moves a frame, with
+    noise (so a PNG row's filters differ and no frame repeats)."""
+    y, x = np.mgrid[0:h, 0:w]
+    base = (x * 3 + y * 2)[None, ..., None] + np.arange(3) * 40 \
+        + 7 * np.arange(n)[:, None, None, None]
+    return ((base + rng.integers(0, 8, (n, h, w, 3))) % 256).astype(np.uint8)
+
+
+def write_frame_dir(path, frames, fmts) -> None:
+    """Frame i as <i>.png or <i>.bmp (fmts[i % len(fmts)]), sorted in
+    order."""
+    from png_writer import encode_bmp, encode_png
+    os.makedirs(path)
+    for i, f in enumerate(frames):
+        fmt = fmts[i % len(fmts)]
+        with open(os.path.join(path, f"{i:03d}.{fmt}"), "wb") as out:
+            out.write(encode_png(f) if fmt == "png" else encode_bmp(f))
+
+
+def stream_request(url, payload, timeout=300):
+    """POST a generate stream; returns (chunks, s to the first complete
+    chunk, s to the end of the stream)."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    first, buf = None, b""
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        while True:
+            data = r.read1(65536)
+            if not data:
+                break
+            buf += data
+            if first is None and b"\0" in buf:
+                first = time.perf_counter() - t0
+    return ([json.loads(c) for c in buf.split(b"\0") if c], first,
+            time.perf_counter() - t0)
+
+
+class CallRecorder:
+    """The Engine behind the serving plane with each generate call recorded
+    (changes nothing): its prompts, how many media it encoded, its
+    media_group and image_mode, its tokens, and the logits of every
+    select_token call made on its thread. Concurrent requests run their
+    generate calls on threads of their own (the worker's request threads,
+    the batcher's two collectors), so a call's logits are those its
+    thread picked from while it ran."""
+
+    def __init__(self, engine):
+        import threading
+        self._engine = engine
+        self._picks = {}
+        self._lock = threading.Lock()
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def generate(self, ids, frames=None, **kw):
+        import threading
+        tid = threading.get_ident()
+        self._picks[tid] = []
+        try:
+            result = self._engine.generate(ids, frames=frames, **kw)
+        finally:
+            picks = self._picks.pop(tid)
+        outs = result[0] if isinstance(result, tuple) else result
+        with self._lock:
+            self.calls.append({
+                "ids": [list(p) for p in ids], "outs": outs, "picks": picks,
+                "media": None if frames is None else int(frames.shape[0]),
+                "media_group": kw.get("media_group"),
+                "image_mode": bool(kw.get("image_mode"))})
+        return result
+
+    def __enter__(self):
+        import threading
+        from videollama2_tpu_torch.inference import sampling
+        self._saved = sampling.select_token
+
+        def select_token(generator, logits, *args):
+            picks = self._picks.get(threading.get_ident())
+            if picks is not None:
+                picks.append(logits)
+            return self._saved(generator, logits, *args)
+
+        sampling.select_token = select_token
+        return self
+
+    def __exit__(self, *exc):
+        from videollama2_tpu_torch.inference import sampling
+        sampling.select_token = self._saved
+
+    def find(self, ids):
+        """(call, row) of the recorded call that held prompt `ids`."""
+        for call in self.calls:
+            for row, p in enumerate(call["ids"]):
+                if p == ids:
+                    return call, row
+        raise RuntimeError("serve: no recorded call held the prompt")
+
+
+def tower_passes(cfg, frames: int) -> int:
+    """Tower passes of encode_frames over `frames` frames (its chunking:
+    VIT_ENCODE_CHUNK, halved until it divides the count)."""
+    from videollama2_tpu_torch.models.videollama2 import VIT_ENCODE_CHUNK
+    chunk = VIT_ENCODE_CHUNK
+    while chunk > 1 and frames % chunk:
+        chunk //= 2
+    return 1 if frames <= chunk else frames // chunk
+
+
+def calls_launches(counters, cfg, calls) -> dict:
+    """Launch counts of recorded generate calls on the int8 slice: the
+    tower over each call's distinct media (one frame a row in image
+    mode), one prefill each, and K3-K5 for each decode step."""
+    L = cfg.llm.num_layers
+    want = dict.fromkeys(counters, 0)
+    for c in calls:
+        if c["media"] is not None:
+            frames = c["media"] * (1 if c["image_mode"] else cfg.num_frames)
+            want["encoder_attention"] += vit_layers(cfg) * tower_passes(
+                cfg, frames)
+        want["flash_attention"] += L
+        steps = len(c["outs"][0]) - 1
+        want["decode_attention"] += steps * L
+        want["matmul_q8_layered"] += 2 * steps * L
+        want["ffn_q8_layered"] += steps * L
+    return want
+
+
+def run_serve_phase(eng, cfg, counters, smi) -> tuple:
+    """The "serve" phase on the int8 slice's Engine (VideoLLaMA2-7B-16F,
+    int8 packs, W8A8 prefill, int8 KV cache) with a word-level toy
+    tokenizer: the processors on a 16-frame 480x640 directory (PNG and
+    BMP frames) and a 480x640 PNG; a controller and a model worker on
+    localhost streaming a video and an image request through the proxy,
+    each with exact launch counts and the tokens of a direct
+    Engine.generate on the same processed frames; 16 concurrent video
+    requests over 4 distinct videos plus 2 text requests on a worker with
+    dynamic batching against the same 18 on the plain worker (answers held
+    to B = 1 up to near-ties, the tower run once a distinct video of a
+    group, requests/s and the batcher's stats); two chat completions of
+    the OpenAI-compatible server; the container paths. Returns the
+    numbers and the launch counts of each serialized request."""
+    from http.server import ThreadingHTTPServer
+    import threading
+    from videollama2_tpu_torch.inference import api
+    from videollama2_tpu_torch.inference.engine import GenerationConfig
+    from videollama2_tpu_torch.media import video_reader
+    from videollama2_tpu_torch.serve import controller as ctrl_mod
+    from videollama2_tpu_torch.serve import model_worker as worker_mod
+    from videollama2_tpu_torch.serve import openai_api
+    from avi_writer import write_avi
+
+    tok = ToyTokenizer(cfg.llm.vocab_size)
+    recorder = CallRecorder(eng)
+    model = api.VideoLLaMA2(config=cfg, engine=recorder)
+    processors = {w: api._processors(cfg, w) for w in ("rgb", "i420")}
+    out, counts, servers = {"device": smi}, {}, []
+    batched = None
+    S = cfg.vision.image_size
+    root = tempfile.TemporaryDirectory()
+    rng = np.random.default_rng(5)
+
+    def serve(handler):
+        srv = ThreadingHTTPServer(("localhost", 0), handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append(srv)
+        return f"http://localhost:{srv.server_address[1]}"
+
+    try:
+        # -- 1. the processors ---------------------------------------------
+        clip_dir = os.path.join(root.name, "clip")
+        clip = smooth_frames(rng, 16, 480, 640)
+        write_frame_dir(clip_dir, clip, ("png", "bmp"))
+        image_path = os.path.join(root.name, "image.png")
+        from png_writer import encode_png
+        image_png = encode_png(smooth_frames(rng, 1, 480, 640)[0])
+        with open(image_path, "wb") as f:
+            f.write(image_png)
+        decoded = video_reader.read_video_frames(clip_dir, 16)
+        if not np.array_equal(np.stack(decoded), clip):
+            raise RuntimeError("serve: the frame directory did not decode "
+                               "to the frames written")
+        host = {}
+        for wire in ("rgb", "i420"):
+            for run in range(2):
+                t0 = time.perf_counter()
+                video = processors[wire]["video"](clip_dir)
+                host[f"video {wire} ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            img = processors[wire]["image"](image_path)
+            host[f"image {wire} ms"] = (time.perf_counter() - t0) * 1e3
+            shape = ((16, S, S, 3) if wire == "rgb"
+                     else (16, S * 3 // 2, S))
+            if video.shape != shape or video.dtype != np.uint8 \
+                    or img.shape != (1,) + shape[1:]:
+                raise RuntimeError(f"serve: processor shapes {video.shape} "
+                                   f"{img.shape} on the {wire} wire")
+        out["processors_host_ms"] = host
+        log(f"[serve] ({smi}) processors on the host, 16 frames 480x640 "
+            "(8 PNG, 8 BMP) -> 336: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in host.items()))
+        video_i420 = processors["i420"]["video"](clip_dir)
+        image_i420 = processors["i420"]["image"](image_path)
+
+        # -- 2. controller + worker: two serialized streamed requests -------
+        controller = ctrl_mod.Controller("shortest_queue")
+        ctrl_url = serve(ctrl_mod.make_handler(controller))
+        worker = worker_mod.ModelWorker(
+            ctrl_url, "", "serve", model_name="videollama2-7b-16f-int8",
+            register=False, preloaded=(model, processors["i420"], tok))
+        worker.worker_addr = serve(worker_mod.make_handler(worker))
+        worker.register_to_controller()
+        with urllib_post(ctrl_url + "/list_models", {}) as r:
+            models = json.loads(r.read())["models"]
+        if models != ["videollama2-7b-16f-int8"]:
+            raise RuntimeError(f"serve: /list_models gave {models}")
+        steps = NEW_TOKENS - 1
+        want = phase_launches(counters, cfg, 1, True, steps, True)
+        b64_image = base64.b64encode(image_png).decode()
+        for kind, extra, tensor, modal in (
+                ("video", {"video": clip_dir}, video_i420, "video"),
+                ("image", {"images": [b64_image]}, image_i420, "image")):
+            question = f"what happens in the {kind} ?"
+            ids = api.build_prompt_ids(question, cfg, tok, modal)
+            frames = tensor[None]
+            if modal == "image":
+                frames = np.broadcast_to(frames, (1, cfg.num_frames)
+                                         + tensor.shape[1:])
+            direct = eng.generate([ids], frames=frames,
+                                  gen=GenerationConfig(
+                                      max_new_tokens=NEW_TOKENS),
+                                  eos_token_id=-1,
+                                  image_mode=(modal == "image"))[0]
+            # through the controller's proxy, then straight to the worker
+            # (the proxy reads the stream 4096 bytes at a time, so only the
+            # worker's own stream shows when the first chunk is ready)
+            for route, url in (("controller", ctrl_url),
+                               ("worker", worker.worker_addr)):
+                recorder.calls.clear()
+                for c in counters.values():
+                    c.launches = 0
+                chunks, first_s, total_s = stream_request(
+                    url + "/worker_generate_stream",
+                    dict(extra, model="videollama2-7b-16f-int8",
+                         prompt=question, temperature=0.0,
+                         max_new_tokens=NEW_TOKENS))
+                got = {n: c.launches for n, c in counters.items()}
+                log(f"[serve] {kind} request through the {route}: launches "
+                    f"{got} (want {want})")
+                if got != want:
+                    raise RuntimeError(f"serve {kind}: launch counts {got} "
+                                       f"!= {want}")
+                if chunks[-1]["error_code"] != 0 or len(recorder.calls) != 1:
+                    raise RuntimeError(f"serve {kind}: {chunks[-1]}")
+                if recorder.calls[0]["outs"][0] != direct or \
+                        chunks[-1]["text"] != tok.decode(direct).strip():
+                    raise RuntimeError(f"serve {kind}: the worker's tokens "
+                                       "differ from a direct "
+                                       "Engine.generate")
+                counts[f"serve {kind} request ({route})"] = got
+                out[f"{kind}_request_{route}"] = {
+                    "first_chunk_s": first_s, "request_s": total_s,
+                    "chunks": len(chunks)}
+                log(f"[serve] ({smi}) {kind} request through the {route}: "
+                    f"first chunk {first_s:.3f} s, request {total_s:.3f} s, "
+                    f"{len(chunks)} chunks; tokens equal a direct "
+                    "Engine.generate")
+
+        # -- 3. dynamic batching against the plain worker ---------------------
+        videos = []
+        for v in range(SERVE_VIDEOS):
+            path = os.path.join(root.name, f"video{v}")
+            write_frame_dir(path, smooth_frames(rng, 16, 480, 640), ("bmp",))
+            videos.append(path)
+        requests = [({"video": videos[i % SERVE_VIDEOS]},
+                     f"question {i} : what happens in the video ?", "video")
+                    for i in range(SERVE_VIDEO_REQUESTS)]
+        requests += [({}, f"question {i} : say something ?", "text")
+                     for i in range(SERVE_TEXT_REQUESTS)]
+        batched = worker_mod.ModelWorker(
+            "", "", "serve", register=False, dynamic_batch=True,
+            preloaded=(model, processors["i420"], tok))
+        batched_url = serve(worker_mod.make_handler(batched))
+        runs = {}
+        for label, url in (("plain worker", worker.worker_addr),
+                           ("batching worker", batched_url)):
+            recorder.calls.clear()
+            for c in counters.values():
+                c.launches = 0
+            results = [None] * len(requests)
+
+            def send(i, url=url, results=results):
+                extra, question, _ = requests[i]
+                results[i] = stream_request(
+                    url + "/worker_generate_stream",
+                    dict(extra, prompt=question, temperature=0.0,
+                         max_new_tokens=NEW_TOKENS))
+
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(len(requests))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorder:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads) or any(
+                    r is None or r[0][-1]["error_code"] != 0
+                    for r in results):
+                raise RuntimeError(f"serve {label}: a request failed")
+            got = {n: c.launches for n, c in counters.items()}
+            want = calls_launches(counters, cfg, recorder.calls)
+            log(f"[serve] {label}: {len(recorder.calls)} generate calls, "
+                f"launches {got} (want {want})")
+            if got != want:
+                raise RuntimeError(f"serve {label}: launch counts {got} != "
+                                   f"{want}")
+            counts[f"serve {label}"] = got
+            calls = list(recorder.calls)
+            rows = []
+            for (extra, question, modal), res in zip(requests, results):
+                call, row = recorder.find(api.build_prompt_ids(
+                    question, cfg, tok, modal))
+                if res[0][-1]["text"] != tok.decode(
+                        call["outs"][row]).strip():
+                    raise RuntimeError(f"serve {label}: streamed text and "
+                                       "tokens differ")
+                rows.append((call, row))
+            runs[label] = {"rows": rows, "calls": calls}
+            out[label] = {
+                "requests": len(requests), "wall_s": wall,
+                "requests_per_s": len(requests) / wall,
+                "first_chunk_s_median": statistics.median(
+                    r[1] for r in results),
+                "request_s_median": statistics.median(r[2] for r in results),
+                "generate_calls": len(calls),
+                "batch_sizes": sorted(len(c["ids"]) for c in calls),
+                "media_encoded": [c["media"] for c in calls
+                                  if c["media"] is not None]}
+            if label == "batching worker":
+                out[label]["batcher_stats"] = batched.batcher.stats
+                # each call encodes each distinct video of its rows once
+                for call in calls:
+                    videos_in = {i % SERVE_VIDEOS for i in range(
+                        SERVE_VIDEO_REQUESTS) if api.build_prompt_ids(
+                            requests[i][1], cfg, tok, "video")
+                        in call["ids"]}
+                    if (call["media"] or 0) != len(videos_in):
+                        raise RuntimeError(
+                            f"serve: a call of {len(call['ids'])} rows "
+                            f"encoded {call['media']} videos for "
+                            f"{len(videos_in)} distinct ones")
+            log(f"[serve] ({smi}) {label}: {len(requests)} requests "
+                f"({SERVE_VIDEO_REQUESTS} video over {SERVE_VIDEOS} videos, "
+                f"{SERVE_TEXT_REQUESTS} text) in {wall:.3f} s, "
+                f"{out[label]['requests_per_s']:.2f} requests/s, median "
+                f"first chunk {out[label]['first_chunk_s_median']:.3f} s, "
+                f"median request {out[label]['request_s_median']:.3f} s; "
+                f"batch sizes {out[label]['batch_sizes']}, videos encoded a "
+                f"call {out[label]['media_encoded']}"
+                + (f", batcher stats {batched.batcher.stats}"
+                   if label == "batching worker" else ""))
+        plain_rows = runs["plain worker"]["rows"]
+        batch_rows = runs["batching worker"]["rows"]
+        out["batched_vs_b1"] = check_tokens(
+            "serve batched vs B 1",
+            [c["outs"][r] for c, r in plain_rows],
+            [c["outs"][r] for c, r in batch_rows],
+            lambda b, p: plain_rows[b][0]["picks"][p][plain_rows[b][1]],
+            lambda b, p: batch_rows[b][0]["picks"][p][batch_rows[b][1]])
+        if not out["batched_vs_b1"]["ok"]:
+            raise RuntimeError("serve: a batched answer differs from B 1 "
+                               "beyond a near-tie")
+        out["batching_speedup"] = (out["batching worker"]["requests_per_s"]
+                                   / out["plain worker"]["requests_per_s"])
+        del runs, plain_rows, batch_rows
+        recorder.calls.clear()
+
+        # -- 4. the OpenAI-compatible server --------------------------------
+        backend = openai_api.OpenAIBackend(
+            "serve", "videollama2-7b-16f-int8",
+            preloaded=(model, processors["i420"], tok))
+        oai_url = serve(openai_api.make_handler(backend))
+        data_url = "data:image/png;base64," + b64_image
+        for kind, part, tensor, modal in (
+                ("image", {"type": "image_url",
+                           "image_url": {"url": data_url}},
+                 image_i420, "image"),
+                ("video", {"type": "video_url",
+                           "video_url": {"url": clip_dir}},
+                 video_i420, "video")):
+            body = {"messages": [{"role": "user", "content": [
+                {"type": "text", "text": f"describe the {kind}"}, part]}],
+                "max_tokens": NEW_TOKENS}
+            recorder.calls.clear()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with urllib_post(oai_url + "/v1/chat/completions", body,
+                             timeout=300) as r:
+                reply = json.loads(r.read())
+            took = time.perf_counter() - t0
+            got = {n: c.launches for n, c in counters.items()}
+            want = phase_launches(counters, cfg, 1, True, steps, True)
+            if got != want:
+                raise RuntimeError(f"serve openai {kind}: launch counts "
+                                   f"{got} != {want}")
+            text = reply["choices"][0]["message"]["content"]
+            call = recorder.calls[0]
+            if text != tok.decode(call["outs"][0]).strip() or \
+                    call["ids"][0] != api.build_prompt_ids(
+                        f"describe the {kind}", cfg, tok, modal):
+                raise RuntimeError(f"serve openai {kind}: {reply}")
+            counts[f"serve openai {kind}"] = got
+            out[f"openai_{kind}_s"] = took
+            log(f"[serve] ({smi}) OpenAI chat completion with a "
+                f"{'data-URL PNG' if kind == 'image' else 'video path'}: "
+                f"{took:.3f} s, launches {got}")
+
+        # -- 5. container paths ---------------------------------------------
+        avi = os.path.join(root.name, "clip.avi")
+        avi_frames = smooth_frames(rng, 8, 48, 64)
+        write_avi(avi, avi_frames, None, fps=4)
+        available = video_reader.decoder_available()
+        out["container_decoder"] = available
+        log(f"[serve] the container decoder (media/csrc/video_decoder.cc, "
+            f"libavcodec) {'builds' if available else 'does not build'} "
+            "on this host")
+        if available:
+            vr = video_reader.VideoReader(avi)
+            got_frames = vr.get_batch(range(len(avi_frames)))
+            vr.close()
+            if not np.array_equal(got_frames, avi_frames):
+                raise RuntimeError("serve: the AVI's frames differ")
+            log("[serve] the AVI's decoded frames equal the frames written")
+        else:
+            try:
+                processors["rgb"]["video"](avi)
+            except RuntimeError as e:
+                if "libavcodec" not in str(e):
+                    raise
+                log(f"[serve] processor['video'] on an AVI raises: {e}")
+            else:
+                raise RuntimeError("serve: a container decoded without "
+                                   "the decoder")
+            chunks, _, took = stream_request(
+                worker.worker_addr + "/worker_generate_stream",
+                {"prompt": "what happens ?", "video": avi}, timeout=60)
+            if len(chunks) != 1 or chunks[0]["error_code"] != 1:
+                raise RuntimeError(f"serve: container request gave {chunks}")
+            log(f"[serve] the worker answers a container request in "
+                f"{took:.3f} s with error_code 1")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        if batched is not None:
+            batched.batcher.close()
+        root.cleanup()
+    return out, counts
+
+
+def urllib_post(url, payload, timeout=60):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2428,6 +2935,13 @@ def main() -> None:
                 **SPEC_SLICES[slice_name])
             slice_counts.update({f"{slice_name} {n}": c
                                  for n, c in counts.items()})
+        if slice_name == "int8 slice":
+            # the "serve" phase: media decoding and the serving plane
+            t0 = time.perf_counter()
+            serve_stage, counts = run_serve_phase(eng, cfg, counters, smi)
+            serve_stage["phase_s"] = time.perf_counter() - t0
+            slice_counts.update(counts)
+            log(json.dumps({"serve": serve_stage}))
         stages[slice_name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{slice_name}] peak device memory "
             f"{stages[slice_name]['peak_gb']:.1f} GB")

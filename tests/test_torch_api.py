@@ -479,8 +479,12 @@ def test_mm_infer_batch_matches_jax(jax_loaded, port_loaded):
 def test_api_surface_and_unported_parts(ckpt, port_loaded):
     model, processor, tok = port_loaded
     assert set(processor) == {"image", "video"}
-    with pytest.raises(NotImplementedError, match="media decoding"):
+    # the processors decode (tests/test_torch_media.py); a missing file and
+    # a format the port does not read raise
+    with pytest.raises(OSError, match="cannot open video"):
         processor["video"]("clip.mp4")
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        processor["image"](b"\xff\xd8\xff\xe0" + bytes(16))
     with pytest.raises(ValueError, match="tokenizer"):
         videollama2_tpu_torch.model_init(ckpt, device="cpu")
     with pytest.raises(ValueError, match="wire"):

@@ -15,6 +15,7 @@ matmuls round their inputs). Params cross with params_from_jax.
 import json
 import os
 import sys
+import warnings
 import wave
 
 import numpy as np
@@ -120,8 +121,12 @@ def test_load_wav_matches_jax(tmp_path, rate, channels, width):
 
 
 def test_container_audio_raises():
-    with pytest.raises(NotImplementedError, match="media decoding"):
+    """Container audio goes through the decoder (its track against JAX's:
+    tests/test_torch_media.py); a missing file raises as in JAX."""
+    with pytest.raises(OSError, match="no decodable audio"):
         taudio.load_audio("clip.mp4")
+    with pytest.raises(OSError, match="no decodable audio"):
+        jaudio.load_audio("clip.mp4")
 
 
 # -- BEATs -------------------------------------------------------------------
@@ -608,8 +613,9 @@ def test_chat_session_audio(av_loaded, wav_path):
 
 
 def test_container_paths_raise(av_loaded):
-    """Container audio and AV need the media decoder the port does not
-    have: they raise, and nothing degrades to silence."""
+    """Container audio and AV on a missing file raise (the decoder cannot
+    open it; tests/test_torch_serve.py answers real containers), and
+    nothing degrades to silence."""
     _, (tmodel, processor, ttok) = av_loaded
     for call in (lambda: processor["av"]("clip.mp4"),
                  lambda: processor["audio"]("clip.mp4"),
@@ -622,11 +628,43 @@ def test_container_paths_raise(av_loaded):
                  lambda: tapi.mm_infer_session("clip.mp4", "hi", tmodel,
                                                ttok, tapi.SessionStore(),
                                                modal="av")):
-        with pytest.raises(NotImplementedError, match="media decoding"):
-            call()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            with pytest.raises(OSError, match="cannot open video|no "
+                               "decodable audio"):
+                call()
     with pytest.raises(ValueError, match="Unsupported modal"):
         tapi.mm_infer_batch(np.zeros((1, 4), np.float32), ["hi"], tmodel,
                             ttok, modal="audio")
+
+
+def test_av_container_matches_jax(av_loaded, tmp_path):
+    """A container with its own audio track through processor["av"] and
+    through mm_infer(modal="av") on its path gives JAX's frames, features
+    and answer; a container without an audio track answers with silence in
+    both packages. The frames are written at the tower's size, so neither
+    package resizes and both see the same pixels (the resize's tolerance
+    is held in tests/test_torch_media.py)."""
+    from avi_writer import write_avi
+    (jmodel, jproc, jtok), (tmodel, processor, ttok) = av_loaded
+    S = tmodel.config.vision.image_size
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, (6, S, S, 3), dtype=np.uint8)
+    av, silent = str(tmp_path / "av.avi"), str(tmp_path / "silent.avi")
+    write_avi(av, frames, rng.uniform(-0.5, 0.5, 16000 * 3), fps=2)
+    write_avi(silent, frames, None, fps=2)
+    got, want = processor["av"](av), jproc["av"](av)
+    np.testing.assert_array_equal(got["video"], want["video"])
+    np.testing.assert_array_equal(got["audio"], want["audio"])
+    assert got["audio"].any()
+    for path in (av, silent):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = japi.mm_infer(path, "What do you hear ?", jmodel, jtok,
+                                 modal="av", max_new_tokens=NEW_TOKENS)
+            got = tapi.mm_infer(path, "What do you hear ?", tmodel, ttok,
+                                modal="av", max_new_tokens=NEW_TOKENS)
+        assert got == want and got
 
 
 def test_load_8bit_leaves_audio_unpacked(av_ckpt, av_tokenizer, wav_path):

@@ -1,13 +1,21 @@
 """The port's copies of the JAX package's host modules (core/config.py,
 constants.py, media/wire.py, media/audio.py, multimodal/tokenizer.py,
-inference/speculative.py) against the originals: every preset and tiny
-config field by field, the derived token counts, the token constants, the
-I420 pack/unpack on a seeded frame, the fbank front end's constants, mel
-banks and features on a seeded waveform, the modal-token splitters and
-model-name helper on a seeded word-level tokenizer, and the prompt-lookup
-drafts and greedy acceptance on seeded token streams."""
+inference/speculative.py, utils/logging.py, and the byte-identical
+media/sampler.py, media/prefetch.py, media/csrc/video_decoder.cc,
+serve/controller.py, serve/register_worker.py and serve/test_message.py)
+against the originals: every preset and tiny config field by field, the
+derived token counts, the token, serving and frame constants, the I420
+pack/unpack on a seeded frame, the fbank front end's constants, mel banks
+and features on a seeded waveform, the modal-token splitters and
+model-name helper on a seeded word-level tokenizer, the prompt-lookup
+drafts and greedy acceptance on seeded token streams, the copied files
+byte for byte, the logging helpers' source, and the prefetcher's order,
+back-pressure and error propagation."""
 
 import dataclasses
+import inspect
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,12 +26,17 @@ from videollama2_tpu.inference import speculative as jspec
 from videollama2_tpu.media import audio as jaudio
 from videollama2_tpu.media import wire as jwire
 from videollama2_tpu.multimodal import tokenizer as jtok
+from videollama2_tpu.utils import logging as jlogging
 from videollama2_tpu_torch import constants as tconst
 from videollama2_tpu_torch.core import config as tcfg
 from videollama2_tpu_torch.inference import speculative as tspec
 from videollama2_tpu_torch.media import audio as taudio
 from videollama2_tpu_torch.media import wire as twire
 from videollama2_tpu_torch.multimodal import tokenizer as ttok
+from videollama2_tpu_torch.media.prefetch import prefetch_map
+from videollama2_tpu_torch.utils import logging as tlogging
+
+ROOT = Path(__file__).resolve().parent.parent
 
 PRESETS = sorted(jcfg._PRESETS)
 
@@ -82,7 +95,10 @@ def test_connector_token_counts():
 def test_constants():
     for name in ("IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "VIDEO_TOKEN_INDEX",
                  "AUDIO_TOKEN_INDEX", "MODAL_INDEX_MAP", "DEFAULT_IMAGE_TOKEN",
-                 "DEFAULT_VIDEO_TOKEN", "DEFAULT_AUDIO_TOKEN"):
+                 "DEFAULT_VIDEO_TOKEN", "DEFAULT_AUDIO_TOKEN",
+                 "CONTROLLER_HEART_BEAT_EXPIRATION",
+                 "WORKER_HEART_BEAT_INTERVAL", "LOGDIR", "NUM_FRAMES",
+                 "MAX_FRAMES", "NUM_FRAMES_PER_SECOND"):
         assert getattr(tconst, name) == getattr(jconst, name), name
 
 
@@ -189,3 +205,34 @@ def test_speculative_drafts_and_acceptance(seed):
         drafts = drafts[:k - 1]
         assert (tspec.accept_drafts(drafts, greedy)
                 == jspec.accept_drafts(drafts, greedy))
+
+
+@pytest.mark.parametrize("rel", [
+    "media/sampler.py", "media/prefetch.py", "media/csrc/video_decoder.cc",
+    "serve/controller.py", "serve/register_worker.py",
+    "serve/test_message.py"])
+def test_copied_files_are_byte_identical(rel):
+    """These files import nothing of JAX; the port keeps its own copies
+    (their relative imports resolve in the port's package)."""
+    assert (ROOT / "videollama2_tpu_torch" / rel).read_bytes() == \
+        (ROOT / "videollama2_tpu" / rel).read_bytes()
+
+
+@pytest.mark.parametrize("name", ["build_logger", "pretty_print_semaphore"])
+def test_logging_helpers(name):
+    assert inspect.getsource(getattr(tlogging, name)) == \
+        inspect.getsource(getattr(jlogging, name))
+
+
+def test_prefetch_order_errors_and_empty():
+    def work(x):
+        time.sleep(0.002 * (5 - x % 5))  # out-of-order completion
+        if x == 13:
+            raise ValueError("boom")
+        return x * 2
+
+    assert list(prefetch_map(range(10), work, buffer_size=4,
+                             num_workers=4)) == [x * 2 for x in range(10)]
+    with pytest.raises(ValueError, match="boom"):
+        list(prefetch_map(range(20), work, buffer_size=2, num_workers=2))
+    assert list(prefetch_map([], lambda x: x)) == []

@@ -190,8 +190,9 @@ def test_unported_options_raise(tiny):
     # this model has no audio branch (the AV model's: test_torch_audio.py)
     with pytest.raises(ValueError, match="audio branch"):
         eng.generate([[1, 2]], audio=np.zeros((1, 4, 128), np.float32))
-    with pytest.raises(NotImplementedError, match="grouped media"):
-        eng.generate([[1, 2]], frames=_videos(cfg, "rgb"), media_group=[0])
+    # grouped media (tests/test_torch_serve.py) checks its indices
+    with pytest.raises(ValueError, match="media_group"):
+        eng.generate([[1, 2]], frames=_videos(cfg, "rgb"), media_group=[2])
     with pytest.raises(ValueError):     # as the JAX Engine: 8 or 16 only
         Engine(cfg, tp, dtype=torch.float32, kv_bits=4, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,7 @@
 """The PyTorch port, chip_smoke.py and the port's profile scripts
-(scripts/profile_torch_*.py) import no jax and nothing of the JAX package:
+(scripts/profile_torch_*.py) import no jax and nothing of the JAX package,
+and none of the libraries the GPU host lacks (PIL, imageio, transformers,
+safetensors, tokenizers), not even in a function:
 the port keeps its own copies of the host modules it needs (held equal to
 the originals by tests/test_torch_config.py). Checked on the source (AST)
 rather than in a subprocess, because an interpreter may preload jax at
@@ -13,9 +15,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "videollama2_tpu_torch"
 REFERENCE = ROOT / "videollama2_tpu"
-# the GPU host has neither PIL, transformers, safetensors nor tokenizers
+# the GPU host has neither PIL, imageio, transformers, safetensors nor
+# tokenizers
 FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "PIL", "safetensors",
-             "tokenizers")
+             "tokenizers", "imageio")
 
 
 def _walk(node, skip_functions: bool):
@@ -53,7 +56,9 @@ def _resolve(path: Path, module: str, level: int, names) -> list:
 
 def _module_file(dotted: str):
     rel = Path(*dotted.split("."))
-    for cand in (ROOT / rel.with_suffix(".py"), ROOT / rel / "__init__.py"):
+    # chip_smoke.py imports the test writers (tests/*_writer.py) by name
+    for cand in (ROOT / rel.with_suffix(".py"), ROOT / rel / "__init__.py",
+                 ROOT / "tests" / rel.with_suffix(".py")):
         if cand.exists():
             return cand
     return None
@@ -99,9 +104,19 @@ def test_port_reaches_no_jax():
     for path in ("inference/api.py", "checkpoint/convert_hf.py",
                  "multimodal/tokenizer.py", "media/audio.py",
                  "models/beats.py", "train/lora.py",
-                 "checkpoint/projector_io.py", "train/trainer.py"):
+                 "checkpoint/projector_io.py", "train/trainer.py",
+                 "media/sampler.py", "media/_native.py", "media/image_io.py",
+                 "media/video_reader.py", "media/preprocess.py",
+                 "media/prefetch.py", "utils/logging.py",
+                 "serve/controller.py", "serve/model_worker.py",
+                 "serve/batching.py", "serve/openai_api.py",
+                 "serve/web_server.py", "serve/cli.py",
+                 "serve/register_worker.py", "serve/test_message.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
+    # chip_smoke's serve phase writes its media with the test writers
+    for helper in ("avi_writer.py", "png_writer.py"):
+        assert ROOT / "tests" / helper in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"
                  for p, mods in closure.items() for m in mods
                  if m.split(".")[0] in FORBIDDEN)
@@ -116,6 +131,8 @@ def test_port_reaches_no_jax():
     ("from videollama2_tpu_torch.core import config", False),
     ("from safetensors import safe_open", True),
     ("from tokenizers import Tokenizer", True),
+    ("import imageio", True),
+    ("from PIL import Image", True),
 ])
 def test_scanner_sees_jax_imports(tmp_path, src, expect_bad):
     f = tmp_path / "m.py"

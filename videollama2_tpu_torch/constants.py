@@ -22,3 +22,14 @@ MODAL_INDEX_MAP = {
     "<video>": VIDEO_TOKEN_INDEX,
     "<audio>": AUDIO_TOKEN_INDEX,
 }
+
+# serving plane (serve/controller.py, serve/model_worker.py): seconds
+CONTROLLER_HEART_BEAT_EXPIRATION = 30
+WORKER_HEART_BEAT_INTERVAL = 15
+# directory of the serving logs and the web server's conversation log
+LOGDIR = "."
+
+# frame sampling (media/sampler.py, media/preprocess.py)
+NUM_FRAMES = 8
+MAX_FRAMES = 32
+NUM_FRAMES_PER_SECOND = 1

@@ -3,25 +3,30 @@ videollama2_tpu/inference/api.py).
 
 The same call signatures, prompt construction (including the Llama2-style
 <<SYS>> system prompt of the mistral/mixtral model types), modal-token
-tokenization, generation defaults and decode as the JAX package, on the
-port's Engine. Two differences, both because the port imports no
-tokenizer or image library:
+tokenization, processors, generation defaults and decode as the JAX
+package, on the port's Engine. The port imports no tokenizer or image
+library, so:
 
 * `model_init` takes the caller's tokenizer object (`tokenizer=`, e.g.
   `transformers.AutoTokenizer.from_pretrained(model_path)`); any object
   with `__call__(text, add_special_tokens=False).input_ids`,
-  `apply_chat_template`, `decode` and `eos_token_id` will do.
-* The processors' image, video and av entries, and audio from any file
-  but a .wav, raise NotImplementedError: they need PIL or the native media
-  reader. `mm_infer` takes frames already decoded: float32 (normalized),
-  uint8 RGB or planar I420 uint8.
+  `apply_chat_template`, `decode` and `eos_token_id` will do. The serving
+  entry points name a factory for it (`load_tokenizer`).
+* The processors decode with the port's own readers (media/): PNG, PPM and
+  BMP images and frame directories everywhere, video containers and their
+  audio tracks through the C++ libavcodec decoder where it builds; JPEG
+  and GIF raise NotImplementedError. Their resize is torch's antialiased
+  bicubic, within 1 level of the JAX package's PIL pixels on downscales.
 
-On the audio-visual model (VideoLLaMA2.1-AV, cfg.audio set) the "audio"
-modal takes a .wav path, a 16 kHz waveform or BEATs fbank features, and
-"av" a dict {"video": frames, "audio": one of those}; `mm_infer_batch`
-stays video and image only, as in the JAX package. `ChatSession`,
-`SessionStore` and `mm_infer_session` serve multi-turn chat in every modal
-from a prefix-cached KV (Engine.generate_continue).
+`mm_infer` takes frames as the processors give them: uint8 RGB, planar
+I420 uint8 (wire="i420") or float32 (normalized). On the audio-visual
+model (VideoLLaMA2.1-AV, cfg.audio set) the "audio" modal takes a .wav or
+container path, a 16 kHz waveform or BEATs fbank features, and "av" a
+container path (its frames and its own audio track) or a dict {"video":
+frames, "audio": one of those}; `mm_infer_batch` stays video and image
+only, as in the JAX package. `ChatSession`, `SessionStore` and
+`mm_infer_session` serve multi-turn chat in every modal from a
+prefix-cached KV (Engine.generate_continue).
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from __future__ import annotations
 import copy
 import functools
 import hashlib
+import importlib
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
@@ -40,10 +47,13 @@ import torch
 from ..checkpoint import convert_hf
 from ..checkpoint.from_jax import params_from_jax
 from ..constants import (DEFAULT_AUDIO_TOKEN, DEFAULT_IMAGE_TOKEN,
-                         DEFAULT_VIDEO_TOKEN)
+                         DEFAULT_VIDEO_TOKEN, NUM_FRAMES)
 from ..core import config as cfglib
 from ..core.config import ModelConfig
 from ..media import audio as audio_lib
+from ..media import wire as wire_lib
+from ..media.preprocess import (process_image, process_video,
+                                process_video_i420)
 from ..multimodal.tokenizer import (tokenizer_multimodal_token,
                                     tokenizer_multimodal_tokens)
 from ..ops import quant
@@ -67,22 +77,86 @@ class VideoLLaMA2:
         return self.config.model_type
 
 
-def _media_not_ported(*args, **kwargs):
-    raise NotImplementedError("media decoding is not ported yet")
-
-
-def _processors(cfg: ModelConfig) -> dict:
-    """The processor entries of model_init. Decoding images and video
-    containers needs PIL or the native reader, which the port does not
-    have yet, so those entries raise; that includes "av", which takes a
-    container for its frames and its own audio track. The audio-visual
-    model's "audio" entry gives [1, audio.max_frames, 128] fbank features
-    (_prep_audio)."""
-    processor = {"image": _media_not_ported, "video": _media_not_ported}
+def _processors(cfg: ModelConfig, wire: str = "rgb") -> dict:
+    """The processor entries of model_init (JAX model_init): "image" and
+    "video" give resized uint8 RGB (normalized on the device), and on the
+    audio-visual model "audio" gives [1, audio.max_frames, 128] fbank
+    features and "av" a container's {"video", "audio"} (_prep_av); wire
+    "i420" packs their frames (_apply_wire)."""
+    num_frames = cfg.num_frames or NUM_FRAMES
+    processor = {
+        "image": functools.partial(process_image, cfg=cfg.vision,
+                                   aspect_ratio=None, out_dtype="uint8"),
+        "video": functools.partial(process_video, cfg=cfg.vision,
+                                   aspect_ratio=None, num_frames=num_frames,
+                                   out_dtype="uint8"),
+    }
     if cfg.audio is not None:
         processor["audio"] = functools.partial(_prep_audio, cfg=cfg)
-        processor["av"] = _media_not_ported
-    return processor
+        processor["av"] = functools.partial(_prep_av, cfg=cfg,
+                                            num_frames=num_frames)
+    return _apply_wire(processor, wire, cfg)
+
+
+def _apply_wire(processor: dict, wire: str, cfg) -> dict:
+    """The I420 wire for the processors (JAX `_apply_wire`): their uint8 RGB
+    packs to planar YUV 4:2:0, half the host->device bytes, unpacked on the
+    device (encode_frames). A container path given to "video" alone (s, e
+    and num_frames the only keywords) takes the native route
+    (process_video_i420: scale and crop in YUV, no host RGB). "rgb" keeps
+    the [T, H, W, 3] contract."""
+    if wire == "rgb":
+        return processor
+    if wire != "i420":
+        raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
+
+    def wrap(fn):
+        def packed(*a, **k):
+            out = fn(*a, **k)
+            if isinstance(out, dict):  # av: {"video": ..., "audio": ...}
+                return dict(out, video=wire_lib.rgb_to_i420(out["video"]))
+            return wire_lib.rgb_to_i420(out)
+        return packed
+
+    def wrap_video(fn):
+        nf = cfg.num_frames or NUM_FRAMES
+
+        def packed(video_path, *a, **k):
+            if (isinstance(video_path, str) and not a
+                    and set(k) <= {"s", "e", "num_frames"}):
+                return process_video_i420(
+                    video_path, cfg.vision, s=k.get("s"), e=k.get("e"),
+                    num_frames=k.get("num_frames", nf))
+            return wire_lib.rgb_to_i420(fn(video_path, *a, **k))
+        return packed
+
+    out = dict(processor)
+    for key in ("image", "av"):
+        if key in out:
+            out[key] = wrap(out[key])
+    out["video"] = wrap_video(out["video"])
+    return out
+
+
+def load_tokenizer(spec: Optional[str], model_path: str):
+    """The serving entry points' tokenizer: `spec` names a factory as
+    "module:callable" (resolved with importlib at run time), called with
+    the model path; e.g. a module holding `def load(path): return
+    transformers.AutoTokenizer.from_pretrained(path)` and
+    `--tokenizer mymodule:load`."""
+    if not spec:
+        raise ValueError("the port imports no tokenizer library: name a "
+                         "tokenizer factory as --tokenizer module:callable "
+                         "(called with the model path)")
+    module, sep, attr = spec.partition(":")
+    if not sep or not module or not attr:
+        raise ValueError(f"--tokenizer must be module:callable, got {spec!r}")
+    try:
+        factory = getattr(importlib.import_module(module), attr)
+    except (ImportError, AttributeError) as e:
+        raise ValueError(f"cannot resolve the tokenizer factory {spec!r}: "
+                         f"{e}") from e
+    return factory(model_path)
 
 
 def _quantize_on_device(params: dict, device, bits: int,
@@ -122,8 +196,9 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     kernels). load_8bit quantizes the LLM (int8 head included) and the
     tower to int8 packs, load_4bit the LLM to folded int4 packs with an
     int8 head, both on `device`. The other keyword arguments go to the
-    Engine (kv_bits, buckets, decode_chunk). wire ("rgb" or "i420") is
-    validated as in the JAX package; mm_infer takes both frame formats.
+    Engine (kv_bits, buckets, decode_chunk). wire="i420" makes the
+    processors give planar YUV 4:2:0 (media/wire.py); mm_infer takes both
+    frame formats.
     """
     if dtype is None:
         dtype = torch.bfloat16
@@ -143,7 +218,7 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     if model_path.startswith("synthetic://"):
         model = _model_init_synthetic(model_path, dtype, max_len, device,
                                       **kwargs)
-        return model, _processors(model.config), tokenizer
+        return model, _processors(model.config, wire), tokenizer
 
     cfg, tree = convert_hf.load_videollama2(
         model_path, model_base=model_base,
@@ -155,7 +230,8 @@ def model_init(model_path: Optional[str] = None, dtype=None,
                             vision=load_8bit)
     engine = Engine(cfg, params, dtype=dtype, max_len=max_len,
                     device=device, **kwargs)
-    return VideoLLaMA2(config=cfg, engine=engine), _processors(cfg), tokenizer
+    return (VideoLLaMA2(config=cfg, engine=engine), _processors(cfg, wire),
+            tokenizer)
 
 
 def _model_init_synthetic(model_path: str, dtype, max_len: int, device,
@@ -221,10 +297,9 @@ def build_prompt_ids(instruct, cfg, tokenizer, modal: str = "video"):
 
 
 def _prep_audio(audio_input, cfg) -> np.ndarray:
-    """A .wav path, a waveform [samples] or fbank features [T, 128] /
-    [1, T, 128] -> [1, audio.max_frames, 128] BEATs features, zero-padded
-    or trimmed (JAX `_prep_audio`). Other paths raise NotImplementedError
-    (media/audio.load_audio)."""
+    """A .wav or container path, a waveform [samples] or fbank features
+    [T, 128] / [1, T, 128] -> [1, audio.max_frames, 128] BEATs features,
+    zero-padded or trimmed (JAX `_prep_audio`)."""
     if isinstance(audio_input, str):
         feats = audio_lib.beats_preprocess(audio_lib.load_audio(audio_input))
     else:
@@ -238,11 +313,35 @@ def _prep_audio(audio_input, cfg) -> np.ndarray:
     return feats[None, :T]
 
 
+def _prep_av(video_path: str, cfg, num_frames: int) -> dict:
+    """One video file -> {"video": [T, H, W, 3] uint8, "audio": [1, T_a,
+    128]}: the AV model takes the clip's own audio track (reference
+    README.md:130-132)."""
+    return {"video": process_video(video_path, cfg=cfg.vision,
+                                   aspect_ratio=None, num_frames=num_frames,
+                                   out_dtype="uint8"),
+            "audio": _prep_av_audio(video_path, cfg)}
+
+
+def _prep_av_audio(video_path: str, cfg) -> np.ndarray:
+    """The features of a container's own audio track. Where the decoder ran
+    and found no audio track the request goes on with silence and a
+    warning (the JAX package's posture); a decoder that cannot be built
+    raises RuntimeError."""
+    try:
+        wav = audio_lib.load_audio(video_path)
+    except OSError:
+        warnings.warn(f"no decodable audio track in {video_path}; "
+                      "AV request proceeds with silence", stacklevel=2)
+        return np.zeros((1, cfg.audio.max_frames, 128), np.float32)
+    return _prep_audio(wav, cfg)
+
+
 def _inputs(media, cfg, modal: str):
     """(frames, audio) for Engine.generate from a request's media: None for
-    "text"; "audio" takes what _prep_audio takes; "av" a dict {"video":
-    frames, "audio": ...}; a container path for "av" raises
-    NotImplementedError (its frames and audio track need the decoder)."""
+    "text"; "audio" takes what _prep_audio takes; "av" a container path
+    (its frames and its own audio track, _prep_av) or a dict {"video":
+    frames, "audio": ...}."""
     if modal == "text":
         return None, None
     if modal in ("audio", "av") and cfg.audio is None:
@@ -251,8 +350,8 @@ def _inputs(media, cfg, modal: str):
     if modal == "audio":
         return None, _prep_audio(media, cfg)
     if modal == "av":
-        if not isinstance(media, dict):
-            _media_not_ported()
+        if isinstance(media, str):
+            media = _prep_av(media, cfg, cfg.num_frames or NUM_FRAMES)
         return (_frames(media["video"], cfg, modal),
                 _prep_audio(media["audio"], cfg))
     return _frames(media, cfg, modal), None

@@ -16,12 +16,18 @@ verify passes, models/llm.decode_verify), token-identical to plain greedy;
 `generate(..., return_session=True)` and `generate_continue` keep a batch-1
 chat's cache for its next turn. On the audio-visual model, `audio` (BEATs
 fbank features) gives the "audio" and "av" prefills; the decode tail,
-sessions and speculation after them are shared. Grouped media and sharding
-raise NotImplementedError until their port.
+sessions and speculation after them are shared. `media_group` encodes G
+distinct media once each for B >= G prompts (the dynamic batcher's grouped
+vision). Every mode runs the connector one media at a time
+(models/videollama2.aggregate_each), so a media's tokens do not depend on
+what it is batched with. The entry points run one call at a time (`_one_at_a_time`).
+Sharding raises NotImplementedError until its port.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
@@ -87,6 +93,20 @@ def check_device(device) -> torch.device:
     return device
 
 
+def _one_at_a_time(method):
+    """Run an Engine entry point under the Engine's lock. A generate is
+    hundreds of PyTorch calls from Python a decode step, each releasing and
+    retaking the interpreter lock, so calls from several host threads (the
+    model worker's request threads, the batcher's collectors) interleave at
+    ~5x the cost of running them in turn; in turn they run at full speed
+    and callers queue on the lock."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return run
+
+
 def _prepare(tree, dtype, device):
     """Move every leaf to `device`, casting floating leaves to `dtype`
     (pack scales included, as the JAX Engine does; int8 and int4 weight
@@ -128,6 +148,7 @@ class Engine:
         if "llm" in params:
             params = dict(params, llm=quant_lib.fuse_qkv(params["llm"]))
         self.params = params
+        self._lock = threading.Lock()
 
     # -- frames --------------------------------------------------------------
 
@@ -160,6 +181,7 @@ class Engine:
             return self.max_len
         raise ValueError(f"prompt length {length} > max_len {self.max_len}")
 
+    @_one_at_a_time
     @torch.inference_mode()
     def generate(self, batch_input_ids: List[Sequence[int]],
                  frames=None, audio=None,
@@ -181,16 +203,17 @@ class Engine:
         audio.max_frames, 128] (numpy or a tensor), cast to the engine dtype
         before BEATs; with frames too the prompt is audio-visual, its
         <video> tag before <audio>, and image_mode and share_media do not
-        apply. Returns the new token ids per sample, EOS included; with
-        return_session (batch 1 only), (ids, Session) for the next turn's
-        generate_continue.
+        apply. media_group (B ints in [0, G)): frames hold G distinct media
+        [G, T, ...], each encoded once, and prompt b takes the tokens of
+        media media_group[b] (a text-only prompt has no visual slot, so
+        its index is inert). Returns the new token ids per sample, EOS
+        included; with return_session (batch 1 only), (ids, Session) for
+        the next turn's generate_continue.
         """
         cfg = self.cfg
         if audio is not None and cfg.audio is None:
             raise ValueError("audio given to a model without an audio "
                              "branch (cfg.audio is None)")
-        if media_group is not None:
-            raise NotImplementedError("grouped media is not ported yet")
         if return_session and len(batch_input_ids) != 1:
             raise ValueError("sessions are batch-1 (multi-turn chat)")
         eos = eos_token_id if eos_token_id is not None else cfg.llm.eos_token_id
@@ -199,7 +222,16 @@ class Engine:
             mode = "audio" if frames is None else "av"
         else:
             mode = ("text" if frames is None else "image" if image_mode
-                    else "vision_shared" if share_media else "vision")
+                    else "vision_shared" if share_media
+                    else "vision_grouped" if media_group is not None
+                    else "vision")
+        if mode == "vision_grouped":
+            group = np.asarray(media_group, dtype=np.int64)
+            if group.shape != (B,) or group.min() < 0 \
+                    or group.max() >= frames.shape[0]:
+                raise ValueError(f"media_group must hold {B} indices into "
+                                 f"the {frames.shape[0]} media, got "
+                                 f"{list(media_group)}")
         if mode == "vision_shared":
             frames = frames[:1]
         if mode == "image":
@@ -232,11 +264,16 @@ class Engine:
             last, cache = llm_lib.prefill(params["llm"], cfg.llm, embeds,
                                           positions, valid_len, cache,
                                           w8a8=True)
-        elif mode == "vision_shared":
-            vis = vl2.encode_frames(params, cfg,
-                                    self._frames_to_device(frames),
-                                    w8a8=True)
-            vis = vis.expand((B,) + tuple(vis.shape[1:]))
+        elif mode in ("vision_shared", "vision_grouped"):
+            # one encode a distinct media, its tokens given to each prompt
+            feats = vl2.frame_features(params, cfg,
+                                       self._frames_to_device(frames),
+                                       w8a8=True)
+            vis = vl2.aggregate_each(params, cfg, feats)
+            if mode == "vision_shared":
+                vis = vis.expand((B,) + tuple(vis.shape[1:]))
+            else:
+                vis = vis.index_select(0, dev(group, torch.long))
             text_emb = llm_lib.embed_tokens(params["llm"], text_ids,
                                             self.dtype)
             embeds = splice_lib.compose_embeds(text_emb, vis, is_visual,
@@ -436,6 +473,7 @@ class Engine:
             done = done | torch.from_numpy(done_np).to(self.device)
         return outs, cache
 
+    @_one_at_a_time
     @torch.inference_mode()
     def generate_continue(self, session: Session, new_ids: Sequence[int],
                           gen: GenerationConfig = GenerationConfig(),

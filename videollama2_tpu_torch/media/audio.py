@@ -11,9 +11,9 @@ computed directly:
   0.97, povey window, 512-point rFFT power spectrum, 128 Kaldi-style mel
   triangles over [20 Hz, Nyquist], natural log with float eps floor.
 
-`.wav` files are read with the stdlib `wave` module. Audio tracks of other
-containers need the native media decoder, which the port does not have
-yet: `load_audio` raises NotImplementedError for them.
+`.wav` files are read with the stdlib `wave` module; the audio tracks of
+other containers go through the port's C++ decoder (media/video_reader.py),
+which raises RuntimeError on a host where it cannot be built.
 """
 
 from __future__ import annotations
@@ -122,14 +122,14 @@ def beats_preprocess(waveform: np.ndarray,
 
 
 def load_audio(path: str) -> np.ndarray:
-    """A 16 kHz mono waveform from a .wav file. Other containers' audio
-    tracks need the native media decoder, which is not ported yet."""
+    """A 16 kHz mono waveform from a .wav file (the stdlib reader below) or
+    from a video container's own audio track (the VideoLLaMA2.1-AV input,
+    reference README.md:130-132), through the C++ decoder
+    (media/video_reader.decode_audio)."""
     if path.lower().endswith(".wav"):
         return load_wav(path)
-    raise NotImplementedError("media decoding is not ported yet: audio "
-                              f"from {path!r} needs the container decoder; "
-                              "pass a .wav file, a waveform or fbank "
-                              "features")
+    from . import video_reader
+    return video_reader.decode_audio(path, SAMPLE_RATE)
 
 
 def load_wav(path: str):

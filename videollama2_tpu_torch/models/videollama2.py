@@ -81,7 +81,7 @@ def encode_frames(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     w8a8 selects the serving branch of the tower's int8 packs.
     """
     feats = frame_features(params, cfg, frames, broadcast_image, w8a8)
-    return temporal_aggregator(params, cfg, feats)
+    return aggregate_each(params, cfg, feats)
 
 
 def frame_features(params: dict, cfg: ModelConfig, frames: torch.Tensor,
@@ -144,6 +144,17 @@ def temporal_aggregator(params: dict, cfg: ModelConfig,
         frame_feats = frame_feats.mean(dim=1)
     return connector_lib.apply(params["connector"], cfg.connector,
                                frame_feats)
+
+
+def aggregate_each(params: dict, cfg: ModelConfig,
+                   frame_feats: torch.Tensor) -> torch.Tensor:
+    """temporal_aggregator one media at a time (the inference paths). The
+    tower and the LLM compute each row on its own, but the connector's bf16
+    convolutions and GEMMs on the GPU pick their kernels by batch size, so
+    a batched pass would give a media tokens that depend on its
+    batch-mates; one at a time gives each the tokens it gets alone."""
+    return torch.cat([temporal_aggregator(params, cfg, frame_feats[b:b + 1])
+                      for b in range(frame_feats.shape[0])])
 
 
 def prefill_multimodal(params: dict, cfg: ModelConfig, frames: torch.Tensor,

@@ -59,6 +59,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_count_lock = threading.Lock()
 
 
 def _sources():
@@ -137,6 +138,14 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` where it launches its
+    kernel. Under a lock: the serving plane enters the Engine from several
+    host threads at once, and a bare `+= 1` can lose an update."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -151,7 +151,7 @@ def decode_attention_layered(q: torch.Tensor, k_new: torch.Tensor,
         M, layer, write_pos, prompt_len, -1 if window is None else window,
         nsplit, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_attention")
-    decode_attention_layered.launches += 1
+    _build.count_launch(decode_attention_layered)
     return out
 
 

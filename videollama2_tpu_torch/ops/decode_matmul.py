@@ -218,7 +218,7 @@ def matmul_q8_layered(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return matmul_q8_layered_plain(x, q, scale, layer)
     y = launch_matmul("matmul_q8_layered", 8, x, q, scale, layer)
-    matmul_q8_layered.launches += 1
+    _build.count_launch(matmul_q8_layered)
     return y
 
 
@@ -233,7 +233,7 @@ def ffn_q8_layered(x: torch.Tensor, gate_q: torch.Tensor,
     if x.device.type == "cpu":
         return ffn_q8_layered_plain(*args)
     out = _launch_ffn("ffn_q8_layered", 8, *args)
-    ffn_q8_layered.launches += 1
+    _build.count_launch(ffn_q8_layered)
     return out
 
 
@@ -244,7 +244,7 @@ def matmul_q4_layered(x: torch.Tensor, q4: torch.Tensor,
     if x.device.type == "cpu":
         return matmul_q4_layered_plain(x, q4, scale, layer)
     y = launch_matmul("matmul_q4_layered", 4, x, q4, scale, layer)
-    matmul_q4_layered.launches += 1
+    _build.count_launch(matmul_q4_layered)
     return y
 
 
@@ -259,7 +259,7 @@ def ffn_q4_layered(x: torch.Tensor, gate_q4: torch.Tensor,
     if x.device.type == "cpu":
         return ffn_q4_layered_plain(*args)
     out = _launch_ffn("ffn_q4_layered", 4, *args)
-    ffn_q4_layered.launches += 1
+    _build.count_launch(ffn_q4_layered)
     return out
 
 

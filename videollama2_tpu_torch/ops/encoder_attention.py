@@ -88,7 +88,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, valid_len, scale)
     out = _launch("encoder_attention", q, k, v, valid_len, scale)
-    encoder_attention.launches += 1
+    _build.count_launch(encoder_attention)
     return out
 
 
@@ -104,7 +104,7 @@ def encoder_attention_pairs(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return encoder_attention_pairs_plain(q, k, v, valid_len, scale)
     out = _launch("encoder_attention_pairs", q, k, v, valid_len, scale)
-    encoder_attention_pairs.launches += 1
+    _build.count_launch(encoder_attention_pairs)
     return out
 
 

@@ -214,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Sq, Sk, Hq, Hkv, D, *_strides(q, k, v), float(scale),
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -239,7 +239,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, valid_len=None, causal=True,
         B, Sq, Sk, Hq, Hkv, D, *_strides(q, k, v), float(scale),
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.count_launch(flash_attention_bwd_dq)
     return dq, delta
 
 
@@ -264,7 +264,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, valid_len=None,
         B, Sq, Sk, Hq, Hkv, D, *_strides(q, k, v), float(scale),
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

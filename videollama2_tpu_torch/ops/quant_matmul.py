@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .decode_matmul import MAX_ROWS, launch_matmul
 
 
@@ -44,7 +45,7 @@ def matmul_q8(x: torch.Tensor, q: torch.Tensor,
     for r0 in range(0, x.shape[0], MAX_ROWS):
         launch_matmul("matmul_q8", 8, x[r0:r0 + MAX_ROWS], q[None],
                       scale.reshape(1, 1, -1), 0, y[r0:r0 + MAX_ROWS])
-        matmul_q8.launches += 1
+        _build.count_launch(matmul_q8)
     return y
 
 
