@@ -56,6 +56,18 @@ attention), reads the QLoRA adapters' split save back bit for bit, serves
 the unmerged QLoRA tree (the packed decode kernels at 0), and loads a
 LoRA directory over the api phase's checkpoint through model_init, its
 int8 packs held bit-equal to an independent quantize(base + a @ b * s).
+The "train entry" phase runs first, right after the build and the
+writing of the api phases' checkpoints, so that this process holds no
+more than its CUDA context while it runs: `python -m
+videollama2_tpu_torch.train.train` in child processes, as the reference's
+recipes launch it (their microbatches: 8 a device for pretrain.sh, 4 for
+finetune.sh, at accumulation 2), over those checkpoints (as plain LLM
+and tower directories) and a corpus of JPEG, PNG and GIF media it
+writes: stage 1, the same run stopped by SIGTERM and resumed (bit-equal
+to the uninterrupted one), stage 2 and VideoLLaMA2.1 stage 1, under
+--bf16 (bf16 compute, fp32 masters of the trained tensors), each with
+exact launch counts, every trained tensor moved and every frozen one
+bit-unchanged.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -69,6 +81,7 @@ anything on stdout.
 """
 
 import base64
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -915,6 +928,35 @@ def _checksums(tensors) -> list:
                       dtype=torch.int64).item() for t in tensors]
 
 
+@contextlib.contextmanager
+def state_saves(record: dict, write: bool):
+    """Within: each train_state.save_train_state call appends its step to
+    record["save_steps"]; with `write` it writes the state and appends its
+    seconds to record["saves"], without it writes nothing (a whole train
+    state at full width is ~12 GB, and the machine allows ~45 GiB of disk
+    writes a run). The one way this script keeps the Trainer's saves of the
+    train state off the disk."""
+    from videollama2_tpu_torch.checkpoint import train_state
+    save = train_state.save_train_state
+    record.setdefault("save_steps", [])
+    record.setdefault("saves", [])
+
+    def save_or_record(directory, state, *a, **k):
+        record["save_steps"].append(int(state.step))
+        if not write:
+            return None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(directory, state, *a, **k)
+        record["saves"].append(time.perf_counter() - t0)
+        return out
+    train_state.save_train_state = save_or_record
+    try:
+        yield record
+    finally:
+        train_state.save_train_state = save
+
+
 def run_training(label, cfg, params, batches, counters, want, out_dir,
                  opt_cfg, grad_accum, each_changes=()) -> dict:
     """Two runs of len(batches) optimizer steps through Trainer.train
@@ -962,7 +1004,8 @@ def run_training(label, cfg, params, batches, counters, want, out_dir,
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        trainer.train(iter(batches))
+        with state_saves({}, write=False):
+            trainer.train(iter(batches))
         t_train = time.perf_counter() - t0
         counts = {n: fn.launches for n, fn in counters.items()}
         for i, st in enumerate(steps):
@@ -1195,20 +1238,13 @@ def api_config():
                                                num_layers=API_LLM_LAYERS))
 
 
-def run_api_phase(ckpt, counters, attn, k1, k2, k3, dk):
-    """The public API on a released-layout checkpoint: writes it (LLM depth
-    API_LLM_LAYERS, everything else as released) into the directory
-    `ckpt` (the "lora" phase's model_base later), loads it with
-    model_init(load_8bit=True, kv_bits=8), answers one 16-frame I420 clip
-    through mm_infer and API_BATCH questions about one shared clip through
-    mm_infer_batch (twice: the answers must agree) and chats through
-    ChatSession and mm_infer_session (run_chat), each call with exact
-    launch counts of every kernel, then holds the first-token and decode
-    logits of the loaded model against the plain paths.
-    Returns the phase's numbers and the launch counts of each call."""
+def write_api_checkpoint(ckpt) -> dict:
+    """The api phase's checkpoint in the released 7B-16F layout (LLM depth
+    API_LLM_LAYERS, everything else as released), seeded bf16 values made
+    on the card, into the directory `ckpt`; returns its size and the
+    seconds taken."""
     from videollama2_tpu_torch.checkpoint.convert_hf import \
         model_config_to_hf
-    from videollama2_tpu_torch.inference import api
 
     cfg = api_config()
     with open(MANIFEST) as f:
@@ -1226,10 +1262,29 @@ def run_api_phase(ckpt, counters, attn, k1, k2, k3, dk):
                       lambda n, s: api_init(n, s, gen))
     out["checkpoint_gb"] = os.path.getsize(
         os.path.join(ckpt, "model.safetensors")) / 1e9
+    out["write_s"] = time.perf_counter() - t0
     log(f"[api] wrote {len(shapes)} of {len(manifest)} released keys "
         f"(LLM layers 0-{API_LLM_LAYERS - 1} of 32), "
         f"{n_params / 1e9:.3f} B params, {out['checkpoint_gb']:.2f} GB "
-        f"bf16 safetensors in {time.perf_counter() - t0:.1f} s")
+        f"bf16 safetensors in {out['write_s']:.1f} s")
+    return out
+
+
+def run_api_phase(ckpt, written, counters, attn, k1, k2, k3, dk):
+    """The public API on the released-layout checkpoint that
+    write_api_checkpoint wrote into `ckpt` (`written`: its numbers; the
+    "lora" phase's model_base later): loads it with
+    model_init(load_8bit=True, kv_bits=8), answers one 16-frame I420 clip
+    through mm_infer and API_BATCH questions about one shared clip through
+    mm_infer_batch (twice: the answers must agree) and chats through
+    ChatSession and mm_infer_session (run_chat), each call with exact
+    launch counts of every kernel, then holds the first-token and decode
+    logits of the loaded model against the plain paths.
+    Returns the phase's numbers and the launch counts of each call."""
+    from videollama2_tpu_torch.inference import api
+
+    cfg = api_config()
+    out = dict(written)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1846,10 +1901,51 @@ def write_wav(path, seconds: float) -> None:
         w.writeframes(data.tobytes())
 
 
-def run_api_av_phase(counters, attn, k1, k2, k3, dk):
-    """The public API on the audio-visual model: writes a checkpoint with
-    every key of the released VideoLLaMA2.1-AV layout (LLM depth
-    API_LLM_LAYERS of 28) and a 44.1 kHz stereo .wav, loads it with
+def api_av_config():
+    """The api AV calls' model: VideoLLaMA2.1-AV-16F with the LLM cut to
+    API_LLM_LAYERS of 28 layers."""
+    from videollama2_tpu_torch.core import config as cfglib
+    base = cfglib.preset("videollama2_qwen2_av").replace(num_frames=16)
+    return base.replace(llm=dataclasses.replace(base.llm,
+                                               num_layers=API_LLM_LAYERS))
+
+
+def write_api_av_checkpoint(ckpt) -> dict:
+    """A checkpoint with every key of the released VideoLLaMA2.1-AV layout
+    (LLM depth API_LLM_LAYERS of 28), seeded bf16 values made on the card,
+    into the directory `ckpt`; returns its size and the seconds taken."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        model_config_to_hf
+
+    cfg = api_av_config()
+    with open(MANIFEST_AV) as f:
+        manifest = json.load(f)
+    shapes = {k: s for k, s in manifest.items()
+              if not re.match(r"model\.layers\.(\d+)\.", k)
+              or int(k.split(".")[2]) < API_LLM_LAYERS}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    out = {}
+    t0 = time.perf_counter()
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(dict(model_config_to_hf(cfg),
+                       mm_audio_tower="BEATs_iter3_plus_AS2M"), f)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    weights = os.path.join(ckpt, "model.safetensors")
+    write_safetensors(weights, shapes, lambda n, s: api_init(n, s, gen))
+    out["checkpoint_gb"] = os.path.getsize(weights) / 1e9
+    out["write_s"] = time.perf_counter() - t0
+    log(f"[api av] wrote {len(shapes)} of {len(manifest)} released "
+        f"VideoLLaMA2.1-AV keys (LLM layers 0-{API_LLM_LAYERS - 1} of "
+        f"28), {n_params / 1e9:.3f} B params, "
+        f"{out['checkpoint_gb']:.2f} GB bf16 safetensors in "
+        f"{out['write_s']:.1f} s")
+    return out
+
+
+def run_api_av_phase(ckpt_dir, written, counters, attn, k1, k2, k3, dk):
+    """The public API on the audio-visual model: on the checkpoint that
+    write_api_av_checkpoint wrote into `ckpt_dir` (`written`: its
+    numbers), writes a 44.1 kHz stereo .wav, loads the checkpoint with
     model_init(load_8bit=True, kv_bits=8) and answers through
     mm_infer(modal="audio") on the .wav, mm_infer(modal="av") on
     {"video": frames, "audio": the .wav}, and two mm_infer_session AV
@@ -1858,35 +1954,11 @@ def run_api_av_phase(counters, attn, k1, k2, k3, dk):
     with exact launch counts; then holds the loaded model's audio-visual
     first-token and decode logits against the plain paths. Returns the
     phase's numbers and the launch counts of each call."""
-    from videollama2_tpu_torch.checkpoint.convert_hf import \
-        model_config_to_hf
-    from videollama2_tpu_torch.core import config as cfglib
     from videollama2_tpu_torch.inference import api
 
-    base = cfglib.preset("videollama2_qwen2_av").replace(num_frames=16)
-    cfg = base.replace(llm=dataclasses.replace(base.llm,
-                                               num_layers=API_LLM_LAYERS))
-    with open(MANIFEST_AV) as f:
-        manifest = json.load(f)
-    shapes = {k: s for k, s in manifest.items()
-              if not re.match(r"model\.layers\.(\d+)\.", k)
-              or int(k.split(".")[2]) < API_LLM_LAYERS}
-    n_params = sum(math.prod(s) for s in shapes.values())
-    out, counts = {}, {}
-    with tempfile.TemporaryDirectory() as ckpt:
-        t0 = time.perf_counter()
-        with open(os.path.join(ckpt, "config.json"), "w") as f:
-            json.dump(dict(model_config_to_hf(cfg),
-                           mm_audio_tower="BEATs_iter3_plus_AS2M"), f)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        weights = os.path.join(ckpt, "model.safetensors")
-        write_safetensors(weights, shapes, lambda n, s: api_init(n, s, gen))
-        out["checkpoint_gb"] = os.path.getsize(weights) / 1e9
-        log(f"[api av] wrote {len(shapes)} of {len(manifest)} released "
-            f"VideoLLaMA2.1-AV keys (LLM layers 0-{API_LLM_LAYERS - 1} of "
-            f"28), {n_params / 1e9:.3f} B params, "
-            f"{out['checkpoint_gb']:.2f} GB bf16 safetensors in "
-            f"{time.perf_counter() - t0:.1f} s")
+    cfg = api_av_config()
+    out, counts = dict(written), {}
+    with contextlib.nullcontext(ckpt_dir) as ckpt:
         wav = os.path.join(ckpt, "clip.wav")
         write_wav(wav, AV_SECONDS)
         gc.collect()
@@ -1900,7 +1972,6 @@ def run_api_av_phase(counters, attn, k1, k2, k3, dk):
         torch.cuda.synchronize()
         out["load_s"] = time.perf_counter() - t0
         out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        os.remove(weights)
         log(f"[api av] model_init(load_8bit=True, kv_bits=8): "
             f"{out['load_s']:.2f} s, peak device memory "
             f"{out['load_peak_gb']:.2f} GB")
@@ -2731,6 +2802,619 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
     return out, counts
 
 
+# -- the "train entry" phase: train/train.py as the recipes launch it ---------
+
+TE_STEPS = 4            # stage 1: save_steps 2, SIGTERM during step 2
+TE_STAGE2_STEPS = 2
+TE_QWEN2_STEPS = 2
+# the recipes' microbatches at accumulation 2: pretrain.sh 8 a device
+# (stage 1 and 2.1), finetune.sh 4
+TE_MB, TE_ACCUM = 8, 2
+TE_FT_MB, TE_FT_ACCUM = 4, 2
+TE_LOSS_RTOL = 1e-6     # resumed vs uninterrupted losses (bit-equal seen)
+TE_TIMEOUT = 600
+TE_WORDS = ("the a cat dog man woman car ball runs jumps walks sits opens "
+            "holds red blue small large slowly quickly near behind on in "
+            "kitchen street park table door window hand head camera scene "
+            "then while after video shows person object moves turns").split()
+
+# a child process: runs videollama2_tpu_torch.train.train as `python -m`
+# does (runpy, the module as __main__, the flags in sys.argv) and writes a
+# JSON report: every kernel's launches, each step's device time (and its
+# forward, backward and optimizer parts), loss and tokens, the state's bit
+# checksums when it is first stepped (after a restore), after each step and
+# at the end, the trainable paths, the steps the train state was saved at
+# (written only when asked: state_saves), the save and restore times and
+# the peak device memory
+TE_RUNNER = r"""
+import json, runpy, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+import chip_smoke as cs
+from videollama2_tpu_torch.checkpoint import train_state
+from videollama2_tpu_torch.train import optimizer as opt_lib
+from videollama2_tpu_torch.train import step as step_lib
+report_path, write_state = sys.argv[1], sys.argv[2] == "save"
+sys.argv = ["videollama2_tpu_torch.train.train"] + sys.argv[3:]
+counters = cs.kernel_counters()
+rep = {"steps": [], "after_step": {}, "restores": []}
+held = {}
+parts = {}
+def timed_part(fn, key):
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+step_lib.loss_fn = timed_part(step_lib.loss_fn, "forward_s")
+opt_lib.GroupedAdamW.step = timed_part(opt_lib.GroupedAdamW.step,
+                                       "optimizer_s")
+make = step_lib.make_train_step
+def make_timed(cfg, tx, trainable, grad_accum=1):
+    inner = make(cfg, tx, trainable, grad_accum=grad_accum)
+    rep["trained"] = sorted("/".join(p) for p, t in trainable.items() if t)
+    def step(state, batch):
+        if "first" not in rep:
+            rep["first"] = cs.state_checksums(state)
+            rep["first_step_at_s"] = time.perf_counter() - t_start
+        parts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        rep["steps"].append({"step": state.step, "s": s,
+                             "loss": float(metrics["loss"]),
+                             "num_tokens": int(metrics["num_tokens"]),
+                             "valid_tokens": int(batch.valid_len.sum()),
+                             "forward_s": parts["forward_s"],
+                             "optimizer_s": parts["optimizer_s"],
+                             "backward_s": s - parts["forward_s"]
+                             - parts["optimizer_s"]})
+        rep["after_step"][str(state.step)] = cs.state_checksums(state)
+        held["state"] = state
+        return state, metrics
+    return step
+step_lib.make_train_step = make_timed
+restore = train_state.restore_train_state
+def timed_restore(*a, **k):
+    t0 = time.perf_counter()
+    out = restore(*a, **k)
+    torch.cuda.synchronize()
+    rep["restores"].append(time.perf_counter() - t0)
+    return out
+train_state.restore_train_state = timed_restore
+for fn in counters.values():
+    fn.launches = 0
+torch.cuda.reset_peak_memory_stats()
+t_start = time.perf_counter()
+with cs.state_saves(rep, write_state):
+    runpy.run_module("videollama2_tpu_torch.train.train", run_name="__main__",
+                     alter_sys=True)
+rep["wall_s"] = time.perf_counter() - t_start
+rep["launches"] = {n: fn.launches for n, fn in counters.items()}
+rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+rep["final"] = cs.state_checksums(held["state"])
+rep["device"] = torch.cuda.get_device_name(0)
+with open(report_path, "w") as f:
+    json.dump(rep, f)
+"""
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper by its counter's name (main's `counters`)."""
+    from videollama2_tpu_torch.ops import decode_attention as k3
+    from videollama2_tpu_torch.ops import decode_matmul as dk
+    from videollama2_tpu_torch.ops import encoder_attention as k1
+    from videollama2_tpu_torch.ops import flash_attention as k2
+    from videollama2_tpu_torch.ops import quant_matmul as qm
+    return {"encoder_attention": k1.encoder_attention,
+            "encoder_attention_pairs": k1.encoder_attention_pairs,
+            "flash_attention": k2.flash_attention,
+            "decode_attention": k3.decode_attention_layered,
+            "matmul_q8_layered": dk.matmul_q8_layered,
+            "ffn_q8_layered": dk.ffn_q8_layered,
+            "matmul_q4_layered": dk.matmul_q4_layered,
+            "ffn_q4_layered": dk.ffn_q4_layered,
+            "matmul_q8": qm.matmul_q8,
+            "flash_attention_bwd_dq": k2.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": k2.flash_attention_bwd_dkv}
+
+
+def state_checksums(state) -> dict:
+    """Bit checksums of a TrainState's params, fp32 masters and Adam
+    moments by path."""
+    from videollama2_tpu_torch.train.optimizer import flatten
+    out = {}
+    for kind, tree in (("params", flatten(state.params)),
+                       ("master", state.opt_state["master"]),
+                       ("mu", state.opt_state["mu"]),
+                       ("nu", state.opt_state["nu"])):
+        paths = list(tree)
+        for p, c in zip(paths, _checksums([tree[p] for p in paths])):
+            out[f"{kind}:{'/'.join(p)}"] = c
+    return out
+
+
+def toy_tokenizer(model_path):
+    """The --tokenizer factory of the "train entry" phase: ToyTokenizer at
+    the vocabulary of the model directory's config.json."""
+    with open(os.path.join(model_path, "config.json")) as f:
+        return ToyTokenizer(json.load(f)["vocab_size"])
+
+
+def _caption(rng, n) -> str:
+    return " ".join(TE_WORDS[i] for i in rng.integers(0, len(TE_WORDS), n))
+
+
+def write_train_corpus(root) -> dict:
+    """The phase's corpus in the reference's annotation format, written with
+    the test writers: 16-frame 480x640 frame directories of JPEG (4:2:0)
+    and of PNG files, 16-frame 240x320 GIF videos, 480x640 JPEG (4:2:0 and
+    4:4:4) and PNG images; pre.json (pretrain: one human/gpt round, a
+    caption of 24-60 words) and sft.json (one to three rounds, plus two
+    text-only samples). Returns the media counts and the seconds taken."""
+    from gif_writer import encode_rgb_gif
+    from jpeg_writer import encode_jpeg
+    from png_writer import encode_png
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    media = []
+    for i, fmt in enumerate(("jpg", "jpg", "png", "png")):
+        d = os.path.join(root, "media", f"v{i}")
+        os.makedirs(d)
+        for t, px in enumerate(smooth_frames(rng, 16, 480, 640)):
+            with open(os.path.join(d, f"{t:03d}.{fmt}"), "wb") as f:
+                f.write(encode_jpeg(px, 85, "4:2:0") if fmt == "jpg"
+                        else encode_png(px))
+        media.append(("video", f"media/v{i}"))
+    for i in range(3):
+        with open(os.path.join(root, "media", f"g{i}.gif"), "wb") as f:
+            f.write(encode_rgb_gif(smooth_frames(rng, 16, 240, 320)))
+        media.append(("video", f"media/g{i}.gif"))
+    for i, (ext, data) in enumerate((
+            ("jpg", lambda px: encode_jpeg(px, 90, "4:2:0")),
+            ("jpg", lambda px: encode_jpeg(px, 75, "4:4:4")),
+            ("png", encode_png), ("png", encode_png))):
+        with open(os.path.join(root, "media", f"i{i}.{ext}"), "wb") as f:
+            f.write(data(smooth_frames(rng, 1, 480, 640)[0]))
+        media.append(("image", f"media/i{i}.{ext}"))
+
+    def sample(kind, path, rounds):
+        conv = []
+        for r in range(rounds):
+            q = (f"<{kind}>\n" if kind and r == 0 else "") + \
+                _caption(rng, int(rng.integers(6, 14))) + " ?"
+            conv += [{"from": "human", "value": q},
+                     {"from": "gpt",
+                      "value": _caption(rng, int(rng.integers(24, 60)))}]
+        out = {"conversations": conv}
+        if kind:
+            out[kind] = path
+        return out
+    pre = [sample(*media[i % len(media)], 1) for i in range(32)]
+    sft = [sample(*media[i % len(media)], 1 + i % 3) for i in range(22)]
+    sft += [sample(None, None, 1 + i) for i in range(2)]
+    for name, annos in (("pre.json", pre), ("sft.json", sft)):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(annos, f)
+    return {"videos": 7, "images": 4, "pre_samples": len(pre),
+            "sft_samples": len(sft), "write_s": time.perf_counter() - t0}
+
+
+def _hf_llm_config(cfg, layers: int) -> dict:
+    """A plain MistralForCausalLM / Qwen2ForCausalLM config.json of the
+    preset's LLM at `layers` layers."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        model_config_to_hf
+    hf = {k: v for k, v in model_config_to_hf(cfg).items()
+          if not k.startswith(("mm_", "tiny")) and k != "num_frames"}
+    kind = cfg.llm.model_type
+    hf.update(model_type=kind, num_hidden_layers=layers, architectures=[
+        {"mistral": "MistralForCausalLM", "qwen2": "Qwen2ForCausalLM"}[kind]])
+    return hf
+
+
+def _hf_tower_config(vision) -> dict:
+    return {"model_type": f"{vision.variant}_vision_model",
+            "hidden_size": vision.hidden_size,
+            "intermediate_size": vision.intermediate_size,
+            "num_hidden_layers": vision.num_layers,
+            "num_attention_heads": vision.num_heads,
+            "image_size": vision.image_size,
+            "patch_size": vision.patch_size,
+            "hidden_act": vision.hidden_act,
+            "layer_norm_eps": vision.layer_norm_eps}
+
+
+def write_plain_dirs(root, cfg, ckpt) -> tuple:
+    """From a released-layout checkpoint directory `ckpt` (the api phase's,
+    LLM cut to API_LLM_LAYERS layers): a plain LLM directory (a plain
+    Mistral / Qwen2 config.json beside the checkpoint's weights file, hard
+    linked: the loader reads the LLM's keys, model.* and lm_head.weight,
+    and leaves the rest) and the tower's HF directory (its config.json and
+    the checkpoint's tower tensors as vision_model.*, written)."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import read_safetensors
+    prefix = "model.vision_tower.vision_tower."
+    llm_dir, tower_dir = (os.path.join(root, "llm"),
+                          os.path.join(root, "tower"))
+    os.makedirs(llm_dir)
+    os.makedirs(tower_dir)
+    weights = os.path.join(ckpt, "model.safetensors")
+    try:
+        os.link(weights, os.path.join(llm_dir, "model.safetensors"))
+    except OSError:
+        os.symlink(weights, os.path.join(llm_dir, "model.safetensors"))
+    with open(os.path.join(llm_dir, "config.json"), "w") as f:
+        json.dump(_hf_llm_config(cfg, API_LLM_LAYERS), f)
+    src = read_safetensors(weights)
+    with open(os.path.join(tower_dir, "config.json"), "w") as f:
+        json.dump(_hf_tower_config(cfg.vision), f)
+    write_safetensors(os.path.join(tower_dir, "model.safetensors"),
+                      {k[len(prefix):]: tuple(t.shape)
+                       for k, t in src.items() if k.startswith(prefix)},
+                      lambda k, s: src[prefix + k])
+    return llm_dir, tower_dir
+
+
+def run_entry(label, flags, report, sigterm_after=None,
+              write_state=False) -> tuple:
+    """One training process: TE_RUNNER with the flags, its output streamed
+    and kept; with sigterm_after, SIGTERM is sent as soon as a line starts
+    with it (the next step is then running); without write_state the train
+    state's saves are recorded, not written. Returns (report dict, output
+    lines); raises if the process fails."""
+    import signal
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root, os.path.join(root, "tests")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TE_RUNNER, report,
+         "save" if write_state else "record"] + flags, cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        bufsize=1)
+    lines, sent = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if sigterm_after and not sent and line.startswith(sigterm_after):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+        rc = proc.wait(timeout=TE_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"[train entry] {label}: exit code {rc}\n"
+                           + "\n".join(lines[-40:]))
+    if sigterm_after and not sent:
+        raise RuntimeError(f"[train entry] {label}: no line began with "
+                           f"{sigterm_after!r}")
+    with open(report) as f:
+        rep = json.load(f)
+    rep["process_s"] = wall
+    return rep, lines
+
+
+def _train_log(out_dir) -> list:
+    with open(os.path.join(out_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_entry_run(label, rep, train_log, want) -> dict:
+    """Launch counts, finite losses, every trained tensor moved (its fp32
+    master, where it has one), every frozen tensor bit-unchanged; returns
+    the run's numbers."""
+    if rep["launches"] != want:
+        raise RuntimeError(f"[train entry] {label}: launch counts "
+                           f"{rep['launches']} != {want}")
+    losses = [s["loss"] for s in rep["steps"]]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"[train entry] {label}: non-finite loss {losses}")
+    trained = {f"params:{p}" for p in rep["trained"]}
+    params = [k for k in rep["first"] if k.startswith("params:")]
+    frozen = [k for k in params if k not in trained]
+    changed = [k for k in frozen if rep["first"][k] != rep["final"][k]]
+    if changed:
+        raise RuntimeError(f"[train entry] {label}: frozen tensors changed: "
+                           f"{changed[:5]}")
+    values = [f"master:{p}" if f"master:{p}" in rep["first"]
+              else f"params:{p}" for p in rep["trained"]]
+    still = [k for k in values if rep["first"][k] == rep["final"][k]]
+    if still:
+        raise RuntimeError(f"[train entry] {label}: {len(still)} of "
+                           f"{len(values)} trained tensors did not move: "
+                           f"{still[:5]}")
+    moved = {g: sum(k.split(":")[1].startswith(f"{g}/") for k in values)
+             for g in ("connector", "llm")}
+    masters = sum(k.startswith("master:") for k in values)
+    # the host's batch time of each logged step (a preempted step saves
+    # and returns before its log line, as in JAX)
+    host = {line["step"]: line["data_s"] for line in train_log}
+    steps = []
+    for st in rep["steps"]:
+        steps.append({"step": st["step"], "s": st["s"],
+                      "host_batch_s": host.get(st["step"]),
+                      "valid_tokens_per_s": st["valid_tokens"] / st["s"],
+                      "loss": st["loss"], "valid_tokens": st["valid_tokens"]})
+        built = ("not logged" if st["step"] not in host
+                 else f"{host[st['step']]:.3f} s")
+        steps[-1].update({k: st[k] for k in ("forward_s", "backward_s",
+                                             "optimizer_s")})
+        log(f"[train entry] {label} step {st['step']}: {st['s']:.3f} s on "
+            f"the card (forward {st['forward_s']:.3f}, backward "
+            f"{st['backward_s']:.3f}, optimizer {st['optimizer_s']:.3f}), "
+            f"batch built on the host in {built}, "
+            f"{steps[-1]['valid_tokens_per_s']:.0f} valid tokens/s, loss "
+            f"{st['loss']:.6f}")
+    out = {"steps": steps, "peak_gb": rep["peak_gb"],
+           "state_saves_at": rep["save_steps"],
+           "save_s": rep["saves"], "restore_s": rep["restores"],
+           "process_s": rep["process_s"], "launches": rep["launches"],
+           "first_step_at_s": rep["first_step_at_s"],
+           "trained_tensors_moved": moved, "fp32_masters": masters,
+           "trained_tensors": len(trained), "frozen_tensors": len(frozen)}
+    log(f"[train entry] {label}: {len(steps)} steps, peak device memory "
+        f"{rep['peak_gb']:.1f} GB, train-state saves {rep['saves']} s, "
+        f"restores {rep['restores']} s, process {rep['process_s']:.1f} s "
+        f"(first step at {rep['first_step_at_s']:.1f} s); all "
+        f"{len(trained)} trained tensors moved {moved} ({masters} fp32 "
+        f"masters), {len(frozen)} frozen unchanged; launches "
+        f"{rep['launches']}")
+    return out
+
+
+def entry_launches(counters, cfg, steps, accum, mb) -> dict:
+    """Each kernel's launches in `steps` steps of `accum` microbatches of
+    `mb` samples: the training slice's per-microbatch counts."""
+    L = cfg.llm.num_layers
+    want = dict.fromkeys(counters, 0)
+    micro = steps * accum
+    want.update(encoder_attention=vit_layers(cfg)
+                * (mb * cfg.num_frames // 128 or 1) * micro,
+                flash_attention=2 * L * micro,
+                flash_attention_bwd_dq=L * micro,
+                flash_attention_bwd_dkv=L * micro)
+    return want
+
+
+def run_train_entry_phase(api_ckpt, api_av_ckpt, counters) -> tuple:
+    """The "train entry" phase: train/train.py in child processes, as the
+    recipes launch it, at full width with the LLM cut to API_LLM_LAYERS
+    layers, on the api phases' seeded bf16 checkpoints (released 7B-16F and
+    2.1-AV layouts) as plain LLM and tower directories, and a corpus
+    written here, while this process holds only its CUDA context (main
+    runs the phase first). Stage 1 (pretrain.sh's flags) runs TE_STEPS steps
+    uninterrupted (save_steps 2), then again with SIGTERM sent during step
+    2 (it saves at step 2 and exits 0) and resumed in a new process to
+    TE_STEPS: the restored state is bit-equal to the one saved, and the
+    resumed steps' losses equal the uninterrupted run's. Stage 2
+    (finetune.sh's flags) reads stage 1's adapter-4/, groups by modality
+    length and trains the LLM; VideoLLaMA2.1 runs stage 1. Every run
+    holds its trained tensors as fp32 masters (--bf16), all of which must
+    move. A whole train state at this size is ~12 GB and the machine
+    allows ~45 GiB of disk writes a run, so only the SIGTERM run writes
+    its state; the other runs record the steps at which the Trainer saves
+    it (state_saves) and write their adapter-{step}/. Returns the phase's
+    numbers and launch counts."""
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.media import _native
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train entry] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+        f"of device memory ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated) while its children train")
+    for src in ("jpeg_decode.cc", "gif_lzw.cc", "png_unfilter.cc",
+                "resample.cc"):
+        _native.load(src)
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    out["corpus"] = write_train_corpus(os.path.join(root, "corpus"))
+    corpus = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    mcfg = api_config().replace(num_frames=8)
+    base = cfglib.preset("videollama2_qwen2").replace(num_frames=8)
+    qcfg = base.replace(llm=dataclasses.replace(base.llm,
+                                               num_layers=API_LLM_LAYERS))
+    m_llm, m_tower = write_plain_dirs(os.path.join(root, "mistral"), mcfg,
+                                      api_ckpt)
+    q_llm, q_tower = write_plain_dirs(os.path.join(root, "qwen2"), qcfg,
+                                      api_av_ckpt)
+    out["dirs_s"] = time.perf_counter() - t0
+    log(f"[train entry] corpus: {out['corpus']}; plain Mistral and Qwen2 "
+        f"directories ({API_LLM_LAYERS} layers) and the CLIP and SigLIP "
+        f"tower directories written in {out['dirs_s']:.1f} s")
+    counts = run_entry_runs(out, root, corpus, (mcfg, m_llm, m_tower),
+                            (qcfg, q_llm, q_tower), counters)
+    tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train entry] phase {out['phase_s']:.1f} s")
+    return out, counts
+
+
+def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
+                   extra_flags=()) -> dict:
+    """The phase's five processes (see run_train_entry_phase) over the
+    corpus and the (config, LLM directory, tower directory) of each model;
+    fills `out` with their numbers and returns their launch counts."""
+    from videollama2_tpu_torch.checkpoint.projector_io import \
+        load_projector_only
+    from videollama2_tpu_torch.models import connector as conn_lib
+    from videollama2_tpu_torch.train.optimizer import flatten
+    mcfg, m_llm, m_tower = mistral
+    qcfg, q_llm, q_tower = qwen2
+    counts = {}
+
+    def flags(llm, tower, out_dir, model_type="videollama2_mistral",
+              projector="stc_connector", stage=1, steps=TE_STEPS,
+              save_steps=2, epochs=2):
+        common = [
+            "--model_type", model_type, "--model_path", llm,
+            "--vision_tower", tower, "--mm_projector_type", projector,
+            "--mm_vision_select_layer", "-2", "--data_folder", corpus,
+            "--num_frames", "8", "--model_max_length", str(TRAIN_S),
+            "--output_dir", out_dir, "--num_train_epochs", str(epochs),
+            "--weight_decay", "0.", "--warmup_ratio", "0.03",
+            "--lr_scheduler_type", "cosine", "--save_steps", str(save_steps),
+            "--logging_steps", "1", "--bf16", "true", "--max_steps",
+            str(steps), "--mesh_fsdp", "-1", "--mesh_tensor", "1",
+            "--tokenizer", "chip_smoke:toy_tokenizer", *extra_flags]
+        if stage == 1:
+            return common + [
+                "--tune_mm_mlp_adapter", "true", "--data_path",
+                os.path.join(corpus, "pre.json"), "--learning_rate", "1e-3",
+                "--per_device_train_batch_size", str(TE_MB),
+                "--gradient_accumulation_steps", str(TE_ACCUM)]
+        return common + [
+            "--image_aspect_ratio", "pad", "--data_path",
+            os.path.join(corpus, "sft.json"), "--learning_rate", "2e-5",
+            "--group_by_modality_length", "true",
+            "--per_device_train_batch_size", str(TE_FT_MB),
+            "--gradient_accumulation_steps", str(TE_FT_ACCUM)]
+
+    def report(name):
+        return os.path.join(root, f"{name}.json")
+
+    # stage 1, uninterrupted
+    a_dir = os.path.join(root, "stage1")
+    want = entry_launches(counters, mcfg, TE_STEPS, TE_ACCUM, TE_MB)
+    log(f"[train entry] stage 1 launches wanted a run of {TE_STEPS} steps: "
+        f"{want}")
+    rep_a, _ = run_entry("stage 1", flags(m_llm, m_tower, a_dir),
+                         report("a"))
+    out["stage1"] = check_entry_run("stage 1", rep_a, _train_log(a_dir),
+                                    want)
+    if rep_a["save_steps"] != [2, TE_STEPS]:
+        raise RuntimeError("[train entry] stage 1 saved its state at "
+                           f"{rep_a['save_steps']}, not at 2 and {TE_STEPS}")
+    counts["stage 1"] = rep_a["launches"]
+    # the saved projector reads back through load_projector_only as the
+    # trained connector's fp32 masters
+    like = {}
+    for path, shape in _flat_shapes(conn_lib.param_shapes(mcfg.connector)):
+        node = like
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.zeros(shape, dtype=torch.float32)
+    back = flatten(load_projector_only(
+        os.path.join(a_dir, f"adapter-{TE_STEPS}"), like))
+    saved = dict(zip(("/".join(p) for p in back),
+                     _checksums(list(back.values()))))
+    final_conn = {k[len("master:connector/"):]: v
+                  for k, v in rep_a["final"].items()
+                  if k.startswith("master:connector/")}
+    if saved != final_conn:
+        raise RuntimeError("[train entry] adapter-4 does not read back as "
+                           "the trained connector's fp32 masters")
+
+    # stage 1 again: SIGTERM during step 2, then resumed in a new process
+    b_dir = os.path.join(root, "stage1_preempted")
+    rep_b, lines_b = run_entry(
+        "stage 1 preempted", flags(m_llm, m_tower, b_dir), report("b"),
+        sigterm_after="step 1:", write_state=True)
+    if not any(ln.startswith("preemption signal received") for ln in lines_b) \
+            or sorted(os.listdir(os.path.join(b_dir, "checkpoints"))) != ["2"]:
+        raise RuntimeError("[train entry] the SIGTERM run did not save at "
+                           f"step 2: {lines_b[-10:]}")
+    out["stage1_preempted"] = check_entry_run(
+        "stage 1 preempted", rep_b, _train_log(b_dir),
+        entry_launches(counters, mcfg, 2, TE_ACCUM, TE_MB))
+    counts["stage 1 preempted"] = rep_b["launches"]
+    rep_c, lines_c = run_entry("stage 1 resumed",
+                               flags(m_llm, m_tower, b_dir), report("c"))
+    if not any(ln.startswith("Resuming from checkpoint step 2")
+               for ln in lines_c):
+        raise RuntimeError("[train entry] the resumed run did not resume "
+                           "from step 2")
+    if rep_c["first"] != rep_b["after_step"]["2"]:
+        bad = [k for k, v in rep_b["after_step"]["2"].items()
+               if rep_c["first"].get(k) != v]
+        raise RuntimeError("[train entry] the restored state differs from "
+                           f"the saved one: {bad[:5]}")
+    out["stage1_resumed"] = check_entry_run(
+        "stage 1 resumed", rep_c, _train_log(b_dir),
+        entry_launches(counters, mcfg, TE_STEPS - 2, TE_ACCUM, TE_MB))
+    counts["stage 1 resumed"] = rep_c["launches"]
+    if rep_b["save_steps"] != [2] or rep_c["save_steps"] != [TE_STEPS]:
+        raise RuntimeError("[train entry] state saves at "
+                           f"{rep_b['save_steps']} and {rep_c['save_steps']}")
+    want_l = [s["loss"] for s in rep_a["steps"][2:]]
+    got_l = [s["loss"] for s in rep_c["steps"]]
+    np.testing.assert_allclose(got_l, want_l, rtol=TE_LOSS_RTOL, atol=0)
+    same_final = rep_c["final"] == rep_a["final"]
+    out["resume"] = {"losses": got_l, "uninterrupted": want_l,
+                     "bit_equal_losses": got_l == want_l,
+                     "restored_bit_equal": True,
+                     "final_bit_equal": same_final}
+    log(f"[train entry] resumed at step 2: restored params and moments "
+        f"bit-equal to the saved ones; steps 3-4 losses {got_l} vs the "
+        f"uninterrupted run's {want_l} (bit-equal: {got_l == want_l}; "
+        f"tolerance rtol {TE_LOSS_RTOL}); final state bit-equal to the "
+        f"uninterrupted run's: {same_final}")
+    shutil_rm(b_dir)
+
+    # stage 2 over stage 1's adapter
+    d_dir = os.path.join(root, "stage2")
+    want2 = entry_launches(counters, mcfg, TE_STAGE2_STEPS, TE_FT_ACCUM,
+                           TE_FT_MB)
+    rep_d, _ = run_entry(
+        "stage 2", flags(m_llm, m_tower, d_dir, stage=2,
+                         steps=TE_STAGE2_STEPS, save_steps=500, epochs=1)
+        + ["--pretrain_mm_mlp_adapter",
+           os.path.join(a_dir, f"adapter-{TE_STEPS}")], report("d"))
+    first_conn = {k[len("master:connector/"):]: v
+                  for k, v in rep_d["first"].items()
+                  if k.startswith("master:connector/")}
+    if first_conn != final_conn:
+        raise RuntimeError("[train entry] stage 2 did not start from stage "
+                           "1's adapter")
+    out["stage2"] = check_entry_run("stage 2", rep_d, _train_log(d_dir),
+                                    want2)
+    counts["stage 2"] = rep_d["launches"]
+    shutil_rm(a_dir)
+    shutil_rm(d_dir)
+
+    # VideoLLaMA2.1: stage 1
+    e_dir = os.path.join(root, "qwen2")
+    wantq = entry_launches(counters, qcfg, TE_QWEN2_STEPS, TE_ACCUM, TE_MB)
+    rep_e, _ = run_entry(
+        "2.1 stage 1", flags(q_llm, q_tower, e_dir, "videollama2_qwen2",
+                             "stc_connector_v35", steps=TE_QWEN2_STEPS,
+                             save_steps=500, epochs=1), report("e"))
+    out["qwen2_stage1"] = check_entry_run("2.1 stage 1", rep_e,
+                                          _train_log(e_dir), wantq)
+    counts["2.1 stage 1"] = rep_e["launches"]
+    shutil_rm(e_dir)
+    return counts
+
+
+def _flat_shapes(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_shapes(v, prefix + (k,))
+        else:
+            yield prefix + (k,), tuple(v)
+
+
+def shutil_rm(path) -> None:
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+
+
 def urllib_post(url, payload, timeout=60):
     import urllib.request
     req = urllib.request.Request(
@@ -2782,6 +3466,15 @@ def main() -> None:
     check_no_spills(ptxas, ("flash_attention_kernel", "flash_bwd_dq_kernel",
                             "flash_bwd_dkv_kernel"))
 
+    # the api phases' checkpoints, written first: the "train entry" phase
+    # reads them as plain LLM and tower directories
+    api_dir = tempfile.TemporaryDirectory()
+    api_written = write_api_checkpoint(api_dir.name)
+    api_av_dir = tempfile.TemporaryDirectory()
+    api_av_written = write_api_av_checkpoint(api_av_dir.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # every kernel's counter, checked in every run of a path: a kernel off
     # the path must launch no time
     counters = {"encoder_attention": k1.encoder_attention,
@@ -2795,6 +3488,14 @@ def main() -> None:
                 "matmul_q8": qm.matmul_q8,
                 "flash_attention_bwd_dq": k2.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": k2.flash_attention_bwd_dkv}
+
+    # -- the "train entry" phase: train/train.py as the recipes launch it ----
+    # (child processes, run first so that this process holds no more than
+    # its CUDA context beside them; the api checkpoints' tensors in plain
+    # directories)
+    entry, entry_counts = run_train_entry_phase(api_dir.name,
+                                                api_av_dir.name, counters)
+    log(json.dumps({"train entry": entry}))
 
     # -- every kernel against its plain version at main-path shapes ---------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2971,16 +3672,16 @@ def main() -> None:
 
     # -- the public API on a released-layout checkpoint ----------------------
     # (the checkpoint stays for the "lora" phase's model_base)
-    api_dir = tempfile.TemporaryDirectory()
-    api_stage, api_counts = run_api_phase(api_dir.name, counters, attn, k1,
-                                          k2, k3, dk)
+    api_stage, api_counts = run_api_phase(api_dir.name, api_written,
+                                          counters, attn, k1, k2, k3, dk)
     slice_counts.update({f"api {n}": c for n, c in api_counts.items()})
     log(json.dumps({"api": api_stage}))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    api_av_stage, api_av_counts = run_api_av_phase(counters, attn, k1, k2,
-                                                   k3, dk)
+    api_av_stage, api_av_counts = run_api_av_phase(
+        api_av_dir.name, api_av_written, counters, attn, k1, k2, k3, dk)
+    api_av_dir.cleanup()
     slice_counts.update({f"api av {n}": c for n, c in api_av_counts.items()})
     log(json.dumps({"av": av_stage, "api av": api_av_stage}))
     torch.cuda.reset_peak_memory_stats()
@@ -3060,10 +3761,13 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     lora["api"], slice_counts["lora api mm_infer"] = run_api_lora(
         api_dir.name, counters)
-    api_dir.cleanup()
     log(json.dumps({"lora": lora}))
     gc.collect()
     torch.cuda.empty_cache()
+
+    api_dir.cleanup()
+    slice_counts.update({f"train entry {n}": c
+                         for n, c in entry_counts.items()})
 
     def by_slice(name):
         return {s: c[name] for s, c in slice_counts.items()}
@@ -3086,6 +3790,8 @@ def main() -> None:
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
                 "launches": want[name], "launches_lora_run": want_lora[name],
+                "launches_train_entry": {r: c[name] for r, c in
+                                         entry_counts.items()},
                 **train_kernels[key], **extra}
 
     def registers(kernel):

@@ -483,8 +483,9 @@ def test_api_surface_and_unported_parts(ckpt, port_loaded):
     # a format the port does not read raise
     with pytest.raises(OSError, match="cannot open video"):
         processor["video"]("clip.mp4")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        processor["image"](b"\xff\xd8\xff\xe0" + bytes(16))
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
+        processor["image"](b"\xff\xd8\xff\xc2\x00\x0b\x08\x00\x08\x00\x08"
+                           b"\x01\x01\x11\x00\xff\xd9")
     with pytest.raises(ValueError, match="tokenizer"):
         videollama2_tpu_torch.model_init(ckpt, device="cpu")
     with pytest.raises(ValueError, match="wire"):

@@ -111,11 +111,15 @@ def test_port_reaches_no_jax():
                  "serve/controller.py", "serve/model_worker.py",
                  "serve/batching.py", "serve/openai_api.py",
                  "serve/web_server.py", "serve/cli.py",
-                 "serve/register_worker.py", "serve/test_message.py"):
+                 "serve/register_worker.py", "serve/test_message.py",
+                 "train/train.py", "train/data.py",
+                 "checkpoint/train_state.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     # chip_smoke's serve phase writes its media with the test writers
-    for helper in ("avi_writer.py", "png_writer.py"):
+    # and its "train entry" phase its corpus
+    for helper in ("avi_writer.py", "png_writer.py", "jpeg_writer.py",
+                   "gif_writer.py"):
         assert ROOT / "tests" / helper in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"
                  for p, mods in closure.items() for m in mods

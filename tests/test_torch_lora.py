@@ -608,7 +608,8 @@ def test_lora_trainer_saves_the_split_and_reads_it_back(base_ckpt,
         TrainerConfig(output_dir=out, max_steps=2, save_steps=1),
         device="cpu")
     state = trainer.train([batch, batch])
-    assert sorted(os.listdir(out)) == ["lora-1", "lora-2", "train_log.jsonl"]
+    assert sorted(os.listdir(out)) == ["checkpoints", "lora-1", "lora-2",
+                                       "train_log.jsonl"]
     assert sorted(os.listdir(os.path.join(out, "lora-2"))) == [
         "adapter_config.json", "adapter_model.bin", "config.json",
         "non_lora_trainables.bin"]

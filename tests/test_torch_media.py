@@ -35,6 +35,8 @@ from videollama2_tpu_torch.media import wire as twire
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from avi_writer import write_avi  # noqa: E402
+from gif_writer import cube_palette, encode_gif, encode_rgb_gif  # noqa: E402
+from jpeg_writer import encode_jpeg  # noqa: E402
 from png_writer import encode_bmp, encode_png  # noqa: E402
 
 # source frames (height, width) that the CLIP (336) and SigLIP (384)
@@ -165,7 +167,7 @@ def _unsupported_cases():
     rng = np.random.default_rng(1)
     rgb = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
     return {
-        "JPEG": _pil_bytes(rgb, "JPEG"),
+        "JPEG progressive": _pil_bytes(rgb, "JPEG", progressive=True),
         "GIF": _pil_bytes(rgb, "GIF"),
         "TIFF": _pil_bytes(rgb, "TIFF"),
         "bit depth 16": _pil_bytes(Image.fromarray(
@@ -257,16 +259,275 @@ def test_decoder_audio_matches_jax(avi):
 
 
 def test_gif_raises_naming_gif(tmp_path):
+    """GIF video decodes (test_gif_frames_match_jax); a GIF whose frames
+    reach past its logical screen, which PIL grows the canvas for, raises
+    NotImplementedError naming GIF on every entry."""
     path = tmp_path / "clip.gif"
-    frames = [Image.fromarray(np.full((8, 8, 3), i * 20, np.uint8))
+    frames = [{"indices": np.full((8, 8), i, np.uint8), "x": 4 * i}
               for i in range(3)]
-    frames[0].save(str(path), save_all=True, append_images=frames[1:])
+    path.write_bytes(encode_gif(frames, (8, 8),
+                                global_palette=cube_palette()[:4]))
     for call in (lambda: tvr.read_video_frames(str(path), 4),
                  lambda: tvr.probe_video(str(path)),
                  lambda: tprep.process_video(str(path),
                                              tcfglib.tiny_vision())):
         with pytest.raises(NotImplementedError, match="GIF"):
             call()
+
+
+# -- JPEG --------------------------------------------------------------------
+
+JPEG_SAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "gray": None}
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("hw", [(1, 1), (17, 13), (481, 641)])
+@pytest.mark.parametrize("sampling", sorted(JPEG_SAMPLING))
+@pytest.mark.parametrize("quality", [50, 75, 95])
+def test_jpeg_matches_pil(quality, sampling, hw, restart):
+    """Baseline JPEGs that PIL (libjpeg-turbo) encodes decode to PIL's
+    pixels bit for bit: ISLOW IDCT, fancy upsampling, jdcolor's tables;
+    restart markers every `restart` MCU rows' worth of blocks."""
+    rng = np.random.default_rng(quality + hw[0])
+    px = _smooth(rng, hw[0], hw[1], 3)
+    sub = JPEG_SAMPLING[sampling]
+    img = Image.fromarray(px[..., 0] if sub is None else px)
+    kw = dict(quality=quality)
+    if sub is not None:
+        kw["subsampling"] = sub
+    if restart:
+        kw["restart_marker_blocks"] = restart
+    data = _pil_bytes(img, "JPEG", **kw)
+    if restart:
+        assert b"\xff\xdd" in data
+    np.testing.assert_array_equal(image_io.read_image(data), _pil_rgb(data))
+
+
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0", "gray"])
+def test_jpeg_writer_reads_alike_in_pil_and_the_port(subsampling):
+    """tests/jpeg_writer.py's files (the GPU host's corpus) decode to the
+    same pixels in PIL and in the port, close to their source."""
+    rng = np.random.default_rng(7)
+    px = _smooth(rng, 37, 45, 3)
+    src = px[..., 0] if subsampling == "gray" else px
+    data = encode_jpeg(src, 90, "4:2:0" if subsampling == "gray"
+                       else subsampling)
+    got = image_io.read_image(data)
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+    want = np.repeat(src[..., None], 3, -1) if src.ndim == 2 else src
+    assert np.abs(got.astype(int) - want.astype(int)).mean() < 6
+
+
+def _patched_sof(data: bytes, offset: int, value: int) -> bytes:
+    """`data` with the byte `offset` bytes into its SOF0 segment set."""
+    i = data.index(b"\xff\xc0")
+    return data[:i + offset] + bytes([value]) + data[i + offset + 1:]
+
+
+def _jpeg_refusals():
+    rng = np.random.default_rng(2)
+    rgb = Image.fromarray(_smooth(rng, 16, 16, 3))
+    base = _pil_bytes(rgb, "JPEG", subsampling=2)
+    sof = base.index(b"\xff\xc0")
+    cases = {
+        "progressive JPEG": _pil_bytes(rgb, "JPEG", progressive=True),
+        "arithmetic-coded JPEG": base[:sof + 1] + b"\xc9" + base[sof + 2:],
+        "12-bit JPEG": _patched_sof(base, 4, 12),
+        "CMYK/YCCK JPEG": _pil_bytes(rgb.convert("CMYK"), "JPEG"),
+        "RGB-coded JPEG": _pil_bytes(rgb, "JPEG", keep_rgb=True),
+        # luma 4x1, chroma 1x1: a ratio the port does not upsample
+        "JPEG chroma sampling": _patched_sof(base, 11, 0x41),
+        "lossless JPEG": base[:sof + 1] + b"\xc3" + base[sof + 2:],
+    }
+    return cases
+
+
+@pytest.mark.parametrize("name,data", sorted(_jpeg_refusals().items()))
+def test_jpeg_variants_raise_naming_the_variant(name, data):
+    with pytest.raises(NotImplementedError, match=name):
+        image_io.read_image(data)
+
+
+def _patched_dht(data: bytes, counts: dict, value=None) -> bytes:
+    """`data` with its first Huffman table's code counts changed ({length:
+    count}, the total kept) and, with `value`, its first symbol set."""
+    i = data.index(b"\xff\xc4") + 5
+    out = bytearray(data)
+    for length, n in counts.items():
+        out[i + length - 1] = n
+    assert sum(out[i:i + 16]) == sum(data[i:i + 16])
+    if value is not None:
+        out[i + 16] = value
+    return bytes(out)
+
+
+def _malformed_jpegs():
+    rng = np.random.default_rng(2)
+    base = _pil_bytes(Image.fromarray(_smooth(rng, 16, 16, 3)), "JPEG",
+                      subsampling=2)
+    i = base.index(b"\xff\xc4") + 5
+    counts = list(base[i:i + 16])
+    first = next(n for n, c in enumerate(counts) if c >= 3)
+    huge = base.index(b"\xff\xc0") + 5
+    return {
+        # three codes of length 1 (libjpeg: JERR_BAD_HUFF_TABLE); unchecked,
+        # their lookahead entries land past the table
+        "codes overrun their lengths": _patched_dht(
+            base, {1: 3, first + 1: counts[first] - 3}),
+        "a DC value above 15": _patched_dht(base, {}, value=200),
+        "a side above 65500 pixels": base[:huge] + b"\xff\xff\xff\xff"
+        + base[huge + 4:],
+        "more than 178956970 pixels": base[:huge] + b"\x4e\x20\x4e\x20"
+        + base[huge + 4:],
+    }
+
+
+@pytest.mark.parametrize("name,data", sorted(_malformed_jpegs().items()))
+def test_malformed_jpegs_raise_value_error(name, data):
+    """A Huffman table that libjpeg refuses and a frame past libjpeg's
+    largest side or PIL's decompression-bomb limit raise ValueError from
+    the header pass, before anything is allocated or written."""
+    with pytest.raises(ValueError, match=name):
+        image_io.read_image(data)
+
+
+def test_huge_gifs_raise_value_error(tmp_path):
+    """A GIF screen or image past PIL's decompression-bomb limit raises
+    ValueError before its canvas or indices are allocated."""
+    rng = np.random.default_rng(3)
+    data = encode_rgb_gif(_smooth(rng, 8, 8, 3)[None])
+    path = tmp_path / "screen.gif"
+    path.write_bytes(data[:6] + b"\xff\xff\xff\xff" + data[10:])
+    with pytest.raises(ValueError, match="GIF screen of 65535x65535"):
+        tvr.read_video_frames(str(path), 4)
+    i = data.index(b"\x2c", 13)
+    path = tmp_path / "image.gif"
+    path.write_bytes(data[:i + 5] + b"\xff\xff\xff\xff" + data[i + 9:])
+    with pytest.raises(ValueError, match="GIF image of 65535x65535"):
+        tvr.read_video_frames(str(path), 4)
+
+
+# -- GIF ---------------------------------------------------------------------
+
+def _gif_cases():
+    rng = np.random.default_rng(3)
+    pal = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+
+    def idx(h, w, n=16):
+        return rng.integers(0, n, (h, w)).astype(np.uint8)
+    cases = {
+        "one frame": encode_gif([{"indices": idx(9, 11)}], (11, 9),
+                                global_palette=pal),
+        "global palette, many frames": encode_rgb_gif(
+            rng.integers(0, 256, (5, 12, 10, 3)).astype(np.uint8)),
+        "local palettes": encode_gif(
+            [{"indices": idx(8, 8)},
+             {"indices": idx(8, 8), "palette": rng.integers(
+                 0, 256, (16, 3)).astype(np.uint8)},
+             {"indices": idx(4, 5, 4), "x": 2, "y": 3,
+              "palette": rng.integers(0, 256, (4, 3)).astype(np.uint8)}],
+            (8, 8), global_palette=pal),
+        "no global palette": encode_gif(
+            [{"indices": idx(6, 7), "palette": pal},
+             {"indices": idx(3, 3), "x": 1, "y": 1, "palette": pal[::-1]}],
+            (7, 6)),
+        "transparency": encode_gif(
+            [{"indices": idx(8, 9), "transparency": 3},
+             {"indices": idx(5, 6), "x": 1, "y": 2, "transparency": 5},
+             {"indices": idx(8, 9), "transparency": 0}], (9, 8),
+            global_palette=pal),
+        "interlaced": encode_gif(
+            [{"indices": idx(13, 7), "interlace": True},
+             {"indices": idx(9, 5), "x": 1, "y": 2, "interlace": True}],
+            (7, 13), global_palette=pal),
+        "gray first frame": encode_gif(
+            [{"indices": idx(6, 6, 4)},
+             {"indices": idx(3, 3, 4), "x": 2, "y": 1, "transparency": 1}],
+            (6, 6), global_palette=np.repeat(
+                np.arange(4, dtype=np.uint8)[:, None], 3, 1)),
+    }
+    for disposal in (1, 2, 3):
+        for trans in (None, 2):
+            cases[f"disposal {disposal} transparency {trans}"] = encode_gif(
+                [{"indices": idx(8, 10), "transparency": trans,
+                  "disposal": disposal},
+                 {"indices": idx(4, 5), "x": 3, "y": 2, "disposal": disposal,
+                  "transparency": trans},
+                 {"indices": idx(5, 4), "x": 1, "y": 3, "disposal": 0},
+                 {"indices": idx(3, 3), "x": 6, "y": 4,
+                  "palette": pal[::-1], "transparency": 7}],
+                (10, 8), global_palette=pal, background=4)
+    return cases
+
+
+GIF_CASES = _gif_cases()
+
+
+@pytest.mark.parametrize("name", sorted(GIF_CASES))
+def test_gif_frames_match_jax(name, tmp_path):
+    """Every frame of the port's GIF reader equals JAX's `_read_gif`
+    (imageio over PIL); read_video_frames, probe_video (fps 25) and
+    process_video sample and resize them as JAX does."""
+    path = str(tmp_path / "clip.gif")
+    with open(path, "wb") as f:
+        f.write(GIF_CASES[name])
+    want = jvr._read_gif(path)
+    got = tvr.read_gif(path)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint8
+        np.testing.assert_array_equal(g, w)
+    assert tvr.probe_video(path) == jvr.probe_video(path)
+    for n in (2, 8):
+        for g, w in zip(tvr.read_video_frames(path, n),
+                        jvr.read_video_frames(path, n)):
+            np.testing.assert_array_equal(g, w)
+    jcfg, tcfg = jcfglib.tiny_vision(), tcfglib.tiny_vision()
+    _hold_to_pil(tprep.process_video(path, tcfg, num_frames=4,
+                                     out_dtype="uint8"),
+                 jprep.process_video(path, jcfg, num_frames=4,
+                                     out_dtype="uint8"))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gif_random_streams_match_jax(seed, tmp_path):
+    """Seeded random GIFs (palettes global, local or gray ramps; extents,
+    transparency, disposal and interlacing drawn per frame) read as JAX
+    reads them, or raise NotImplementedError where PIL composes in ways
+    the port does not (frames a gray GIF later gives a palette)."""
+    rng = np.random.default_rng(100 + seed)
+    path = str(tmp_path / "r.gif")
+    for _ in range(10):
+        W, H = (int(v) for v in rng.integers(1, 24, 2))
+        gp = (rng.integers(0, 256, (int(rng.choice([2, 4, 16, 256])), 3))
+              .astype(np.uint8) if rng.random() < 0.8 else None)
+        frames = []
+        for k in range(int(rng.integers(1, 5))):
+            fw, fh = int(rng.integers(1, W + 1)), int(rng.integers(1, H + 1))
+            lp = None
+            if gp is None or rng.random() < 0.3:
+                lp = rng.integers(0, 256, (int(rng.choice([4, 16])), 3)
+                                  ).astype(np.uint8)
+            n = len(lp) if lp is not None else len(gp)
+            fr = {"indices": rng.integers(0, n, (fh, fw)).astype(np.uint8),
+                  "x": int(rng.integers(0, W - fw + 1)),
+                  "y": int(rng.integers(0, H - fh + 1)), "palette": lp,
+                  "disposal": int(rng.integers(0, 4)),
+                  "interlace": bool(rng.random() < 0.2)}
+            if rng.random() < 0.5:
+                fr["transparency"] = int(rng.integers(0, n))
+            frames.append(fr)
+        with open(path, "wb") as f:
+            f.write(encode_gif(frames, (W, H), global_palette=gp,
+                               background=int(rng.integers(0, 4))))
+        try:
+            want = jvr._read_gif(path)
+        except ValueError:
+            continue   # PIL itself cannot convert some gray-then-palette GIFs
+        got = tvr.read_gif(path)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_concurrent_first_builds(tmp_path, monkeypatch):

@@ -210,7 +210,7 @@ def test_pretrain_trainer_saves_a_projector_jax_reads(tiny, tmp_path):
                                     save_steps=1), device="cpu")
     trainer.train([batch, batch])
     assert sorted(os.listdir(out)) == ["adapter-1", "adapter-2",
-                                       "train_log.jsonl"]
+                                       "checkpoints", "train_log.jsonl"]
     loaded = jorbax.load_projector_only(os.path.join(out, "adapter-2"),
                                         jparams["connector"])
     conn = topt.flatten(tparams["connector"])
@@ -277,3 +277,42 @@ def test_moment_dtypes_follow_jax_in_bf16(tiny, grad_accum):
     assert tmu == tnu == want
     assert {t.dtype for t in topt.flatten(state.params).values()} \
         == {torch.bfloat16}
+
+
+def test_trainer_keeps_fp32_masters_of_bf16_params(tiny, tmp_path):
+    """A Trainer under compute_dtype bfloat16 over params that arrive in
+    bf16 (a bf16 checkpoint), the LLM trained at a rate below half a bf16
+    ulp of its norm scales (1.0): every trained leaf gets an fp32 master
+    (its value widened) with fp32 moments, the masters of the norm scales
+    move while their bf16 copies cannot, each copy is its master rounded,
+    and the frozen tower stays bit-unchanged."""
+    cfg, jparams = tiny
+    params = _to_bf16(_tparams(cfg, jparams))
+    before = {p: t.clone() for p, t in topt.flatten(params).items()}
+    opt = topt.OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0)
+    trained = [p for p, t in topt.trainable_mask(params, opt).items() if t]
+    trainer = Trainer(cfg, params, opt,
+                      TrainerConfig(output_dir=str(tmp_path), max_steps=1,
+                                    log_steps=1, save_steps=10,
+                                    compute_dtype="bfloat16"),
+                      device="cpu")
+    masters = trainer.state.opt_state["master"]
+    assert sorted(masters) == sorted(trained)
+    for p, m in masters.items():
+        assert m.dtype == torch.float32
+        assert torch.equal(m, before[p].float()), p
+        assert trainer.state.opt_state["mu"][p].dtype == torch.float32
+    batch = tdata.Collator(cfg, SEQ)(_instances(cfg, n=2, seed=5))
+    state = trainer.train([batch])
+    flat = topt.flatten(state.params)
+    norms = [p for p in trained if p[-1] == "scale" and p[0] == "llm"]
+    assert norms
+    for p in norms:
+        assert not torch.equal(masters[p], before[p].float()), p
+        assert torch.equal(flat[p], before[p]), p
+    for p in trained:
+        assert flat[p].dtype == torch.bfloat16
+        assert torch.equal(flat[p], masters[p].to(torch.bfloat16)), p
+    for p, t in flat.items():
+        if p[0] == "vision":
+            assert torch.equal(t, before[p]), p

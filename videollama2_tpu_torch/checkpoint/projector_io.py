@@ -1,5 +1,7 @@
-"""The training saves (port of save_projector_only, load_projector_only
-and export_lora_split of videollama2_tpu/checkpoint/orbax_io.py).
+"""The training saves (port of save_projector_only, load_projector_only,
+export_hf_projector_bin and export_lora_split of
+videollama2_tpu/checkpoint/orbax_io.py; its train-state half is
+checkpoint/train_state.py).
 
 The pretrain stage's projector-only save: the connector's leaves in
 `mm_projector.npz`, keyed by their "/"-joined paths, beside
@@ -109,6 +111,14 @@ def _projector_state_dict(connector_params: dict, prefix: str) -> dict:
             sd[prefix + f"{idx}.weight"] = cpu(fc["kernel"].T)
             sd[prefix + f"{idx}.bias"] = cpu(fc["bias"])
     return sd
+
+
+def export_hf_projector_bin(path: str, connector_params: dict) -> None:
+    """The connector as a torch `mm_projector.bin` in the reference's key
+    layout (model.mm_projector.*; projector.py:49-63), which the reference
+    and both packages' load_pretrain_adapter read."""
+    torch.save(_projector_state_dict(connector_params, "model.mm_projector."),
+               path)
 
 
 def export_lora_split(directory: str, llm_params: dict,

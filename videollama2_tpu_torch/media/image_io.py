@@ -3,15 +3,19 @@
 Reads the formats a frame directory or a base64 image of a serving request
 uses, on every host (the GPU host has no PIL): PNG (8-bit gray, gray +
 alpha, RGB and RGBA; palette at 1, 2, 4 or 8 bits; not interlaced),
-binary PPM / PGM (maxval 255) and uncompressed 24- and 32-bit BMP. Each
-gives what `PIL.Image.open(f).convert("RGB")` gives, bit for bit: alpha is
+baseline JPEG (8-bit gray or YCbCr at 4:4:4, 4:2:2 or 4:2:0), binary
+PPM / PGM (maxval 255) and uncompressed 24- and 32-bit BMP. Each gives
+what `PIL.Image.open(f).convert("RGB")` gives, bit for bit: alpha is
 dropped, not composited; gray is repeated to three channels; a palette is
-looked up. PNG rows are unfiltered by a small C++ helper
-(csrc/png_unfilter.cc, built at first use by media/_native.py): the
-Average and Paeth filters depend on the byte just decoded.
+looked up; JPEG is libjpeg-turbo's default decode (ISLOW IDCT, fancy
+upsampling, its YCbCr tables). Two small C++ helpers, built at first use
+by media/_native.py, do the loops numpy cannot: csrc/png_unfilter.cc (the
+Average and Paeth filters depend on the byte just decoded) and
+csrc/jpeg_decode.cc (Huffman decoding, the IDCT, upsampling, color).
 
-JPEG, GIF and every other format raise NotImplementedError naming the
-format; nothing is decoded by a substitute.
+Other formats and variants (progressive, arithmetic or 12-bit JPEG, CMYK
+or RGB-coded JPEG, GIF stills, ...) raise NotImplementedError naming
+them; nothing is decoded by a substitute.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 _unfilter = None
 _unfilter_lock = threading.Lock()
+_jpeg = None
 
 
 def _png_unfilter():
@@ -45,6 +50,23 @@ def _png_unfilter():
                            ctypes.c_int, ctypes.c_void_p]
             _unfilter = fn
     return _unfilter
+
+
+def _jpeg_lib():
+    global _jpeg
+    with _unfilter_lock:
+        if _jpeg is None:
+            lib = _native.load("jpeg_decode.cc")
+            lib.jpeg_info.restype = ctypes.c_int
+            lib.jpeg_info.argtypes = [
+                ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+            lib.jpeg_decode.restype = ctypes.c_int
+            lib.jpeg_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
+                ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
+            _jpeg = lib
+    return _jpeg
 
 
 def _image_format(data: bytes) -> str:
@@ -82,9 +104,11 @@ def read_image(src: Union[str, os.PathLike, bytes]) -> np.ndarray:
         return _read_pnm(data)
     if fmt == "BMP":
         return _read_bmp(data)
+    if fmt == "JPEG":
+        return _read_jpeg(data)
     raise NotImplementedError(
         f"{fmt} images are not decoded by the port yet (it reads PNG, "
-        "binary PPM/PGM and uncompressed 24/32-bit BMP)")
+        "baseline JPEG, binary PPM/PGM and uncompressed 24/32-bit BMP)")
 
 
 def as_rgb(img) -> np.ndarray:
@@ -149,6 +173,30 @@ def _read_png(data: bytes) -> np.ndarray:
     lut = np.zeros((256, 3), np.uint8)   # indices past PLTE read black
     lut[:len(palette)] = palette[:256]
     return lut[rows[:, :width]]
+
+
+def _jpeg_status(status: int, msg) -> None:
+    text = msg.value.decode(errors="replace")
+    if status == 2:
+        raise NotImplementedError(f"{text} is not decoded by the port yet "
+                                  "(baseline 8-bit gray or YCbCr is)")
+    if status:
+        raise ValueError(text)
+
+
+def _read_jpeg(data: bytes) -> np.ndarray:
+    """Baseline Huffman JPEG (csrc/jpeg_decode.cc): libjpeg-turbo's ISLOW
+    IDCT, fancy upsampling and YCbCr tables, as PIL decodes by default."""
+    lib = _jpeg_lib()
+    msg = ctypes.create_string_buffer(256)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    _jpeg_status(lib.jpeg_info(data, len(data), ctypes.byref(w),
+                               ctypes.byref(h), msg, len(msg)), msg)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _jpeg_status(lib.jpeg_decode(data, len(data),
+                                 out.ctypes.data_as(ctypes.c_void_p),
+                                 out.size, msg, len(msg)), msg)
+    return out
 
 
 def _read_pnm(data: bytes) -> np.ndarray:

@@ -24,7 +24,12 @@ arithmetic out:
   - p = (p + u) cast back to p's dtype. Frozen params are never touched.
 
 The update runs in place on the param tensors (no second copy of the
-trainable tree).
+trainable tree). Mixed precision is opt-in: `init(params, masters)` takes
+fp32 masters of trained params held in a narrower dtype (the Trainer's
+compute_dtype). Such a param's gradient is widened to fp32, the update
+above runs on its master (fp32 moments, so no update is lost below the
+narrow dtype's half ulp), and the param is set to the master rounded to
+its dtype.
 """
 
 from __future__ import annotations
@@ -177,13 +182,26 @@ class GroupedAdamW:
         self.schedules = {g: _schedule(lrs[g], cfg) for g in self.groups}
         self.decay = _decay_mask(params)
 
-    def init(self, params: dict) -> dict:
-        """{"count": {group: 0}, "mu"/"nu": {path: zeros in p's dtype}}."""
+    def init(self, params: dict,
+             masters: Optional[Dict[Path, torch.Tensor]] = None) -> dict:
+        """{"count": {group: 0}, "mu"/"nu": {path: zeros in the dtype of
+        the path's master, else of p}, "master": {path: fp32 master}}."""
         flat = flatten(params)
         paths = [p for ps in self.groups.values() for p in ps]
+        masters = dict(masters or {})
+        stray = sorted(set(masters) - set(paths))
+        if stray:
+            raise ValueError(f"masters for untrained params: {stray[:5]}")
+        for p, m in masters.items():
+            if m.dtype != torch.float32 or m.shape != flat[p].shape:
+                raise ValueError(f"{'/'.join(p)}: a master must be fp32 of "
+                                 f"the param's shape, got {m.dtype} "
+                                 f"{tuple(m.shape)}")
+        ref = {p: masters.get(p, flat[p]) for p in paths}
         return {"count": dict.fromkeys(self.groups, 0),
-                "mu": {p: torch.zeros_like(flat[p]) for p in paths},
-                "nu": {p: torch.zeros_like(flat[p]) for p in paths}}
+                "mu": {p: torch.zeros_like(ref[p]) for p in paths},
+                "nu": {p: torch.zeros_like(ref[p]) for p in paths},
+                "master": masters}
 
     @torch.no_grad()
     def step(self, params: dict, grads: Dict[Path, torch.Tensor],
@@ -192,9 +210,11 @@ class GroupedAdamW:
         trained paths); returns the new state."""
         cfg = self.cfg
         flat = flatten(params)
+        masters = state.get("master", {})
         for group, paths in self.groups.items():
             count = state["count"][group]
-            gs = [grads[p] for p in paths]
+            gs = [grads[p].float() if p in masters else grads[p]
+                  for p in paths]
             g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))
             if not bool(g_norm < cfg.max_grad_norm):
                 gs = [(g / g_norm.to(g.dtype)) * cfg.max_grad_norm
@@ -210,11 +230,13 @@ class GroupedAdamW:
                 u = (mu / torch.tensor(bc1, dtype=mu.dtype)) / (
                     torch.sqrt(nu / torch.tensor(bc2, dtype=nu.dtype))
                     + cfg.eps)
-                param = flat[p]
+                param = masters.get(p, flat[p])
                 if self.decay[p] and cfg.weight_decay:
                     u = u + cfg.weight_decay * param
                 u = torch.tensor(step_size, dtype=u.dtype) * u
                 param.copy_((param + u).to(param.dtype))
+                if p in masters:
+                    flat[p].copy_(param)
             state["count"][group] = count_inc
         return state
 

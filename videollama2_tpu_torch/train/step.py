@@ -15,7 +15,7 @@ optimizer then updates the params in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,8 +33,13 @@ class TrainState:
     step: int = 0
 
 
-def init_state(params: dict, tx: GroupedAdamW) -> TrainState:
-    return TrainState(params=params, opt_state=tx.init(params), step=0)
+def init_state(params: dict, tx: GroupedAdamW,
+               masters: Optional[Dict[Path, torch.Tensor]] = None
+               ) -> TrainState:
+    """A fresh state; `masters` ({path: fp32 tensor}) are the fp32
+    masters of trained params held narrower (optimizer.py)."""
+    return TrainState(params=params, opt_state=tx.init(params, masters),
+                      step=0)
 
 
 def _to_device(a, device, dtype=None) -> torch.Tensor:
