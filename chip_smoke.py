@@ -4,8 +4,8 @@ H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main paths give it (and K10, the
 head-pair tower attention, against K1 as well; its own path, the
 `pack_pairs=True` entry of scripts/profile_torch_vit_attn.py, is driven
-once with every counter at 0), then drives two full-width video-QA models
-(seeded random weights) through Engine.generate twice in each of five
+once with every counter at 0), then drives full-width video-QA models
+(seeded random weights) through Engine.generate twice in each of seven
 slices. VideoLLaMA2-7B-16F (CLIP-L/336 + STC + Mistral-7B): bf16 (bf16
 weights and KV cache), int8 serving (int8 LLM and tower packs, W8A8
 prefill, int8 KV cache, decode on the layered int8 kernels) and int4
@@ -13,11 +13,19 @@ serving, `load_4bit` (folded int4 LLM layers, int8 head and tower, W4A8
 prefill, int8 KV cache, decode on the layered int4 kernels).
 VideoLLaMA2.1-7B-16F (SigLIP-SO400M/384 + STCv35 + Qwen2-7B, 28 query
 heads on 4 kv heads): bf16, and bench.py's BENCH_MODEL=qwen2 serving tree
-(int8 layers, head, tower and embedding, int8 KV cache). It checks that
-each run went through its kernels, the exact launch counts, and the
-first-token (bf16) and decode (int8, int4) logits against the plain
-versions. On the int8 and 2.1 bf16 slices' weights the "speculative +
-sessions" phase runs greedy prompt-lookup speculation (k = 4; B = 1 and
+(int8 layers, head, tower and embedding, int8 KV cache). The Llama-2
+preset (VideoLLaMA2 over Llama-2-7B: 32 kv heads, one a query head, F
+11008) in the int8 serving tree. VideoLLaMA2-8x7B (CLIP + STC +
+Mixtral-8x7B, 8 experts, top-2, at its 8 frames, the LLM cut to 8 of 32
+layers) in bf16, the "mixtral slice", which also holds the MoE FFN's
+capacity-gather dispatch against the Engine's dense one on one layer at
+full width. It checks that each run went through its kernels, the exact
+launch counts, and the first-token (bf16) and decode (int8, int4) logits
+against the plain versions. The "mixtral api" phase loads a checkpoint
+in the released 8x7B key layout (LLM cut to 2 layers) through model_init,
+answers through mm_infer and checks that load_8bit / load_4bit refuse it
+(MoE runs on floating expert kernels only). On the int8 and 2.1 bf16
+slices' weights the "speculative + sessions" phase runs greedy prompt-lookup speculation (k = 4; B = 1 and
 B = 16) against plain greedy and a session's two continued turns
 against fresh generates, each call with exact launch counts and every
 token difference held to a near-tie. On the int8 slice's Engine the
@@ -182,6 +190,21 @@ LORA_NEW_TOKENS = 8
 SERVE_VIDEOS = 4
 SERVE_VIDEO_REQUESTS = 16
 SERVE_TEXT_REQUESTS = 2
+# the "mixtral slice": VideoLLaMA2-8x7B (CLIP + STC + Mixtral-8x7B, E 8,
+# top-2) at its released 8 frames, full width with the LLM cut to
+# MIXTRAL_LAYERS of 32 layers (all 32 are ~93 GB in bf16); bench.py's
+# prompt splices to 898 tokens with its 845 visual tokens: bucket 1024.
+# The "mixtral api" phase loads a checkpoint in the released 8x7B key
+# layout with the LLM cut to MIXTRAL_API_LAYERS layers.
+MIXTRAL_FRAMES = 8
+MIXTRAL_LAYERS = 8
+MIXTRAL_API_LAYERS = 2
+# the gather dispatch against the dense one on the tokens whose pairs were
+# all kept, of max|dense|: each expert's bf16 output, its bf16 routing
+# weight and the bf16 sum of a token's two pairs round in another order
+# (dense sums the weighted outputs in fp32 and rounds once), and the
+# expert products run at other GEMM shapes
+MOE_REL_TOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -347,7 +370,9 @@ def attention_cases(gen):
     prefill = []
     for B, S, H, K, valid in ((4, BUCKET, 32, 8, [1574, 1200, 1664, 900]),
                               (4, QWEN2_BUCKET, 28, 4,
-                               [1405, 1000, 1408, 700])):
+                               [1405, 1000, 1408, 700]),
+                              # Llama-2: a kv head a query head
+                              (4, BUCKET, 32, 32, [1574, 1200, 1664, 900])):
         qkv = (rand_bf16(gen, (B, S, H, 128)), rand_bf16(gen, (B, S, K, 128)),
                rand_bf16(gen, (B, S, K, 128)))
         prefill.append(qkv_case(
@@ -671,6 +696,40 @@ def compare_logits(name, fast, plain) -> None:
                            "plain path beyond the bounds")
 
 
+@contextlib.contextmanager
+def moe_routing(llm_lib, routes: list, replay: bool):
+    """MoE routing shared by two passes of the same inputs (a no-op for a
+    dense model). Without replay, each _moe_router call's expert indices
+    are appended to `routes`; with replay, each call takes the recorded
+    indices of the same call of the first pass, with this pass's own
+    probabilities at them, renormalized, so both passes route every token
+    alike. A top-2 of 8 random routers flips on the rounding of a
+    near-tie, and a flipped route changes its token's FFN output
+    wholesale, far beyond compare_logits' bounds, which would hide what
+    the kernels add. Yields [flipped routes, routes]: the (token, call)
+    pairs whose own top-k set differed from the recorded one."""
+    router, calls, flips = llm_lib._moe_router, iter(routes), [0, 0]
+
+    def wrapped(x, lp, cfg):
+        topw, topi = router(x, lp, cfg)
+        if not replay:
+            routes.append(topi)
+            return topw, topi
+        pinned = next(calls)
+        flips[0] += int((topi.sort(-1).values != pinned.sort(-1).values)
+                        .any(-1).sum().item())
+        flips[1] += pinned[..., 0].numel()
+        probs = torch.softmax(torch.matmul(
+            x.float(), lp["router"]["kernel"].float()), -1)
+        w = probs.gather(-1, pinned)
+        return w / w.sum(-1, keepdim=True), pinned
+    llm_lib._moe_router = wrapped
+    try:
+        yield flips
+    finally:
+        llm_lib._moe_router = router
+
+
 def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
                         k2, fbank=None, tpm=None, label="bf16") -> None:
     """First-token logits of two videos (with fbank, two audio-visual or,
@@ -678,9 +737,10 @@ def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
     plain attention path (attend swapped for attend_plain), both at full
     width in bf16. The two differ only by rounding inside attention (the
     order of the fp32 sums, exp), which the tower's and the LLM's bf16
-    layers amplify. Int8 packs take their dequantize branch here: under
-    W8A8 that rounding also flips activations' int8 steps from layer to
-    layer, which these bounds are not set for (the AV model's W8A8
+    layers amplify. An MoE model's second pass routes every token as the
+    first did (moe_routing). Int8 packs take their dequantize branch
+    here: under W8A8 that rounding also flips activations' int8 steps from
+    layer to layer, which these bounds are not set for (the AV model's W8A8
     first-token logits differ by 0.80 at most and 0.135 on average,
     against bounds of 0.48 and 0.06, on an H100 80GB HBM3 at 700 W)."""
     from videollama2_tpu_torch.models import llm as llm_lib
@@ -696,7 +756,9 @@ def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
             return llm_lib.lm_logits(eng.params["llm"], cfg.llm, last)
 
     before = (k1.encoder_attention.launches, k2.flash_attention.launches)
-    fast = first_logits()
+    routes = []
+    with moe_routing(llm_lib, routes, replay=False):
+        fast = first_logits()
     if (k1.encoder_attention.launches, k2.flash_attention.launches) == before:
         raise RuntimeError("kernel path did not launch the kernels")
     kernel_attend = attn.attend
@@ -704,10 +766,16 @@ def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
         scale=None: attn.attend_plain(q, k, v, valid_len, causal, window,
                                       scale)
     try:
-        plain = first_logits()
+        with moe_routing(llm_lib, routes, replay=True) as flips:
+            plain = first_logits()
     finally:
         attn.attend = kernel_attend
     torch.cuda.synchronize()
+    if cfg.llm.is_moe:
+        log(f"[{label}] the plain path's own top-{cfg.llm.num_experts_per_tok}"
+            f" differs from the kernel path's for {flips[0]} of "
+            f"{flips[1]} (token, layer) routes; both paths take the kernel "
+            f"path's")
     compare_logits(f"{label} first-token logits", fast, plain)
 
 
@@ -1345,6 +1413,247 @@ def run_api_phase(ckpt, written, counters, attn, k1, k2, k3, dk):
     check_decode_against_plain(eng, cfg, clips, prompt, BUCKET, k3, dk, 8)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[api] peak device memory {out['peak_gb']:.2f} GB")
+    return out, counts
+
+
+def mixtral_config(layers: int):
+    """VideoLLaMA2-8x7B at MIXTRAL_FRAMES frames, the LLM cut to `layers`
+    of 32."""
+    from videollama2_tpu_torch.core import config as cfglib
+    base = cfglib.preset("videollama2_mixtral").replace(
+        num_frames=MIXTRAL_FRAMES)
+    return base.replace(llm=dataclasses.replace(base.llm, num_layers=layers))
+
+
+def compare_moe_dispatch(eng, frames, prompt, bucket) -> dict:
+    """Layer 0's MoE FFN at full width on its input of the Engine's
+    prefill of every row (captured from one prefill), through the dense
+    dispatch (the Engine's) and the capacity gather: the pairs the gather
+    drops, the tokens all of whose pairs it kept held to the dense output
+    within MOE_REL_TOL of max|dense|, and each dispatch's device ms (CUDA
+    events)."""
+    from videollama2_tpu_torch.models import llm as llm_lib
+    from videollama2_tpu_torch.ops.layers import layer_params
+    cfg = eng.cfg
+    B = frames.shape[0]
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
+    captured, moe = [], llm_lib._ffn_moe
+
+    def first_input(x, lp, c):
+        if not captured:
+            captured.append(x.clone())
+        return moe(x, lp, c)
+    llm_lib._ffn_moe = first_input
+    try:
+        cache = llm_lib.init_cache(cfg.llm, B, bucket, torch.bfloat16,
+                                   device=eng.device)
+        with torch.inference_mode():
+            _prefill(eng, cfg, args, cache)
+    finally:
+        llm_lib._ffn_moe = moe
+    del cache
+    x = captured[0]
+    lp = layer_params(eng.params["llm"]["layers"], 0)
+    dense_cfg, gather_cfg = (dataclasses.replace(cfg.llm, moe_dispatch=m)
+                             for m in ("dense", "gather"))
+    N, k = x.shape[0] * x.shape[1], cfg.llm.num_experts_per_tok
+    with torch.inference_mode():
+        y_dense = llm_lib._ffn_moe(x, lp, dense_cfg).float().reshape(N, -1)
+        y_gather = llm_lib._ffn_moe(x, lp, gather_cfg).float().reshape(N, -1)
+        _, topi = llm_lib._moe_router(x.reshape(N, -1), lp, cfg.llm)
+        _, keep, C = llm_lib._capacity_slots(topi.reshape(-1), N, gather_cfg)
+        kept = keep.reshape(N, k).all(-1)
+        load = torch.bincount(topi.reshape(-1), minlength=cfg.llm.num_experts)
+        err = (y_gather - y_dense)[kept].abs().max().item()
+        scale = y_dense[kept].abs().max().item()
+        out = {"tokens": N, "capacity": C,
+               "dropped_pairs": int((~keep).sum().item()),
+               "tokens_with_a_dropped_pair": int((~kept).sum().item()),
+               "expert_load": load.tolist(), "max_abs_err_kept": err,
+               "max_abs_dense": scale,
+               "dense_ms": cuda_ms(lambda: llm_lib._ffn_moe(x, lp, dense_cfg),
+                                   iters=5),
+               "gather_ms": cuda_ms(
+                   lambda: llm_lib._ffn_moe(x, lp, gather_cfg), iters=5)}
+    log(f"[mixtral slice] layer 0's MoE FFN on the prefill's {N} tokens "
+        f"(x[{B},{bucket},{x.shape[-1]}]): expert loads {out['expert_load']}"
+        f", capacity {C}, {out['dropped_pairs']} pairs dropped by the "
+        f"gather ({out['tokens_with_a_dropped_pair']} tokens); gather vs "
+        f"dense on the other tokens max abs diff {err:.3e} (bound "
+        f"{MOE_REL_TOL * scale:.3e}); dense {out['dense_ms']:.3f} ms, "
+        f"gather {out['gather_ms']:.3f} ms (CUDA events)")
+    if not err <= MOE_REL_TOL * scale:
+        raise RuntimeError(f"mixtral slice: gather vs dense {err} > "
+                           f"{MOE_REL_TOL * scale}")
+    return out
+
+
+def run_mixtral_slice(counters, attn, k1, k2) -> tuple:
+    """The "mixtral slice": VideoLLaMA2-8x7B (mixtral_config(
+    MIXTRAL_LAYERS)) with seeded bf16 weights and a bf16 cache, 16 videos
+    at bench.py's prompt, two generate runs of NEW_TOKENS greedy tokens
+    (K1 and K2 only: the bf16 decode is plain attention and the MoE
+    products are plain PyTorch, as JAX's are einsums; dense dispatch, the
+    Engine's), first-token logits against the plain attention, and the
+    dense and gather dispatches compared on one layer (compare_moe_dispatch).
+    Returns the launch counts and the stage numbers."""
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    cfg = mixtral_config(MIXTRAL_LAYERS)
+    B = 16
+    frames, prompt, bucket = slice_inputs(cfg, B)
+    want = dict.fromkeys(counters, 0)
+    want.update(encoder_attention=vit_layers(cfg)
+                * (B * cfg.num_frames // 128 or 1),
+                flash_attention=MIXTRAL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
+                              seed=0)
+    torch.cuda.synchronize()
+    log(f"[mixtral slice] videollama2_mixtral at {cfg.num_frames} frames, "
+        f"LLM {MIXTRAL_LAYERS} of 32 layers (E {cfg.llm.num_experts}, top-"
+        f"{cfg.llm.num_experts_per_tok}, F {cfg.llm.intermediate_size}): "
+        f"{cfg.tokens_per_video} visual tokens a video, prompt "
+        f"{len(prompt) - 1 + cfg.tokens_per_video} tokens, bucket {bucket}; "
+        f"weights made on the card in {time.perf_counter() - t0:.1f} s "
+        f"({sum(t.nbytes for t in _leaves(params)) / 1e9:.2f} GB)")
+    eng = Engine(cfg, params, dtype=torch.bfloat16,
+                 max_len=bucket + NEW_TOKENS, buckets=(bucket,),
+                 decode_chunk=NEW_TOKENS, kv_bits=16, device="cuda")
+    del params
+    if eng.cfg.llm.moe_dispatch != "dense":
+        raise RuntimeError("mixtral slice: the Engine did not take the "
+                           "dense dispatch")
+    counts, stage = run_slice("mixtral slice", eng, cfg, frames, prompt,
+                              GenerationConfig(max_new_tokens=NEW_TOKENS),
+                              counters, want)
+    check_against_plain(eng, eng.cfg, frames[:2], prompt, bucket, attn, k1,
+                        k2, label="mixtral")
+    stage["moe_ffn"] = compare_moe_dispatch(eng, frames, prompt, bucket)
+    stage["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[mixtral slice] first token "
+        f"{stage['encode_prefill_first_token_s']:.3f} s, decode "
+        f"{stage['decode_ms_per_token']:.2f} ms/token, peak "
+        f"device memory {stage['peak_gb']:.1f} GB")
+    return counts, stage
+
+
+def write_mixtral_api_checkpoint(ckpt) -> dict:
+    """A checkpoint in the released VideoLLaMA2-8x7B key layout: the 7B-16F
+    manifest's keys (Mixtral's attention, embedding, head, tower and
+    projector have their shapes) with each layer's mlp keys replaced by
+    block_sparse_moe.gate.weight [E, D] and experts.{e}.w1/w3 [F, D], w2
+    [D, F], the LLM cut to MIXTRAL_API_LAYERS layers, config.json with
+    num_local_experts; seeded bf16 values made on the card. Returns its
+    size and the seconds taken."""
+    from videollama2_tpu_torch.checkpoint.convert_hf import \
+        model_config_to_hf
+    cfg = mixtral_config(MIXTRAL_API_LAYERS)
+    E, D, F_ = (cfg.llm.num_experts, cfg.llm.hidden_size,
+                cfg.llm.intermediate_size)
+    with open(MANIFEST) as f:
+        manifest = json.load(f)
+    shapes = {}
+    for key, shape in manifest.items():
+        m = re.match(r"model\.layers\.(\d+)\.(.*)", key)
+        if m is None:
+            shapes[key] = shape
+        elif int(m.group(1)) < MIXTRAL_API_LAYERS:
+            if not m.group(2).startswith("mlp."):
+                shapes[key] = shape
+            elif m.group(2) == "mlp.gate_proj.weight":
+                moe = f"model.layers.{m.group(1)}.block_sparse_moe."
+                shapes[moe + "gate.weight"] = [E, D]
+                for e in range(E):
+                    shapes.update({moe + f"experts.{e}.w1.weight": [F_, D],
+                                   moe + f"experts.{e}.w2.weight": [D, F_],
+                                   moe + f"experts.{e}.w3.weight": [F_, D]})
+    hf = model_config_to_hf(cfg)
+    if hf.get("num_local_experts") != E:
+        raise RuntimeError(f"mixtral api: config.json {hf}")
+    t0 = time.perf_counter()
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(hf, f)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    write_safetensors(os.path.join(ckpt, "model.safetensors"), shapes,
+                      lambda n, s: api_init(n, s, gen))
+    out = {"checkpoint_gb": os.path.getsize(
+        os.path.join(ckpt, "model.safetensors")) / 1e9,
+        "write_s": time.perf_counter() - t0,
+        "params_b": sum(math.prod(s) for s in shapes.values()) / 1e9}
+    log(f"[mixtral api] wrote {len(shapes)} keys in the released 8x7B "
+        f"layout (LLM layers 0-{MIXTRAL_API_LAYERS - 1} of 32, {E} experts "
+        f"a layer), {out['params_b']:.3f} B params, "
+        f"{out['checkpoint_gb']:.2f} GB bf16 safetensors in "
+        f"{out['write_s']:.1f} s")
+    return out
+
+
+def run_mixtral_api_phase(counters, attn, k1, k2) -> tuple:
+    """The "mixtral api" phase: write_mixtral_api_checkpoint into a
+    temporary directory, model_init (bf16) on it, one 8-frame I420 clip
+    answered through mm_infer (the mistral/mixtral <<SYS>> prompt) with
+    exact launch counts, first-token logits of two clips against the plain
+    attention, and model_init(load_8bit=True) and (load_4bit=True) on it
+    raising NotImplementedError naming MoE. Returns the phase's numbers
+    and the mm_infer call's launch counts."""
+    from videollama2_tpu_torch.inference import api
+    cfg = mixtral_config(MIXTRAL_API_LAYERS)
+    tok = ToyTokenizer(cfg.llm.vocab_size)
+    question = "what happens in the video ?"
+    prompt = api.build_prompt_ids(question, cfg, tok, "video")
+    bucket = -(-(len(prompt) - 1 + cfg.tokens_per_video) // 128) * 128
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = write_mixtral_api_checkpoint(ckpt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, _, tok = api.model_init(
+            ckpt, max_len=bucket + NEW_TOKENS, buckets=(bucket,),
+            tokenizer=tok)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[mixtral api] model_init (bf16): {out['load_s']:.2f} s, peak "
+            f"device memory {out['load_peak_gb']:.2f} GB; prompt "
+            f"{len(prompt) - 1 + cfg.tokens_per_video} tokens, bucket "
+            f"{bucket}")
+        if dataclasses.asdict(model.config) != dataclasses.asdict(cfg):
+            raise RuntimeError(f"mixtral api: loaded config {model.config} "
+                               f"!= {cfg}")
+        eng = model.engine
+        if eng.cfg.llm.moe_dispatch != "dense" or eng.kv_bits != 16:
+            raise RuntimeError("mixtral api: not the bf16 dense-dispatch "
+                               "Engine")
+        H = cfg.vision.image_size
+        clips = np.random.default_rng(3).integers(
+            0, 256, (2, cfg.num_frames, H + H // 2, H), dtype=np.uint8)
+        want = phase_launches(counters, cfg, 1, True, NEW_TOKENS - 1, False)
+        answer, out["mm_infer"], counts = counted_call(
+            "mixtral api mm_infer", counters, want,
+            lambda cb: api.mm_infer(clips[0], question, model, tok,
+                                    max_new_tokens=NEW_TOKENS, stream_cb=cb))
+        if not (isinstance(answer, str) and answer):
+            raise RuntimeError(f"mixtral api: answer {answer!r}")
+        log(f"[mixtral api] mm_infer answer: {answer[:60]!r}...")
+        check_against_plain(eng, eng.cfg, clips, prompt, bucket, attn, k1,
+                            k2, label="mixtral api")
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        for flag in ("load_8bit", "load_4bit"):
+            try:
+                api.model_init(ckpt, tokenizer=tok, **{flag: True})
+            except NotImplementedError as e:
+                if "MoE" not in str(e):
+                    raise
+                log(f"[mixtral api] model_init({flag}=True) refused: {e}")
+            else:
+                raise RuntimeError(f"mixtral api: model_init({flag}=True) "
+                                   "loaded an MoE checkpoint")
     return out, counts
 
 
@@ -3520,18 +3829,21 @@ def main() -> None:
                                (("int8", None), ("bf16", None),
                                 ("int8", 1024)))
         + decode_attention_cases(gen, _quantize_kv_rows, k3, 28, 4,
-                                 QWEN2_BUCKET, (("int8", None),)),
+                                 QWEN2_BUCKET, (("int8", None),))
+        + decode_attention_cases(gen, _quantize_kv_rows, k3, 32, 32,
+                                 BUCKET, (("int8", None), ("bf16", None))),
         K3_TOL)
     gc.collect()
     torch.cuda.empty_cache()
-    # K4/K5 at Mistral-7B's and Qwen2-7B's widths; K6/K7 (int4, a Mistral
-    # slice only) at Mistral-7B's, and also at Qwen2-7B's as kernel cases
-    # (widths: D, qkv out, F)
+    # K4/K5 at Mistral-7B's, Qwen2-7B's and Llama-2-7B's widths; K6/K7
+    # (int4, a Mistral slice only) at Mistral-7B's, and also at Qwen2-7B's
+    # as kernel cases (widths: D, qkv out, F)
     for mm, ffn, mm_layers, quantize, library, widths in (
             ("matmul_q8_layered", "ffn_q8_layered", 4,
              lambda w: tuple(quantize_int8(w, axis=-2).values()),
              lambda x, q, s: int8pack_library(x, q, s, dk._mm_plain),
-             ((4096, 6144, 14336), (3584, 4608, 18944))),
+             ((4096, 6144, 14336), (3584, 4608, 18944),
+              (4096, 12288, 11008))),
             ("matmul_q4_layered", "ffn_q4_layered", 8,
              lambda w: tuple(quantize_int4(w, axis=-2)[k]
                              for k in ("q4", "scale")),
@@ -3583,7 +3895,7 @@ def main() -> None:
         raise RuntimeError(f"K10 path: launch counts {pairs_counts} != {want}")
     torch.cuda.empty_cache()
 
-    # -- the five serving slices at full width ------------------------------
+    # -- the six serving slices at full width -------------------------------
     B = 16
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
     steps = NEW_TOKENS - 1
@@ -3593,7 +3905,8 @@ def main() -> None:
             ("int8 slice", "videollama2_mistral", 8, False),
             ("int4 slice", "videollama2_mistral", 4, False),
             ("2.1 bf16 slice", "videollama2_qwen2", None, False),
-            ("2.1 int8 slice", "videollama2_qwen2", 8, True)):
+            ("2.1 int8 slice", "videollama2_qwen2", 8, True),
+            ("llama int8 slice", "videollama2_llama", 8, False)):
         cfg = cfglib.preset(preset).replace(num_frames=16)
         frames, prompt, bucket = slice_inputs(cfg, B)
         L = cfg.llm.num_layers
@@ -3667,6 +3980,17 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    # -- VideoLLaMA2-8x7B: the Mixtral MoE decoder ----------------------------
+    slice_counts["mixtral slice"], stages["mixtral slice"] = \
+        run_mixtral_slice(counters, attn, k1, k2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_api, slice_counts["mixtral api mm_infer"] = \
+        run_mixtral_api_phase(counters, attn, k1, k2)
+    log(json.dumps({"mixtral api": mixtral_api}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     log(json.dumps({"stages": stages}))
     log(json.dumps({"speculative": spec_stages}))
 

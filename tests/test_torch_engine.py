@@ -10,7 +10,13 @@ rounding point), so tower and connector run in bf16 in both packages, and
 XLA and PyTorch round bf16 products and elementwise chains at different
 points: those logits differ by up to ~3e-3 at this size, held to
 BF16_LOGIT_ATOL = 1e-2.
+
+The Llama-2 preset's tiny model (one query head a kv head, as its 32 and
+32) goes through both Engines in bf16, with int8 packs and with the
+load_4bit layout: greedy tokens identical.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -330,3 +336,49 @@ def test_int4_slice_matches_jax_engine(tiny_int4, kv_bits):
     port = _first_logits_port(cfg, eng.params, frames, plan, 64, w8a8=True)
     np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
     assert [o[0] for o in got] == list(ref.argmax(-1))
+
+
+@pytest.fixture(scope="module")
+def tiny_llama():
+    """The tiny VideoLLaMA2 over Llama-2's layout: as its preset, one query
+    head a kv head (4 and 4), so K2 and K3's plain versions run at group
+    1, and rope theta 1e4."""
+    cfg = cfglib.tiny_model("videollama2_llama", projector_type="stc_connector")
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_kv_heads=cfg.llm.num_heads))
+    assert cfg.llm.model_type == "llama" and cfg.llm.rope_theta == 1e4
+    jp = jvl2.init_params(jax.random.PRNGKey(3), cfg)
+    return cfg, jp
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int4"])
+def test_llama_slice_matches_jax_engine(tiny_llama, variant):
+    """The Llama preset's three serving trees against the JAX Engine:
+    bf16 weights and compute ("bf16": bf16 Engines, a bf16 cache), int8
+    LLM and tower packs with an int8 cache, and the load_4bit layout
+    (folded int4 layers, int8 head and tower) with an int8 cache, the
+    packed ones under force_native_quant as above. Greedy tokens
+    identical."""
+    cfg, jp = tiny_llama
+    dtype = (jnp.bfloat16, torch.bfloat16) if variant == "bf16" else (
+        jnp.float32, torch.float32)
+    kv_bits = 16 if variant == "bf16" else 8
+    if variant != "bf16":
+        jp = dict(jp, llm=jquant.quantize_llm_params(
+            jp["llm"], bits=8 if variant == "int8" else 4),
+            vision=jquant.quantize_vision_params(jp["vision"]))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    frames = _videos(cfg, "float", seed=7)
+    gen_kw = dict(max_new_tokens=NEW_TOKENS)
+    jeng = JaxEngine(cfg, jp, dtype=dtype[0], max_len=128, buckets=(64,),
+                     kv_bits=kv_bits)
+    eng = Engine(cfg, tp, dtype=dtype[1], max_len=128, buckets=(64,),
+                 kv_bits=kv_bits, device="cpu")
+    with jlayers.force_native_quant(variant != "bf16"):
+        want = jeng.generate(PROMPTS, frames=frames,
+                             gen=JaxGenerationConfig(**gen_kw),
+                             eos_token_id=-1)
+    got = eng.generate(PROMPTS, frames=frames,
+                       gen=GenerationConfig(**gen_kw), eos_token_id=-1)
+    assert got == want
+    assert all(len(o) == NEW_TOKENS for o in got)

@@ -220,13 +220,24 @@ def test_decode_verify_int8_packs_across_the_w8a8_rows_limit(
     _assert_caches_match(tcache, jcache)
 
 
-def test_decode_verify_refuses_moe(tiny):
-    cfg, _, tp = tiny
-    moe = dataclasses.replace(cfg.llm, num_experts=4)
-    cache = tllm.init_cache(cfg.llm, 1, MAX_LEN, torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllm.decode_verify(tp["llm"], moe, torch.zeros(1, 2, 1), cache,
-                           torch.tensor([3]), BUCKET, 0)
+def test_decode_verify_refuses_moe():
+    """The verify pass over the Mixtral MoE decoder (it refused MoE until
+    the decoder was ported; the name is kept): the tiny Mixtral, a text
+    prefill of 2 x 32 rows (64 tokens: the gather dispatch in both
+    packages), then a 4-slot pass at per-row frontiers (8 tokens: dense).
+    Logits and caches match JAX's decode_verify to 1e-4."""
+    cfg = cfglib.tiny_model("videollama2_mixtral")
+    assert cfg.llm.is_moe and cfg.llm.moe_dispatch == "auto"
+    jp = jvl2.init_params(jax.random.PRNGKey(2), cfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    valid, jcache, tcache = _prefill_both(cfg, jp, tp, _prompts(cfg, 2, 3),
+                                          16, False)
+    toks = np.random.default_rng(4).integers(
+        3, cfg.llm.vocab_size - 1, (2, 4)).tolist()
+    want, jcache = _verify_jax(cfg, jp, toks, jcache, valid, [0, 3], False)
+    got, tcache = _verify_port(cfg, tp, toks, tcache, valid, [0, 3], False)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FP32_LOGIT_ATOL)
+    _assert_caches_match(tcache, jcache)
 
 
 # -- the Engine ---------------------------------------------------------------

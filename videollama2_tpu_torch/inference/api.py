@@ -54,6 +54,7 @@ from ..media import audio as audio_lib
 from ..media import wire as wire_lib
 from ..media.preprocess import (process_image, process_video,
                                 process_video_i420)
+from ..models import llm as llm_lib
 from ..multimodal.tokenizer import (tokenizer_multimodal_token,
                                     tokenizer_multimodal_tokens)
 from ..ops import quant
@@ -223,6 +224,10 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     cfg, tree = convert_hf.load_videollama2(
         model_path, model_base=model_base,
         vision_tower_path=vision_tower_path)
+    if load_8bit or load_4bit:
+        # an MoE checkpoint raises here, before any weight is packed (the
+        # JAX model_init packs it and fails later, in its MoE FFN)
+        llm_lib.check_supported(cfg.llm, 8 if load_8bit else 4)
     params = params_from_jax(tree, cfg)
     del tree
     if load_8bit or load_4bit:

@@ -1,6 +1,7 @@
 """Generation engine: multimodal prefill + chunked decode (port of
 videollama2_tpu/inference/engine.py: floating, int8-packed or
-folded-int4-packed weights, a bf16 or int8 KV cache, on one device).
+folded-int4-packed weights, a bf16 or int8 KV cache, on one device; the
+Mixtral MoE decoder on floating weights).
 
 Prompts are padded to static buckets, the KV cache is preallocated at
 `max_len` and written in place, and decoding runs in chunks of
@@ -26,6 +27,7 @@ Sharding raises NotImplementedError until its port.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 from dataclasses import dataclass
@@ -130,8 +132,13 @@ class Engine:
             raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
         if shard_fn is not None:
             raise NotImplementedError("sharded engines are not ported yet")
-        if cfg.llm.is_moe:
-            raise NotImplementedError("MoE decoders are not ported yet")
+        if cfg.llm.is_moe and cfg.llm.moe_dispatch == "auto":
+            # the JAX Engine's rule: serving runs the exact dense dispatch,
+            # since every real prefill passes the auto rule's 64 tokens and
+            # the capacity gather drops pairs under router imbalance; an
+            # explicit "gather" is kept
+            cfg = dataclasses.replace(
+                cfg, llm=dataclasses.replace(cfg.llm, moe_dispatch="dense"))
         self.cfg = cfg
         self.dtype = dtype
         self.kv_bits = kv_bits

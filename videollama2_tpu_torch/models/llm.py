@@ -1,16 +1,20 @@
-"""Causal decoder, dense path (port of videollama2_tpu/models/llm.py).
+"""Causal decoder (port of videollama2_tpu/models/llm.py).
 
-Mistral/Llama/Qwen2-style dense decoders with GQA, RoPE in the rotate-half
-layout and RMSNorm; floating, int8-packed or folded-int4-packed weights; a
-bf16 or int8 KV cache; prefill, one-token decode and the K-slot speculative
-verify pass. MoE raises NotImplementedError until its port.
+Mistral/Llama/Qwen2-style dense decoders and the Mixtral sparse-MoE decoder,
+with GQA, RoPE in the rotate-half layout and RMSNorm; floating, int8-packed
+or folded-int4-packed weights (MoE: floating only, see `check_supported`);
+a bf16 or int8 KV cache; prefill, one-token decode and the K-slot
+speculative verify pass.
 
 Params (kernels [in, out], layers stacked on a leading L axis):
   embed.weight [V, D]   final_norm.scale [D]
   lm_head.kernel [D, V] (absent with tied embeddings: the head is embed.T)
   layers: attn_norm.scale/mlp_norm.scale [L, D]
           qkv.kernel [L, D, (H + 2 Hkv) hd] (+ .bias for Qwen2)
-          o.kernel [L, H hd, D]; gate/up.kernel [L, D, F]; down.kernel [L, F, D]
+          o.kernel [L, H hd, D]; gate/up.kernel [L, D, F];
+          down.kernel [L, F, D]
+          MoE: router.kernel [L, D, E]; gate/up.kernel [L, E, D, F];
+               down.kernel [L, E, F, D]
 With int8 weights every `kernel` above (the head's included) is a
 `kernel_q8` pack {q int8 [.., in, out], scale [.., 1, out]} (ops/quant);
 with int4 weights the layers' kernels are `kernel_q4` packs {q4 int8
@@ -63,9 +67,22 @@ class KVCache:
         return self.k_scale is not None
 
 
-def _check_supported(cfg: LLMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decoders are not ported yet")
+def check_supported(cfg: LLMConfig, bits: Optional[int] = None,
+                     layers: Optional[dict] = None) -> None:
+    """MoE runs on floating expert kernels only: with weight bits 8 or 4,
+    or int8 / int4 packs in `layers`, an MoE config raises. The JAX package
+    packs the expert stacks (ops/quant.py:110-119) but its MoE FFN reads
+    their floating `kernel` (models/llm.py:248-251), so it has no quantized
+    MoE to match."""
+    if not cfg.is_moe:
+        return
+    if bits is not None or (layers is not None and any(
+            pack in layers.get(n, {}) for n in ("gate", "up", "down")
+            for pack, _ in PACKS.values())):
+        raise NotImplementedError(
+            "MoE decoders run on floating expert kernels only: int8 and "
+            "int4 packs of the Mixtral experts are not supported (the JAX "
+            "package has no quantized MoE)")
 
 
 def init_cache(cfg: LLMConfig, batch: int, max_len: int,
@@ -143,7 +160,7 @@ def param_shapes(cfg: LLMConfig, bits: Optional[int] = None,
     """Shapes of the decoder's params; with weight bits 8 or 4, the layout
     of ops/quant.quantize_llm_params(bits) with the (int8) head included;
     with int8_embed, its include_embed pack of the embedding."""
-    _check_supported(cfg)
+    check_supported(cfg, bits)
     L, D, F_ = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qkv = kernel_shapes((L, D, (H + 2 * K) * hd), bits)
@@ -158,12 +175,20 @@ def param_shapes(cfg: LLMConfig, bits: Optional[int] = None,
             "qkv": qkv,
             "o": kernel_shapes((L, H * hd, D), bits),
             "mlp_norm": {"scale": (L, D)},
-            "gate": kernel_shapes((L, D, F_), bits),
-            "up": kernel_shapes((L, D, F_), bits),
-            "down": kernel_shapes((L, F_, D), bits),
         },
         "final_norm": {"scale": (D,)},
     }
+    layers = shapes["layers"]
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers.update(router={"kernel": (L, D, E)},
+                      gate={"kernel": (L, E, D, F_)},
+                      up={"kernel": (L, E, D, F_)},
+                      down={"kernel": (L, E, F_, D)})
+    else:
+        layers.update(gate=kernel_shapes((L, D, F_), bits),
+                      up=kernel_shapes((L, D, F_), bits),
+                      down=kernel_shapes((L, F_, D), bits))
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = kernel_shapes((D, V), bits and 8)
     return shapes
@@ -218,7 +243,95 @@ def _split_qkv(cfg: LLMConfig, qkv: torch.Tensor):
     return q, k, v
 
 
-def _ffn(x: torch.Tensor, lp: dict, w8a8: bool) -> torch.Tensor:
+def _moe_router(x: torch.Tensor, lp: dict, cfg: LLMConfig):
+    """Top-k routing (JAX `_moe_router`, HF MixtralSparseMoeBlock): fp32
+    logits and softmax over all experts, the k largest kept and
+    renormalized. Ties go to the lower expert index, as in jax.lax.top_k:
+    a stable descending sort keeps equal weights in index order, which
+    torch.topk does not promise."""
+    probs = torch.softmax(torch.matmul(x.float(),
+                                       lp["router"]["kernel"].float()), -1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.num_experts_per_tok
+    topw, topi = topw[..., :k], topi[..., :k]
+    return topw / topw.sum(-1, keepdim=True), topi
+
+
+def _ffn_moe(x: torch.Tensor, lp: dict, cfg: LLMConfig) -> torch.Tensor:
+    """Mixtral sparse-MoE FFN (JAX `_ffn_moe`). "dense": every expert
+    computes every token and the unselected ones weigh 0 (HF's exact
+    semantics); "gather": capacity dispatch (`_ffn_moe_gather`); "auto":
+    gather from 64 tokens (B x S), dense below. The dense expert products
+    run one expert at a time, each expert's output weighted and summed in
+    fp32 and the sum rounded once to x's dtype, which bounds the
+    transients to one expert's [B, S, F] (JAX's einsums hold all E)."""
+    mode = cfg.moe_dispatch
+    if mode == "auto":
+        mode = "gather" if x.shape[0] * x.shape[1] >= 64 else "dense"
+    if mode == "gather":
+        return _ffn_moe_gather(x, lp, cfg)
+    topw, topi = _moe_router(x, lp, cfg)
+    weights = torch.zeros(x.shape[:-1] + (cfg.num_experts,),
+                          dtype=topw.dtype, device=x.device)
+    weights = weights.scatter_add(-1, topi, topw).to(x.dtype)  # [..., E]
+    out = None
+    for e in range(cfg.num_experts):
+        g = torch.matmul(x, lp["gate"]["kernel"][e].to(x.dtype))
+        u = torch.matmul(x, lp["up"]["kernel"][e].to(x.dtype))
+        y = torch.matmul(F.silu(g) * u, lp["down"]["kernel"][e].to(x.dtype))
+        y = y.float() * weights[..., e:e + 1].float()
+        out = y if out is None else out + y
+    return out.to(x.dtype)
+
+
+def _capacity_slots(flat_e: torch.Tensor, N: int, cfg: LLMConfig):
+    """(slot, keep, C) of the gather dispatch's pairs, flat_e [N * k]
+    their experts in token-major order: C the capacity an expert (JAX's
+    expression as it is, its float floor included), each pair's arrival
+    rank within its expert clamped to C - 1 (its slot) and whether that
+    rank is below C (kept)."""
+    E = cfg.num_experts
+    C = min(N, max(1, int(-(-N * cfg.num_experts_per_tok
+                            * cfg.moe_capacity_factor // E))))
+    oh = F.one_hot(flat_e, E)                              # [N * k, E]
+    pos_in_e = (torch.cumsum(oh, 0) * oh).amax(1) - 1      # arrival rank
+    return pos_in_e.clamp(0, C - 1), pos_in_e < C, C
+
+
+def _ffn_moe_gather(x: torch.Tensor, lp: dict, cfg: LLMConfig
+                    ) -> torch.Tensor:
+    """Capacity-based top-k dispatch (JAX `_ffn_moe_gather`): the N x k
+    (token, expert) pairs in token-major order take arrival ranks within
+    their expert; those ranked C or later are dropped; the kept tokens are
+    packed into [E, C, D], each expert's SwiGLU runs over its block (one
+    batched product a weight), and the outputs are added back to their
+    tokens weighted by the router."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    N = B * S
+    xt = x.reshape(N, D)
+    topw, topi = _moe_router(xt, lp, cfg)                  # [N, k]
+    flat_e = topi.reshape(-1)                              # [N * k]
+    flat_w = topw.reshape(-1)
+    flat_t = torch.arange(N, device=x.device).repeat_interleave(k)
+    slot, keep, C = _capacity_slots(flat_e, N, cfg)
+    contrib = torch.where(keep[:, None], xt[flat_t],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    buf = x.new_zeros((E, C, D)).index_put_((flat_e, slot), contrib,
+                                            accumulate=True)
+    g = torch.matmul(buf, lp["gate"]["kernel"].to(x.dtype))
+    u = torch.matmul(buf, lp["up"]["kernel"].to(x.dtype))
+    y = torch.matmul(F.silu(g) * u, lp["down"]["kernel"].to(x.dtype))
+    pair_out = y[flat_e, slot] * (flat_w * keep).to(x.dtype)[:, None]
+    return x.new_zeros((N, D)).index_add_(0, flat_t, pair_out).reshape(
+        B, S, D)
+
+
+def _ffn(cfg: LLMConfig, x: torch.Tensor, lp: dict,
+         w8a8: bool) -> torch.Tensor:
+    """The layer's FFN: the MoE FFN where cfg.is_moe, else the SwiGLU."""
+    if cfg.is_moe:
+        return _ffn_moe(x, lp, cfg)
     return dense(F.silu(dense(x, lp["gate"], w8a8)) * dense(x, lp["up"], w8a8),
                  lp["down"], w8a8)
 
@@ -236,7 +349,7 @@ def _layer(cfg: LLMConfig, x: torch.Tensor, lp: dict, cos: torch.Tensor,
                           window=cfg.sliding_window)
     x = x + dense(out.reshape(B, S, -1), lp["o"], w8a8)
     h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _ffn(h, lp, w8a8)
+    return x + _ffn(cfg, h, lp, w8a8)
 
 
 def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
@@ -252,7 +365,7 @@ def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
     body in jax.checkpoint: only each layer's input is kept, and the layer
     runs again in the backward. Returns the final-normed hidden [B, S, D].
     """
-    _check_supported(cfg)
+    check_supported(cfg, layers=params["layers"])
     if remat and cache is not None:
         raise ValueError("remat is for training: it takes no cache")
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
@@ -301,7 +414,8 @@ _PACKED = ("qkv", "o", "gate", "up", "down")
 def _packed_decode(layers: dict) -> Optional[int]:
     """The weight bits of the layered decode kernels: 8 when every
     projection is an int8 pack, 4 when every one is a folded int4 pack,
-    without LoRA (the JAX package's routing); None otherwise."""
+    without LoRA (the JAX package's routing); None otherwise. MoE never
+    takes them (decode_step; JAX models/llm.py:465)."""
     for bits, (pack, _) in PACKS.items():
         if all(pack in layers[n] and "lora" not in layers[n]
                for n in _PACKED):
@@ -326,8 +440,8 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     masked attention over the whole cache (an int8 cache is dequantized for
     it).
     """
-    _check_supported(cfg)
-    bits = _packed_decode(params["layers"])
+    check_supported(cfg, layers=params["layers"])
+    bits = None if cfg.is_moe else _packed_decode(params["layers"])
     if bits is not None:
         return _decode_step_q8(params, cfg, token_embeds, cache, valid_len,
                                prompt_len, step, w8a8, bits)
@@ -351,7 +465,7 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
         out = attn_ops.mha(q, k_read, v_read, mask=mask)
         x = x + dense(out.reshape(B, 1, H * hd), lp["o"], w8a8)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(h, lp, w8a8)
+        x = x + _ffn(cfg, h, lp, w8a8)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x[:, 0], w8a8), cache
 
@@ -386,7 +500,7 @@ def decode_verify(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     B * K <= 64 rows, JAX's quant_inference limit). token_embeds:
     [B, K, D]. Returns (logits [B, K, V] fp32, the cache written in place).
     """
-    _check_supported(cfg)
+    check_supported(cfg, layers=params["layers"])
     B, K, _ = token_embeds.shape
     M = cache.max_len
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -426,7 +540,7 @@ def decode_verify(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
         out = attn_ops.mha(q, k_read, v_read, mask=mask)
         x = x + dense(out.reshape(B, K, H * hd), lp["o"], w8a8)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(h, lp, w8a8)
+        x = x + _ffn(cfg, h, lp, w8a8)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x, w8a8), cache
 

@@ -53,19 +53,24 @@ class LoraConfig:
 def _entry_dims(entry: dict) -> Optional[Tuple[torch.Tensor, int, int, int]]:
     """(a weight tensor, L, in, out) of a stacked projection entry: a
     floating kernel, an int8 pack or a folded int4 pack (two input rows a
-    byte); None for any other entry."""
+    byte); None for any other entry. An MoE expert stack [L, E, in, out]
+    raises ValueError, as the JAX package's inject_lora does when it
+    unpacks the shape into (L, in, out)."""
     if "kernel" in entry:
         w = entry["kernel"]
-        L, d_in, d_out = w.shape
     elif "kernel_q8" in entry:
         w = entry["kernel_q8"]["q"]
-        L, d_in, d_out = w.shape
     elif "kernel_q4" in entry:
         w = entry["kernel_q4"]["q4"]
-        L, d_in, d_out = w.shape
-        d_in *= 2
     else:
         return None
+    if w.dim() != 3:
+        raise ValueError(f"LoRA adapts stacked [L, in, out] kernels; this "
+                         f"entry is {list(w.shape)} (an MoE expert stack "
+                         f"has no adapter layout)")
+    L, d_in, d_out = w.shape
+    if "kernel_q4" in entry:
+        d_in *= 2
     return w, L, d_in, d_out
 
 
@@ -137,7 +142,8 @@ def inject_lora(generator: torch.Generator, llm_params: dict,
                 "s": torch.full((L, 1, 1), cfg.scaling, device=w.device)}
 
     for name, entry in llm_params["layers"].items():
-        if not isinstance(entry, dict):
+        if not isinstance(entry, dict) or (name != "qkv"
+                                           and name not in cfg.targets):
             continue
         dims = _entry_dims(entry)
         if dims is None:
@@ -150,10 +156,8 @@ def inject_lora(generator: torch.Generator, llm_params: dict,
             lora = fuse_qkv_adapters(
                 {n: adapter(w, L, d_in, widths[n])
                  for n in QKV if n in cfg.targets}, widths)
-        elif name in cfg.targets:
-            lora = adapter(w, L, d_in, d_out)
         else:
-            continue
+            lora = adapter(w, L, d_in, d_out)
         if lora is not None:
             layers[name] = {**entry, "lora": lora}
     return {**llm_params, "layers": layers}

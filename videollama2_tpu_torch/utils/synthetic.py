@@ -25,6 +25,7 @@ import torch
 
 from ..constants import IGNORE_INDEX, VIDEO_TOKEN_INDEX
 from ..models import connector
+from ..models import llm as llm_lib
 from ..models import videollama2 as vl2
 from ..models import vit
 from ..multimodal.splice import plan_batch
@@ -70,7 +71,9 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
     embedding becomes an int8 pack with per-row scales (include_embed:
     bench.py quantizes it for BENCH_MODEL=qwen2, whose 152k-row table is
     1.1 GB in bf16). The audio-visual model's audio branch stays floating,
-    as the JAX package's quantizers leave it."""
+    as the JAX package's quantizers leave it. An MoE config takes no
+    llm_bits (models/llm.check_supported)."""
+    llm_lib.check_supported(cfg.llm, llm_bits)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     params = _build(vl2.param_shapes(cfg), (), dtype, torch.device(device),
