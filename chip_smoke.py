@@ -49,7 +49,16 @@ slice's weights plus a seeded bf16 audio branch: 16 audio-visual prompts
 audio-only ones twice, the BEATs encode timed, and first-token and decode
 logits held against the plain versions; its api calls load a checkpoint
 in the released VideoLLaMA2.1-AV layout (LLM cut to 8 layers) and answer
-through mm_infer (audio on a .wav, and av) and mm_infer_session. Last,
+through mm_infer (audio on a .wav, and av) and mm_infer_session. The
+"eval" phase runs the evaluation harness on the api phase's checkpoint in
+bf16: the MVBench inference script as `python -m` in a child process over a GIF
+task and a JPEG frame-directory task it writes (then the merge and the
+scorer's command line), the Video-MME inference script in this process (JSON
+question file, SRT subtitles, mm_infer_batch), run_batched over grouped
+videos, each record and answer held to a direct B 1 mm_infer's, and
+quant_accuracy.measure's six variants on the checkpoint's LLM (K3-K7 on
+the packed ones), printing its table as numbers of seeded random
+weights. Last,
 the stage-1 training slice (VideoLLaMA2-7B-8F pretrain:
 only the connector trains) runs two optimizer steps of 16 videos
 (grad_accum 2 x 8) at seq 2048 through Trainer.train, twice, with the
@@ -779,6 +788,37 @@ def check_against_plain(eng, cfg, frames, prompt, bucket, attn, k1,
     compare_logits(f"{label} first-token logits", fast, plain)
 
 
+def decode_kernels(k3, dk, bits) -> tuple:
+    """(module, wrapper, plain version) names of K3 and the int8 (bits 8)
+    K4/K5 or the int4 (bits 4) K6/K7."""
+    return ((k3, "decode_attention_layered", "decode_attention_plain"),) \
+        + tuple((dk, f"{k}_q{bits}_layered", f"{k}_q{bits}_layered_plain")
+                for k in ("matmul", "ffn"))
+
+
+def decode_launches(k3, dk, bits, run) -> tuple:
+    """run()'s result and the launches it added to decode_kernels'
+    wrappers: [K3, matmul, FFN]."""
+    kernels = [getattr(m, n) for m, n, _ in decode_kernels(k3, dk, bits)]
+    before = [k.launches for k in kernels]
+    out = run()
+    return out, [k.launches - b for k, b in zip(kernels, before)]
+
+
+@contextlib.contextmanager
+def plain_decode_kernels(k3, dk, bits):
+    """decode_kernels' wrappers swapped for their plain versions."""
+    names = decode_kernels(k3, dk, bits)
+    saved = [getattr(m, n) for m, n, _ in names]
+    for m, n, plain in names:
+        setattr(m, n, getattr(m, plain))
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
 def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
                                bits, fbank=None, tpm=None,
                                label=None) -> None:
@@ -816,25 +856,13 @@ def check_decode_against_plain(eng, cfg, frames, prompt, bucket, k3, dk,
                 out.append(logits)
         return torch.stack(out)
 
-    mm, ffn = f"matmul_q{bits}_layered", f"ffn_q{bits}_layered"
-    swaps = ((k3, "decode_attention_layered", k3.decode_attention_plain),
-             (dk, mm, getattr(dk, mm + "_plain")),
-             (dk, ffn, getattr(dk, ffn + "_plain")))
-    before = [getattr(m, n).launches for m, n, _ in swaps]
-    fast = decode_logits(cache)
-    added = [getattr(m, n).launches - b for (m, n, _), b in zip(swaps, before)]
+    fast, added = decode_launches(k3, dk, bits, lambda: decode_logits(cache))
     want = [DECODE_CHECK_STEPS * L, 2 * DECODE_CHECK_STEPS * L,
             DECODE_CHECK_STEPS * L]
     if added != want:
         raise RuntimeError(f"int{bits} decode launches {added} != {want}")
-    saved = [getattr(m, n) for m, n, _ in swaps]
-    for m, n, plain_fn in swaps:
-        setattr(m, n, plain_fn)
-    try:
+    with plain_decode_kernels(k3, dk, bits):
         plain = decode_logits(snapshot)
-    finally:
-        for (m, n, _), fn in zip(swaps, saved):
-            setattr(m, n, fn)
     torch.cuda.synchronize()
     compare_logits(f"{label or f'int{bits}'} decode logits, "
                    f"{DECODE_CHECK_STEPS} teacher-forced steps", fast, plain)
@@ -2756,10 +2784,11 @@ def tower_passes(cfg, frames: int) -> int:
     return 1 if frames <= chunk else frames // chunk
 
 
-def calls_launches(counters, cfg, calls) -> dict:
-    """Launch counts of recorded generate calls on the int8 slice: the
-    tower over each call's distinct media (one frame a row in image
-    mode), one prefill each, and K3-K5 for each decode step."""
+def calls_launches(counters, cfg, calls, packed=True) -> dict:
+    """Launch counts of recorded generate calls: the tower over each
+    call's distinct media (one frame a row in image mode), one prefill
+    each, and, on the int8 slice's packs, K3-K5 for each decode step
+    (bf16 weights decode on the plain attention: no decode kernel)."""
     L = cfg.llm.num_layers
     want = dict.fromkeys(counters, 0)
     for c in calls:
@@ -2768,6 +2797,8 @@ def calls_launches(counters, cfg, calls) -> dict:
             want["encoder_attention"] += vit_layers(cfg) * tower_passes(
                 cfg, frames)
         want["flash_attention"] += L
+        if not packed:
+            continue
         steps = len(c["outs"][0]) - 1
         want["decode_attention"] += steps * L
         want["matmul_q8_layered"] += 2 * steps * L
@@ -3711,6 +3742,563 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
     return counts
 
 
+# -- the "eval" phase: the evaluation harness on the api checkpoint ----------
+
+EVAL_FRAMES = (16, 240, 320)  # each written GIF and JPEG directory
+EVAL_GIFS = 4
+EVAL_FRAME_DIRS = 2
+EVAL_QUESTIONS = 2            # Video-MME questions a video (2 x Q prompts)
+EVAL_BATCH_QUESTIONS = 3      # run_batched: EVAL_GIFS videos x 3 questions
+EVAL_BATCH_PROMPTS = 8
+EVAL_BATCH_TOKENS = 16
+EVAL_QA = dict(prompts=4, steps=16, bucket=128)   # quant_accuracy.measure
+EVAL_TIMEOUT = 300
+
+
+class LetterTokenizer(ToyTokenizer):
+    """ToyTokenizer whose reply begins with an option letter: the first
+    kept id i decodes to "ABD"[i % 3] (the rest to w<id> words), so each
+    answer's letter follows from the model's first token and is never C,
+    the inference scripts' fallback ("C" on a failed MVBench call, an empty Video-MME
+    output read as C): a record holding C came from a fallback."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        kept = [i for i in ids if not (skip_special_tokens and i < 3)]
+        words = [f"w{i}" for i in kept]
+        if words:
+            words[0] = "ABD"[kept[0] % 3]
+        return " ".join(words)
+
+
+def letter_tokenizer(model_path):
+    """The eval inference scripts' --tokenizer factory: LetterTokenizer at the
+    vocabulary of the model directory's config.json."""
+    with open(os.path.join(model_path, "config.json")) as f:
+        return LetterTokenizer(json.load(f)["vocab_size"])
+
+
+def write_eval_media(root) -> dict:
+    """The phase's benchmark trees, written with the test writers: EVAL_GIFS
+    16-frame 240x320 GIFs and EVAL_FRAME_DIRS directories of 16 baseline
+    JPEG frames (the GPU host has no libavcodec); MVBench's layout with two
+    of its tasks, "Action Sequence" (video, start/end bounds) over the first
+    two GIFs and "Episodic Reasoning" (frame directories) over the JPEG
+    directories, four candidates each; a pre-grouped Video-MME question
+    file over the last two GIFs (EVAL_QUESTIONS questions each, the
+    published fields) with an SRT file each."""
+    from gif_writer import encode_rgb_gif
+    from jpeg_writer import encode_jpeg
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    T, H, W = EVAL_FRAMES
+    gifs = [encode_rgb_gif(smooth_frames(rng, T, H, W))
+            for _ in range(EVAL_GIFS)]
+    out = {"root": root, "gifs": []}
+    mvb = os.path.join(root, "mvbench")
+    out["mvbench_json"] = os.path.join(mvb, "json")
+    out["mvbench_video"] = os.path.join(mvb, "video")
+    os.makedirs(out["mvbench_json"])
+    star = os.path.join(out["mvbench_video"], "star", "Charades_v1_480")
+    tvqa = os.path.join(out["mvbench_video"], "tvqa", "frames_fps3_hq")
+    os.makedirs(star)
+    for i, data in enumerate(gifs):
+        path = os.path.join(root, f"e{i}.gif")
+        with open(path, "wb") as f:
+            f.write(data)
+        out["gifs"].append(path)
+    action, episodic = [], []
+    for i in range(2):
+        with open(os.path.join(star, f"clip{i}.gif"), "wb") as f:
+            f.write(gifs[i])
+        action.append({"video": f"clip{i}.gif",
+                       "question": f"What did the person do first {i} ?",
+                       "candidates": ["Opened the door.", "Sat down.",
+                                      "Jumped.", "Waved."],
+                       "answer": "Sat down.", "start": 0.0, "end": 0.5})
+        d = os.path.join(tvqa, f"scene{i}")
+        os.makedirs(d)
+        for t, px in enumerate(smooth_frames(rng, T, H, W)):
+            with open(os.path.join(d, f"{t:05d}.jpg"), "wb") as f:
+                f.write(encode_jpeg(px, 90, "4:2:0"))
+        episodic.append({"video": f"scene{i}",
+                         "question": f"Why does the man leave {i} ?",
+                         "candidates": ["He is late.", "He is angry.",
+                                        "He hears a knock.", "He is cold."],
+                         "answer": "He is late.", "start": 1.0, "end": 4.5})
+    for name, annos in (("action_sequence.json", action),
+                        ("episodic_reasoning.json", episodic)):
+        with open(os.path.join(out["mvbench_json"], name), "w") as f:
+            json.dump(annos, f)
+    vmme = os.path.join(root, "videomme")
+    out["videomme_video"] = os.path.join(vmme, "video")
+    out["videomme_subtitle"] = os.path.join(vmme, "subtitle")
+    os.makedirs(out["videomme_video"])
+    os.makedirs(out["videomme_subtitle"])
+    records = []
+    for v, data in enumerate(gifs[2:]):
+        ytid = f"evalvid{v:04d}"
+        with open(os.path.join(out["videomme_video"], f"{ytid}.gif"),
+                  "wb") as f:
+            f.write(data)
+        with open(os.path.join(out["videomme_subtitle"], f"{ytid}.srt"),
+                  "w") as f:
+            f.write(f"1\n00:00:00,000 --> 00:00:00,300\nA man walks in {v}."
+                    f"\n\n2\n00:00:00,300 --> 00:00:01,000\nHe sits down."
+                    "\n")
+        records.append({
+            "video_id": str(v + 1), "youtube_id": ytid,
+            "url": f"https://www.youtube.com/watch?v={ytid}",
+            "duration": "short", "domain": "Life Record",
+            "sub_category": "Daily Life",
+            "questions": [{
+                "question_id": f"{v + 1:03d}-{q + 1}",
+                "task_type": "Action Recognition",
+                "question": f"What does the man do ({v}, {q}) ?",
+                "choices": ["A. He walks.", "B. He sits.", "C. He runs.",
+                            "D. He sleeps."],
+                "answer": "B"} for q in range(EVAL_QUESTIONS)]})
+    out["videomme_questions"] = os.path.join(vmme, "questions.json")
+    with open(out["videomme_questions"], "w") as f:
+        json.dump(records, f)
+    out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+def eval_child(label, args, root) -> list:
+    """`python -m` a module in a child process from the repository root
+    (the tests/ writers and chip_smoke on its path, for the tokenizer
+    factory); returns its output lines, raising unless it exits 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo, os.path.join(repo, "tests")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-m"] + args, cwd=repo, env=env,
+                          capture_output=True, text=True,
+                          timeout=EVAL_TIMEOUT)
+    lines = (proc.stdout + proc.stderr).splitlines()
+    if proc.returncode != 0:
+        raise RuntimeError(f"[eval] {label}: exit code {proc.returncode}\n"
+                           + "\n".join(lines[-40:]))
+    return proc.stdout.splitlines()
+
+
+def quant_launches(counters, cfg, variant, prompts, steps) -> dict:
+    """Launch counts of a quant_accuracy.measure call over one variant:
+    the reference's prefills (one a prompt) and the variant's (teacher-
+    forced and free-running: two a prompt) on K2, and each of the
+    variant's decode steps on the layered kernels where its weights are
+    packed (K3 over its cache, K4/K5 for int8, K6/K7 for int4; floating
+    weights decode on the plain attention)."""
+    L = cfg.num_layers
+    want = dict.fromkeys(counters, 0)
+    want["flash_attention"] = 3 * prompts * L
+    if variant.weight_bits:
+        n = 2 * prompts * (steps - 1) * L
+        b = variant.weight_bits
+        want.update({"decode_attention": n, f"matmul_q{b}_layered": 2 * n,
+                     f"ffn_q{b}_layered": n})
+    return want
+
+
+def check_quant_against_plain(llm, cfg, prompt, k3, dk) -> dict:
+    """quant_accuracy's packed variants held against their plain versions
+    at the harness's own shapes (B 1, the variant's bf16 or int8 cache,
+    EVAL_QA's bucket and steps): one prompt's decode, teacher-forced on
+    the bf16 reference's greedy tokens as measure() forces it, runs once
+    through K3 and K4/K5 (int8) or K6/K7 (int4) and once with those three
+    swapped for their plain versions, under compare_logits' bounds.
+    Returns each variant's KL(ref || q) on both paths, so the harness's
+    drift is the quantization's and not a kernel's."""
+    from videollama2_tpu_torch.eval import quant_accuracy as qa
+
+    L = cfg.num_layers
+    run = dict(cfg=cfg, prompt=prompt, steps=EVAL_QA["steps"],
+               bucket=EVAL_QA["bucket"], max_len=256, dtype=torch.bfloat16,
+               device="cuda")
+    ref = qa.QuantVariant("reference")
+    ref_logits, ref_tokens = qa._decode_logits(
+        qa._prep_params(llm, ref, torch.bfloat16, "cuda"), variant=ref,
+        forced=None, **run)
+    out = {}
+    for variant in qa.DEFAULT_VARIANTS:
+        b = variant.weight_bits
+        if not b:
+            continue
+        params = qa._prep_params(llm, variant, torch.bfloat16, "cuda")
+        (fast, _), added = decode_launches(
+            k3, dk, b, lambda: qa._decode_logits(
+                params, variant=variant, forced=ref_tokens, **run))
+        n = (EVAL_QA["steps"] - 1) * L
+        if added != [n, 2 * n, n]:
+            raise RuntimeError(f"[eval] quant_accuracy {variant.name}: "
+                               f"launches {added} != {[n, 2 * n, n]}")
+        with plain_decode_kernels(k3, dk, b):
+            plain, _ = qa._decode_logits(params, variant=variant,
+                                         forced=ref_tokens, **run)
+        del params
+        # row 0 is the prefill's, the same on both paths
+        compare_logits(f"eval quant_accuracy {variant.name} decode, "
+                       f"{EVAL_QA['steps'] - 1} teacher-forced steps",
+                       torch.from_numpy(fast[1:]),
+                       torch.from_numpy(plain[1:]))
+        out[variant.name] = {
+            "kl_kernels": qa._kl(ref_logits, fast),
+            "kl_plain": qa._kl(ref_logits, plain),
+            "max_abs_diff": float(np.abs(fast[1:] - plain[1:]).max())}
+        log(f"[eval] quant_accuracy {variant.name}: KL(ref || q) "
+            f"{out[variant.name]['kl_kernels']:.4e} through the kernels, "
+            f"{out[variant.name]['kl_plain']:.4e} through their plain "
+            "versions")
+    return out
+
+
+def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
+    """The "eval" phase: the evaluation harness (videollama2_tpu_torch/eval)
+    on the api phase's checkpoint (the released 7B-16F layout, LLM cut to
+    API_LLM_LAYERS layers) in bf16, as the inference scripts load it (model_init's
+    defaults), with LetterTokenizer. (a) MVBench as
+    scripts/eval/eval_video_mcqa_mvbench.sh runs it: the inference script in a child
+    process over write_eval_media's tree (a GIF task and the JPEG "frame"
+    task), the merge and the scorer's command line; each record must equal
+    a direct B 1 mm_infer's letter here, with exact K1/K2 counts. (b)
+    Video-MME in this process (the JSON question file, SRT subtitles):
+    mm_infer_batch over 2 x Q prompts a video with exact counts, each
+    record's letters from those outputs, each output's tokens against a
+    direct B 1 mm_infer's under check_tokens. (c) run_batched over
+    EVAL_GIFS videos x EVAL_BATCH_QUESTIONS questions at batch_prompts
+    EVAL_BATCH_PROMPTS: grouped media, exact counts a call, first-token
+    logits within compare_logits' bounds of B 1 and tokens under
+    check_tokens. No record may hold an error, a missing video or the
+    fallback letter. (d) quant_accuracy.measure on the checkpoint's LLM
+    (bf16 reference, EVAL_QA), one call a variant with exact K2-K7
+    counts, then each packed variant's decode against the plain versions
+    of its kernels (check_quant_against_plain). Returns the phase's numbers and the launch counts of each
+    in-process call."""
+    from videollama2_tpu_torch.eval import batch_runner, common
+    from videollama2_tpu_torch.eval import inference_video_mcqa_mvbench as mvb
+    from videollama2_tpu_torch.eval import inference_video_mcqa_videomme as vm
+    from videollama2_tpu_torch.eval import quant_accuracy as qa
+    from videollama2_tpu_torch.inference import api
+    from videollama2_tpu_torch.media.preprocess import process_video
+    import videollama2_tpu_torch
+
+    cfg = api_config()
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    counts = {}
+    root = tempfile.mkdtemp()
+    try:
+        media = write_eval_media(root)
+        out["media_write_s"] = media["write_s"]
+        log(f"[eval] wrote {EVAL_GIFS} GIFs and {EVAL_FRAME_DIRS} JPEG "
+            f"directories ({EVAL_FRAMES[0]} frames {EVAL_FRAMES[1]}x"
+            f"{EVAL_FRAMES[2]}), an MVBench and a Video-MME tree in "
+            f"{media['write_s']:.1f} s")
+
+        # (a) MVBench: the inference script in a child process, then merge and score
+        answers = os.path.join(root, "mvbench_answers", "1_0.jsonl")
+        t0 = time.perf_counter()
+        eval_child("mvbench", [
+            "videollama2_tpu_torch.eval.inference_video_mcqa_mvbench",
+            "--model-path", ckpt, "--question-file", media["mvbench_json"],
+            "--video-folder", media["mvbench_video"],
+            "--answer-file", answers, "--num-chunks", "1", "--chunk-idx",
+            "0", "--tokenizer", "chip_smoke:letter_tokenizer"], root)
+        out["mvbench_process_s"] = time.perf_counter() - t0
+        merged = os.path.join(root, "mvbench_answers", "merge.json")
+        records = common.merge_chunks([answers], merged,
+                                      return_records=True)
+        scored = eval_child("mvbench scorer", [
+            "videollama2_tpu_torch.eval.eval_video_mcqa_mvbench",
+            "--pred_path", merged], root)
+        from videollama2_tpu_torch.eval.eval_video_mcqa_mvbench import score
+        out["mvbench_score"] = score(records)
+        if scored[0] != f"{merged}: {out['mvbench_score']['overall']}":
+            raise RuntimeError(f"[eval] mvbench scorer printed {scored}")
+        log(f"[eval] MVBench inference (child process, exit 0) "
+            f"{out['mvbench_process_s']:.1f} s: {len(records)} records, "
+            f"scorer {out['mvbench_score']}")
+        if len(records) != 4 or any("error" in r for r in records):
+            raise RuntimeError(f"[eval] mvbench records {records}")
+
+        t0 = time.perf_counter()
+        model, processor, tok = api.model_init(
+            ckpt, tokenizer=letter_tokenizer(ckpt))
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        log(f"[eval] model_init (bf16, the inference scripts' defaults): "
+            f"{out['load_s']:.2f} s")
+        rec = CallRecorder(model.engine)
+        model.engine = rec
+        want_b1 = phase_launches(counters, cfg, 1, True, 0, False)
+
+        with rec:
+            # the MVBench records against direct B 1 mm_infer calls
+            annos = {}
+            for task, (ann, subdir, _, has_se) in mvb.MVBENCH_TASKS.items():
+                path = os.path.join(media["mvbench_json"], ann)
+                if os.path.exists(path):
+                    with open(path) as f:
+                        annos[task] = (json.load(f), has_se)
+            for r in records:
+                task, j = r["index"].rsplit(":", 1)
+                item, has_se = annos[task][0][int(j)], annos[task][1]
+                tensor = process_video(
+                    r["vid"], cfg.vision,
+                    s=item.get("start") if has_se else None,
+                    e=item.get("end") if has_se else None,
+                    aspect_ratio=None, num_frames=cfg.num_frames)
+                resp, _, counts[f"mvbench {r['index']}"] = counted_call(
+                    f"eval mvbench {r['index']}", counters, want_b1,
+                    lambda cb: api.mm_infer(
+                        tensor, mvb.build_prompt(item["question"],
+                                                 item["candidates"]),
+                        model, tok, modal="video", max_new_tokens=64,
+                        stream_cb=cb))
+                letters = [chr(ord("A") + i)
+                           for i in range(len(item["candidates"]))]
+                pred = letters.index(common.extract_choice_letter(
+                    resp, item["candidates"], letters=letters))
+                if r["pred"] != pred or pred == 2:
+                    raise RuntimeError(
+                        f"[eval] mvbench {r['index']}: record pred "
+                        f"{r['pred']}, direct mm_infer {pred} ({resp[:40]!r})")
+            log(f"[eval] MVBench records equal direct B 1 mm_infer letters: "
+                f"{[r['pred'] for r in records]}")
+
+            # (b) Video-MME in this process
+            batches = []
+            batch_fn = api.mm_infer_batch
+
+            def mm_infer_batch(tensor, prompts, *a, **k):
+                for c in counters.values():
+                    c.launches = 0
+                rec.calls.clear()
+                t0 = time.perf_counter()
+                res = batch_fn(tensor, prompts, *a, **k)
+                torch.cuda.synchronize()
+                batches.append({
+                    "s": time.perf_counter() - t0,
+                    "tensor": tensor, "prompts": list(prompts),
+                    "outputs": res, "call": rec.calls[-1],
+                    "counts": {n: c.launches for n, c in counters.items()}})
+                return res
+
+            def model_init(path, tokenizer=None, device="cuda", **kw):
+                # the factory's class is chip_smoke.LetterTokenizer, this
+                # one's __main__'s when the script runs as a program
+                if path != ckpt or device != "cuda" or kw \
+                        or type(tokenizer).__name__ != "LetterTokenizer":
+                    raise RuntimeError(f"[eval] videomme model_init {path} "
+                                       f"{device} {kw} {tokenizer}")
+                return model, processor, tokenizer
+
+            vm_out = os.path.join(root, "videomme", "answers", "1_0.json")
+            saved = (api.mm_infer_batch, videollama2_tpu_torch.model_init,
+                     sys.argv)
+            api.mm_infer_batch = mm_infer_batch
+            videollama2_tpu_torch.model_init = model_init
+            sys.argv = ["inference_video_mcqa_videomme",
+                        "--model-path", ckpt,
+                        "--video-folder", media["videomme_video"],
+                        "--subtitle-folder", media["videomme_subtitle"],
+                        "--question-file", media["videomme_questions"],
+                        "--answer-file", vm_out,
+                        "--tokenizer", "chip_smoke:letter_tokenizer"]
+            t0 = time.perf_counter()
+            try:
+                vm.main()
+            finally:
+                (api.mm_infer_batch, videollama2_tpu_torch.model_init,
+                 sys.argv) = saved
+            out["videomme_s"] = time.perf_counter() - t0
+            vm_records = {}
+            for sub, path in ((False, vm_out),
+                              (True, vm_out.replace(".json", "_sub.json"))):
+                with open(path) as f:
+                    vm_records[sub] = [json.loads(line) for line in f]
+            if len(batches) != 2 or any(
+                    len(v) != 2 or any(r["missing"] for r in v)
+                    for v in vm_records.values()):
+                raise RuntimeError(f"[eval] videomme: {len(batches)} batch "
+                                   f"calls, records {vm_records}")
+            out["videomme"] = []
+            for v, b in enumerate(batches):
+                label = f"videomme video {v}"
+                want = calls_launches(counters, cfg, [b["call"]],
+                                      packed=False)
+                counts[label] = b["counts"]
+                log(f"[eval] {label}: mm_infer_batch over "
+                    f"{len(b['prompts'])} prompts, launches {b['counts']} "
+                    f"(want {want})")
+                if b["counts"] != want or not any(
+                        "subtitles are listed below:\nA man walks in"
+                        in p for p in b["prompts"]):
+                    raise RuntimeError(f"[eval] {label}: launches or "
+                                       "subtitles wrong")
+                b1 = []
+                for i, p in enumerate(b["prompts"]):
+                    rec.calls.clear()
+                    _, _, counts[f"{label} b1 {i}"] = counted_call(
+                        f"eval {label} b1 {i}", counters, want_b1,
+                        lambda cb: api.mm_infer(
+                            b["tensor"], p, model, tok, modal="video",
+                            do_sample=False, max_new_tokens=128,
+                            stream_cb=cb))
+                    b1.append(rec.calls[-1])
+                res = check_tokens(
+                    f"eval {label} batch vs B 1",
+                    [c["outs"][0] for c in b1], b["call"]["outs"],
+                    lambda r, p: b1[r]["picks"][p][0],
+                    lambda r, p: b["call"]["picks"][p][r])
+                if not res["ok"]:
+                    raise RuntimeError(f"[eval] {label}: tokens of the "
+                                       "batch differ from B 1 beyond a "
+                                       "near-tie")
+                flipped = {t["row"] for t in res["near_ties"]
+                           if t["position"] == 0}
+                for i, (output, p) in enumerate(zip(b["outputs"],
+                                                    b["prompts"])):
+                    q, with_sub = divmod(i, 2)
+                    record = vm_records[bool(with_sub)][v]
+                    choices = record["questions"][q]["choices"]
+                    options = [re.findall(r"[A-D]\. (.*).", c)[0]
+                               for c in choices]
+                    got = record["questions"][q]["response"]
+                    direct = vm.videomme_dump(record, p, options,
+                                              tok.decode(b1[i]["outs"][0]))
+                    if got == "C" or got != vm.videomme_dump(
+                            record, p, options, output) \
+                            or (got != direct and i not in flipped):
+                        raise RuntimeError(
+                            f"[eval] {label} prompt {i}: record {got}, "
+                            f"batch {output[:20]!r}, B 1 {direct}")
+                out["videomme"].append({
+                    "batch_prompts": len(b["prompts"]),
+                    "mm_infer_batch_s": b["s"],
+                    "vs_b1": res})
+            log(f"[eval] Video-MME (in process, {out['videomme_s']:.1f} s): "
+                f"responses "
+                f"{[[q['response'] for q in r['questions']] for v in vm_records.values() for r in v]}"
+                ", each equal to B 1 mm_infer's (or a near-tie of its "
+                "first token)")
+
+            # (c) run_batched: grouped media over EVAL_GIFS videos
+            items = [{"vid": f"e{i}", "path": p, "questions": [
+                f"what happens in clip {i} part {q} ?"
+                for q in range(EVAL_BATCH_QUESTIONS)]}
+                for i, p in enumerate(media["gifs"])]
+            results, frames_of = [], {}
+
+            def load_media(item):
+                frames_of[item["vid"]] = processor["video"](item["path"])
+                return frames_of[item["vid"]]
+
+            rec.calls.clear()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            batch_runner.run_batched(
+                model, tok, items, load_media,
+                lambda item: [({"q": q}, q) for q in item["questions"]],
+                lambda item, meta, text: results.append(
+                    (item["vid"], meta["q"], text)),
+                batch_prompts=EVAL_BATCH_PROMPTS,
+                max_new_tokens=EVAL_BATCH_TOKENS)
+            torch.cuda.synchronize()
+            out["run_batched_s"] = time.perf_counter() - t0
+            calls = list(rec.calls)
+            counts["run_batched"] = {n: c.launches
+                                     for n, c in counters.items()}
+            want = calls_launches(counters, cfg, calls, packed=False)
+            groups = [list(c["media_group"]) for c in calls]
+            log(f"[eval] run_batched {len(results)} answers in "
+                f"{out['run_batched_s']:.2f} s: {len(calls)} generate calls,"
+                f" media groups {groups}, launches {counts['run_batched']} "
+                f"(want {want})")
+            if counts["run_batched"] != want or len(results) != \
+                    EVAL_GIFS * EVAL_BATCH_QUESTIONS:
+                raise RuntimeError("[eval] run_batched: launches or "
+                                   "answers wrong")
+            rows = [(c, r) for c in calls for r in range(len(c["ids"]))]
+            b1 = []
+            for i, (c, r) in enumerate(rows):
+                vid = results[i][0]
+                rec.calls.clear()
+                counted_call(f"eval run_batched b1 {i}", counters,
+                             phase_launches(counters, cfg, 1, True, 0,
+                                            False),
+                             lambda cb: rec.generate(
+                                 [c["ids"][r]], frames=frames_of[vid][None],
+                                 gen=api.GenerationConfig(
+                                     max_new_tokens=EVAL_BATCH_TOKENS),
+                                 eos_token_id=tok.eos_token_id,
+                                 stream_cb=cb))
+                b1.append(rec.calls[-1])
+            compare_logits("eval run_batched first token vs B 1",
+                           torch.stack([c["picks"][0][r]
+                                        for c, r in rows]).float(),
+                           torch.stack([x["picks"][0][0]
+                                        for x in b1]).float())
+            out["run_batched_vs_b1"] = check_tokens(
+                "eval run_batched vs B 1", [x["outs"][0] for x in b1],
+                [c["outs"][r] for c, r in rows],
+                lambda b, p: b1[b]["picks"][p][0],
+                lambda b, p: rows[b][0]["picks"][p][rows[b][1]])
+            if not out["run_batched_vs_b1"]["ok"]:
+                raise RuntimeError("[eval] run_batched: tokens differ from "
+                                   "B 1 beyond a near-tie")
+            out["run_batched_groups"] = groups
+        model.engine = rec._engine
+        llm = model.engine.params["llm"]
+        del model, rec, processor
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) quant_accuracy.measure on the checkpoint's LLM, a variant a call
+        rng = np.random.default_rng(0)
+        prompts = [np.concatenate([[1], rng.integers(
+            4, cfg.llm.vocab_size - 1, rng.integers(8, EVAL_QA["bucket"]
+                                                     // 2))])
+            for _ in range(EVAL_QA["prompts"])]
+        table = {}
+        t0 = time.perf_counter()
+        for variant in qa.DEFAULT_VARIANTS:
+            want = quant_launches(counters, cfg.llm, variant, len(prompts),
+                                  EVAL_QA["steps"])
+            result, stats, counts[f"quant {variant.name}"] = counted_call(
+                f"eval quant_accuracy {variant.name}", counters, want,
+                lambda cb: qa.measure(
+                    llm, cfg.llm, prompts, variants=(variant,),
+                    steps=EVAL_QA["steps"], bucket=EVAL_QA["bucket"],
+                    max_len=256, dtype=torch.bfloat16, device="cuda"))
+            table.update(result)
+            table[variant.name]["call_s"] = stats["call_s"]
+        out["quant_accuracy_s"] = time.perf_counter() - t0
+        out["quant_vs_plain"] = check_quant_against_plain(
+            llm, cfg.llm, prompts[0], k3, dk)
+        del llm
+        for name, m in table.items():
+            if not (math.isfinite(m["kl"]) and m["kl"] >= 0):
+                raise RuntimeError(f"[eval] quant_accuracy {name}: {m}")
+        out["quant_accuracy"] = table
+        log(json.dumps({"quant_accuracy": {
+            "weights": "seeded random (api checkpoint: Mistral-7B widths, "
+                       f"{API_LLM_LAYERS} layers): structural numbers, "
+                       "not the accuracy of released weights",
+            "device": smi, "reference": "bf16 weights, bf16 cache",
+            **{k: v for k, v in EVAL_QA.items()}, "results": table,
+            "vs_plain": out["quant_vs_plain"]}}))
+        for line in qa.format_table(table).splitlines():
+            log(f"[eval] {line}")
+    finally:
+        shutil_rm(root)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[eval] phase {out['phase_s']:.1f} s")
+    return out, counts
+
+
 def _flat_shapes(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -4003,6 +4591,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+    # -- the "eval" phase: the evaluation harness on the api checkpoint -------
+    eval_stage, eval_counts = run_eval_phase(api_dir.name, counters, smi, k3,
+                                             dk)
+    slice_counts.update({f"eval {n}": c for n, c in eval_counts.items()})
+    eval_total = {n: sum(c[n] for c in eval_counts.values())
+                  for n in counters}
+    log(json.dumps({"eval": eval_stage}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     api_av_stage, api_av_counts = run_api_av_phase(
         api_av_dir.name, api_av_written, counters, attn, k1, k2, k3, dk)
     api_av_dir.cleanup()
@@ -4105,6 +4704,9 @@ def main() -> None:
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
                 "launches": launches, "max_abs_err": r["max_abs_err"],
+                "launches_eval": eval_total[
+                    "decode_attention" if name == "decode_attention_layered"
+                    else name],
                 **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
                 "cases": r["cases"], **extra}
@@ -4114,6 +4716,7 @@ def main() -> None:
                 "source": f"videollama2_tpu_torch/csrc/{source}",
                 "replaces": f"videollama2_tpu/ops/{replaces}",
                 "launches": want[name], "launches_lora_run": want_lora[name],
+                "launches_eval": eval_total[name],
                 "launches_train_entry": {r: c[name] for r, c in
                                          entry_counts.items()},
                 **train_kernels[key], **extra}
@@ -4125,7 +4728,8 @@ def main() -> None:
     lse = train_kernels["flash_attention +lse"]
     # launches: each kernel's count in the run of the first slice whose
     # path runs it (K10: its own path; matmul_q8 is on no path: 0, checked
-    # in every slice); launches_by_slice: every serving slice's counts
+    # in every slice); launches_by_slice: every serving slice's counts;
+    # launches_eval: its launches over the eval phase's in-process calls
     kernels = [
         entry("encoder_attention", "encoder_attention.cu",
               "encoder_attention.py:230",

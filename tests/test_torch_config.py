@@ -27,6 +27,7 @@ from videollama2_tpu.media import audio as jaudio
 from videollama2_tpu.media import wire as jwire
 from videollama2_tpu.multimodal import tokenizer as jtok
 from videollama2_tpu.utils import logging as jlogging
+from videollama2_tpu.utils import misc as jmisc
 from videollama2_tpu_torch import constants as tconst
 from videollama2_tpu_torch.core import config as tcfg
 from videollama2_tpu_torch.inference import speculative as tspec
@@ -35,6 +36,7 @@ from videollama2_tpu_torch.media import wire as twire
 from videollama2_tpu_torch.multimodal import tokenizer as ttok
 from videollama2_tpu_torch.media.prefetch import prefetch_map
 from videollama2_tpu_torch.utils import logging as tlogging
+from videollama2_tpu_torch.utils import misc as tmisc
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -210,7 +212,9 @@ def test_speculative_drafts_and_acceptance(seed):
 @pytest.mark.parametrize("rel", [
     "media/sampler.py", "media/prefetch.py", "media/csrc/video_decoder.cc",
     "serve/controller.py", "serve/register_worker.py",
-    "serve/test_message.py"])
+    "serve/test_message.py", "multimodal/conversation.py", "eval/common.py",
+    "eval/gpt_judge.py", "eval/eval_video_mcqa_mvbench.py",
+    "eval/eval_video_mcqa_videomme.py", "eval/batch_runner.py"])
 def test_copied_files_are_byte_identical(rel):
     """These files import nothing of JAX; the port keeps its own copies
     (their relative imports resolve in the port's package)."""
@@ -222,6 +226,15 @@ def test_copied_files_are_byte_identical(rel):
 def test_logging_helpers(name):
     assert inspect.getsource(getattr(tlogging, name)) == \
         inspect.getsource(getattr(jlogging, name))
+
+
+@pytest.mark.parametrize("name", ["violates_moderation", "KeywordsStopper"])
+def test_misc_helpers(name):
+    """utils/misc.py's moderation hook and keyword stopper, without the
+    JAX package's apply_platform_env (a TPU platform workaround)."""
+    assert inspect.getsource(getattr(tmisc, name)) == \
+        inspect.getsource(getattr(jmisc, name))
+    assert not hasattr(tmisc, "apply_platform_env")
 
 
 def test_prefetch_order_errors_and_empty():

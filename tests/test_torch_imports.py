@@ -1,5 +1,6 @@
-"""The PyTorch port, chip_smoke.py and the port's profile scripts
-(scripts/profile_torch_*.py) import no jax and nothing of the JAX package,
+"""The PyTorch port, chip_smoke.py, the port's profile scripts
+(scripts/profile_torch_*.py) and scripts/quant_accuracy_torch.py import no
+jax and nothing of the JAX package,
 and none of the libraries the GPU host lacks (PIL, imageio, transformers,
 safetensors, tokenizers), not even in a function:
 the port keeps its own copies of the host modules it needs (held equal to
@@ -70,7 +71,8 @@ def _closure():
     function does); in a JAX package module, should one be reached, only
     the imports that run at import time do."""
     todo = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("profile_torch_*.py")))
+            + sorted((ROOT / "scripts").glob("profile_torch_*.py"))
+            + [ROOT / "scripts" / "quant_accuracy_torch.py"])
     seen = {}
     while todo:
         path = todo.pop()
@@ -113,7 +115,18 @@ def test_port_reaches_no_jax():
                  "serve/web_server.py", "serve/cli.py",
                  "serve/register_worker.py", "serve/test_message.py",
                  "train/train.py", "train/data.py",
-                 "checkpoint/train_state.py"):
+                 "checkpoint/train_state.py", "multimodal/conversation.py",
+                 "utils/misc.py", "eval/common.py", "eval/gpt_judge.py",
+                 "eval/batch_runner.py", "eval/quant_accuracy.py",
+                 "eval/eval_video_mcqa_mvbench.py",
+                 "eval/eval_video_mcqa_videomme.py",
+                 "eval/inference_video_mcqa_mvbench.py",
+                 "eval/inference_video_mcqa_egoschema.py",
+                 "eval/inference_video_mcqa_perception_test_mcqa.py",
+                 "eval/inference_video_mcqa_videomme.py",
+                 "eval/inference_video_oqa_activitynet.py",
+                 "eval/inference_video_oqa_vcgpt.py",
+                 "eval/inference_video_cap_msvc.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     # chip_smoke's serve phase writes its media with the test writers

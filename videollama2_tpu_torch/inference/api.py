@@ -160,6 +160,16 @@ def load_tokenizer(spec: Optional[str], model_path: str):
     return factory(model_path)
 
 
+def add_model_flags(ap) -> None:
+    """The two flags every command line of the port adds to the JAX
+    package's: `--tokenizer`, a factory for load_tokenizer, and `--device`
+    (cuda by default), both for model_init."""
+    ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
+                    help="tokenizer factory, called with the model path "
+                         "(the port imports no tokenizer library)")
+    ap.add_argument("--device", default="cuda")
+
+
 def _quantize_on_device(params: dict, device, bits: int,
                         vision: bool) -> None:
     """The JAX model_init's load_8bit / load_4bit packs, made on `device`:

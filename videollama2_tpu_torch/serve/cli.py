@@ -13,12 +13,11 @@ import argparse
 
 
 def main():
+    from ..inference.api import add_model_flags
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-path", required=True)
-    ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
-                    help="tokenizer factory, called with the model path "
-                         "(the port imports no tokenizer library)")
-    ap.add_argument("--device", default="cuda")
+    add_model_flags(ap)
     ap.add_argument("--image-file", default=None)
     ap.add_argument("--video-file", default=None)
     ap.add_argument("--temperature", type=float, default=0.2)

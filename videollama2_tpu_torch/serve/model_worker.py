@@ -376,10 +376,7 @@ def main():
     ap.add_argument("--controller-address", default="http://localhost:10000")
     ap.add_argument("--model-path", required=True)
     ap.add_argument("--model-name", default=None)
-    ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
-                    help="tokenizer factory, called with the model path "
-                         "(the port imports no tokenizer library)")
-    ap.add_argument("--device", default="cuda")
+    api_lib.add_model_flags(ap)
     ap.add_argument("--limit-model-concurrency", type=int, default=5)
     ap.add_argument("--no-register", action="store_true")
     ap.add_argument("--num-frames", type=int, default=None)

@@ -189,10 +189,7 @@ def main():
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--model-path", required=True)
     ap.add_argument("--model-name", default=None)
-    ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
-                    help="tokenizer factory, called with the model path "
-                         "(the port imports no tokenizer library)")
-    ap.add_argument("--device", default="cuda")
+    api_lib.add_model_flags(ap)
     ap.add_argument("--dynamic-batch", action="store_true",
                     help="continuous batching across concurrent requests")
     ap.add_argument("--wire", default="i420", choices=("i420", "rgb"),

@@ -246,10 +246,7 @@ def main():
     ap.add_argument("--model-name", default=None)
     ap.add_argument("--model-path", default=None,
                     help="serve a model in-process (adhoc mode)")
-    ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
-                    help="adhoc mode's tokenizer factory, called with the "
-                         "model path")
-    ap.add_argument("--device", default="cuda")
+    api_lib.add_model_flags(ap)
     ap.add_argument("--wire", default="i420", choices=("i420", "rgb"),
                     help="host->device frame wire (media/wire.py)")
     args = ap.parse_args()

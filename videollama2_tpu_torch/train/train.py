@@ -61,6 +61,8 @@ def parse_bool(x: str) -> bool:
 
 
 def build_argparser() -> argparse.ArgumentParser:
+    from ..inference.api import add_model_flags
+
     ap = argparse.ArgumentParser()
     # ModelArguments (train.py:70-84)
     ap.add_argument("--model_type", default="videollama2_mistral")
@@ -112,10 +114,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh_seq", type=int, default=1,
                     help="Ulysses sequence-parallel degree (long context)")
     # the port's own
-    ap.add_argument("--tokenizer", default=None,
-                    help="module:callable returning the tokenizer, called "
-                         "with --model_path")
-    ap.add_argument("--device", default="cuda")
+    add_model_flags(ap)
     return ap
 
 
