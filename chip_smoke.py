@@ -73,6 +73,18 @@ attention), reads the QLoRA adapters' split save back bit for bit, serves
 the unmerged QLoRA tree (the packed decode kernels at 0), and loads a
 LoRA directory over the api phase's checkpoint through model_init, its
 int8 packs held bit-equal to an independent quantize(base + a @ b * s).
+Then the "parallel" phase (parallel/: the mesh, the rule table, the
+sharded step, Trainer and Engine) starts a one-rank NCCL group in this
+process and runs a stage-2 Trainer step (Mistral-7B, 8 of 32 LLM layers,
+2 videos of 8 frames at seq 2048) and a greedy generate (2 videos of 16
+frames) without a mesh and on the world-1 mesh, held bit-equal (loss,
+every trained tensor and fp32 master, tokens, first-token logits) with
+exact K1 / K2 / K8 / K9 counts, then K1, K2 with its LSE, K8 and K9 at
+the shapes a rank gets under tensor 2 and 4 (Mistral-7B and Qwen2-7B)
+and Ulysses seq 2 against their plain versions; with two cards or more
+it also runs an fsdp 2 step and a tensor 2 generate on two NCCL ranks
+against the world-1 results (scripts/profile_torch_parallel.py runs that
+part alone, on 2 and 4 cards).
 The "train entry" phase runs first, right after the build and the
 writing of the api phases' checkpoints, so that this process holds no
 more than its CUDA context while it runs: `python -m
@@ -922,21 +934,22 @@ def check_no_spills(report: dict, kernels) -> None:
     log(f"[ptxas] no spills in the D 128 instances of {', '.join(kernels)}")
 
 
-def check_training_attention(gen, k2) -> dict:
+def check_training_attention(gen, k2, B=TRAIN_B, S=TRAIN_S, H=32, K=8,
+                             min_valid=TRAIN_MIN_VALID, tag="") -> dict:
     """K2 with its LSE, K8 and K9 at the training slice's shape (q
     [8, 2048, 32, 128], k/v [8, 2048, 8, 128] bf16, causal, valid_len
-    spread over 1400-2048) against their plain versions on the fp32 values
-    (the same o and lse feed both backward versions), with CUDA-event
-    times, bounds and the torch SDPA forward and backward as yardsticks."""
+    spread over 1400-2048; the "parallel" phase passes a rank's shapes)
+    against their plain versions on the fp32 values (the same o and lse
+    feed both backward versions), with CUDA-event times, bounds and the
+    torch SDPA forward and backward as yardsticks."""
     F = torch.nn.functional
-    B, S = TRAIN_B, TRAIN_S
-    q = rand_bf16(gen, (B, S, 32, 128))
-    k, v = rand_bf16(gen, (B, S, 8, 128)), rand_bf16(gen, (B, S, 8, 128))
-    do = rand_bf16(gen, (B, S, 32, 128))
-    valid = torch.tensor(np.linspace(TRAIN_MIN_VALID, S, B).round(),
+    q = rand_bf16(gen, (B, S, H, 128))
+    k, v = rand_bf16(gen, (B, S, K, 128)), rand_bf16(gen, (B, S, K, 128))
+    do = rand_bf16(gen, (B, S, H, 128))
+    valid = torch.tensor(np.linspace(min_valid, S, B).round(),
                          dtype=torch.int32, device="cuda")
-    label = f"q[{B},{S},32,128] kv[{B},{S},8,128] causal, valid_len " \
-        f"{valid.tolist()}"
+    label = f"{tag}q[{B},{S},{H},128] kv[{B},{S},{K},128] causal, " \
+        f"valid_len {valid.tolist()}"
     qf, kf, vf = q.float(), k.float(), v.float()
     out = {}
 
@@ -952,7 +965,7 @@ def check_training_attention(gen, k2) -> dict:
                 raise RuntimeError(f"{name}: max_abs_err {e} > {b}")
         out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "library_ms": library_ms}
+                     "library_ms": library_ms, "case": label}
 
     def err(got, ref, tol):
         return ((got.float() - ref.float()).abs().max().item(),
@@ -1467,10 +1480,10 @@ def compare_moe_dispatch(eng, frames, prompt, bucket) -> dict:
     args = _plan_args(cfg, frames, prompt, eng.device, bucket)
     captured, moe = [], llm_lib._ffn_moe
 
-    def first_input(x, lp, c):
+    def first_input(x, lp, c, *plan):
         if not captured:
             captured.append(x.clone())
-        return moe(x, lp, c)
+        return moe(x, lp, c, *plan)
     llm_lib._ffn_moe = first_input
     try:
         cache = llm_lib.init_cache(cfg.llm, B, bucket, torch.bfloat16,
@@ -3196,8 +3209,8 @@ step_lib.loss_fn = timed_part(step_lib.loss_fn, "forward_s")
 opt_lib.GroupedAdamW.step = timed_part(opt_lib.GroupedAdamW.step,
                                        "optimizer_s")
 make = step_lib.make_train_step
-def make_timed(cfg, tx, trainable, grad_accum=1):
-    inner = make(cfg, tx, trainable, grad_accum=grad_accum)
+def make_timed(cfg, tx, trainable, grad_accum=1, **mesh):
+    inner = make(cfg, tx, trainable, grad_accum=grad_accum, **mesh)
     rep["trained"] = sorted("/".join(p) for p, t in trainable.items() if t)
     def step(state, batch):
         if "first" not in rep:
@@ -4320,6 +4333,413 @@ def urllib_post(url, payload, timeout=60):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
+# ---------------------------------------------------------------------------
+# The "parallel" phase: parallel/ (mesh, rule table, sharded step, Trainer
+# and Engine) at full width, and K1, K2, K8 and K9 at the shapes a rank
+# gets under tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+PAR_LAYERS = 8          # Mistral-7B at full width, 8 of its 32 LLM layers
+PAR_TRAIN_B = 2         # one microbatch: 2 videos of 8 frames, seq TRAIN_S
+PAR_GEN_B, PAR_GEN_TOKENS = 2, 16
+PAR_TIMEOUT = 600
+# a multi-card step against one card's on the same batch: the loss, each
+# trained leaf's Adam first moment (the clipped, summed gradient) by its
+# relative L2 distance, and its fp32 update by the cosine of the two
+# updates (Adam's first step is +-lr an element, so a gradient that keeps
+# its sign keeps the update); each on a strided sample of PAR_SAMPLE
+# elements a leaf. The limits stand above the readings of fsdp 2 and 4 on
+# H100s (PERF.md §6, PR 19: losses 2.2e-5 / 8.5e-5 apart, first moments
+# 3.8e-2 at most, update cosines 0.941 at least: bf16 rounding at another
+# batch split) and below what a lost gradient sum or a misplaced shard
+# gives (a first moment 0.3 or more apart, an update cosine near 0)
+PAR_LOSS_REL_TOL = 1e-3
+PAR_GRAD_REL_TOL = 0.1
+PAR_UPDATE_COS_MIN = 0.9
+PAR_SAMPLE = 1 << 18
+# (label, B, S, query heads, kv heads) a rank computes: tensor 2 and 4 of
+# Mistral-7B (32 / 8 heads) and Qwen2-7B (28 / 4), and Ulysses seq 2 of a
+# 4096-token Mistral-7B sequence (every token, half the heads)
+PAR_TRAIN_SHAPES = (("Mistral-7B tensor 2", 2, TRAIN_S, 16, 4),
+                    ("Mistral-7B tensor 4", 2, TRAIN_S, 8, 2),
+                    ("Qwen2-7B tensor 2", 2, TRAIN_S, 14, 2),
+                    ("Qwen2-7B tensor 4", 2, TRAIN_S, 7, 1),
+                    ("Mistral-7B seq 2 of 4096", 1, 4096, 16, 4))
+
+
+def parallel_config(cfglib):
+    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=8)
+    return cfg.replace(llm=dataclasses.replace(cfg.llm,
+                                               num_layers=PAR_LAYERS))
+
+
+def _sample(t: torch.Tensor) -> torch.Tensor:
+    """A fixed strided sample of a leaf's elements, fp32 on the host."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // PAR_SAMPLE)].float().cpu()
+
+
+def parallel_train_step(cfg, batch, counters, device, **mesh) -> dict:
+    """One Trainer step of stage 2's mask (the LLM and the connector
+    trained, bf16 with fp32 masters) from the seed-0 params, on a mesh of
+    the given degrees when a process group is up (`batch` is the global
+    batch): loss, launches, the trained tensors and their masters as they
+    end (this rank's shards), and `samples`: for each trained leaf, whole
+    (gathered on every rank), the _sample of its start, its Adam first
+    moment and its master."""
+    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                       entry_of, flatten,
+                                                       trainable_mask)
+    from videollama2_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    params = synthetic_params(cfg, dtype=torch.bfloat16, device=device,
+                              seed=0)
+    ocfg = OptimizerConfig(learning_rate=1e-4, warmup_ratio=0.0)
+    mask = trainable_mask(params, ocfg)
+    init = {p: _sample(t) for p, t in flatten(params).items() if mask[p]}
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(cfg, params, ocfg, TrainerConfig(
+            output_dir=out_dir, per_device_batch_size=PAR_TRAIN_B,
+            max_steps=1, log_steps=1, save_steps=10 ** 9,
+            compute_dtype="bfloat16", **mesh), device=device)
+        inner, got = trainer.step_fn, {}
+
+        def step(state, b, *a):
+            state, m = inner(state, b, *a)
+            got.update(loss=float(m["loss"]), num_tokens=int(m["num_tokens"]))
+            return state, m
+        trainer.step_fn = step
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with state_saves({}, write=False):
+            trainer.train(iter([batch]))
+        torch.cuda.synchronize()
+        got["step_s"] = time.perf_counter() - t0
+    got["launches"] = {n: fn.launches for n, fn in counters.items()}
+    state = trainer.state
+    flat = flatten(state.params)
+    got["trained"] = {p: t.detach() for p, t in flat.items() if mask[p]}
+    got["masters"] = dict(state.opt_state["master"])
+    got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def whole(p, t):
+        if trainer.layout is None:
+            return t
+        return trainer.layout.unshard("/".join(p), t,
+                                      entry_of(state.params, p))
+    got["samples"] = {p: {"init": init[p],
+                          "mu": _sample(whole(p, state.opt_state["mu"][p])),
+                          "master": _sample(whole(p, got["masters"][p]))}
+                      for p in init}
+    return got
+
+
+def compare_step(label, got, ref) -> dict:
+    """Hold a sharded step to the unsharded one on the same batch (both
+    parallel_train_step's): the loss, and each trained leaf's Adam first
+    moment and fp32 update from their samples, under PAR_LOSS_REL_TOL,
+    PAR_GRAD_REL_TOL and PAR_UPDATE_COS_MIN. Logs and returns the
+    readings, with what is past a limit under "failed"."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel, cos = {}, {}
+    for p, r in ref["samples"].items():
+        g = got["samples"][p]
+        name = "/".join(p)
+        grad_rel[name] = ((g["mu"] - r["mu"]).norm()
+                          / r["mu"].norm().clamp_min(1e-30)).item()
+        d1, d2 = r["master"] - r["init"], g["master"] - g["init"]
+        n1, n2 = d1.norm().item(), d2.norm().item()
+        cos[name] = 1.0 if n1 == n2 == 0 else (
+            (d1 @ d2).item() / max(n1 * n2, 1e-30))
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_c = min(cos, key=cos.get)
+    rec = {"loss": got["loss"], "unsharded_loss": ref["loss"],
+           "loss_rel_diff": loss_rel, "leaves": len(grad_rel),
+           "grad_rel_l2_max": grad_rel[worst_g], "grad_rel_l2_worst": worst_g,
+           "grad_rel_l2_median": float(np.median(list(grad_rel.values()))),
+           "update_cos_min": cos[worst_c], "update_cos_worst": worst_c,
+           "grad_rel_l2": grad_rel, "update_cos": cos}
+    log(f"[parallel] {label} step against the unsharded one: loss "
+        f"{got['loss']:.6f} / {ref['loss']:.6f} (relative {loss_rel:.2e}, "
+        f"limit {PAR_LOSS_REL_TOL:.0e}); {len(grad_rel)} trained leaves: "
+        f"Adam first moment relative L2 max {grad_rel[worst_g]:.3e} "
+        f"({worst_g}), median {rec['grad_rel_l2_median']:.3e} (limit "
+        f"{PAR_GRAD_REL_TOL:.0e}); update cosine min {cos[worst_c]:.6f} "
+        f"({worst_c}; limit {PAR_UPDATE_COS_MIN})")
+    bad = [f"loss {loss_rel:.2e}"] if loss_rel > PAR_LOSS_REL_TOL else []
+    bad += [f"{n} first moment {v:.3e}" for n, v in grad_rel.items()
+            if not v <= PAR_GRAD_REL_TOL]
+    bad += [f"{n} update cosine {v:.6f}" for n, v in cos.items()
+            if not v >= PAR_UPDATE_COS_MIN]
+    rec["failed"] = (f"parallel {label} step differs from the unsharded "
+                     f"one: {'; '.join(bad[:8])}") if bad else None
+    return rec
+
+
+def parallel_generate(cfg, frames, prompt, bucket, counters, mesh=None):
+    """A greedy generate of PAR_GEN_TOKENS tokens for the videos, on an
+    Engine over the seed-0 params, sharded over `mesh` when given: (the
+    tokens, the launches, the first token's logits from a second prefill
+    of the same prompts)."""
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.models import llm as llm_lib
+    from videollama2_tpu_torch.parallel import sharding as sh
+    from videollama2_tpu_torch.utils.synthetic import synthetic_params
+    kw = dict(dtype=torch.bfloat16, max_len=bucket + PAR_GEN_TOKENS,
+              buckets=(bucket,), decode_chunk=PAR_GEN_TOKENS)
+    if mesh is None:
+        eng = Engine(cfg, synthetic_params(cfg, dtype=torch.bfloat16,
+                                           device="cuda", seed=0), **kw)
+    else:
+        with mesh:
+            eng = Engine(cfg, synthetic_params(cfg, dtype=torch.bfloat16,
+                                               device="cuda", seed=0),
+                         shard_fn=lambda p: sh.shard_params(mesh, p, cfg),
+                         **kw)
+    for fn in counters.values():
+        fn.launches = 0
+    out = eng.generate([prompt] * len(frames), frames=eng.upload_frames(
+        frames), gen=GenerationConfig(max_new_tokens=PAR_GEN_TOKENS),
+        eos_token_id=-1)
+    counts = {n: fn.launches for n, fn in counters.items()}
+    with sh.use_mesh(eng.mesh), torch.inference_mode():
+        cache = llm_lib.init_cache(eng.cache_cfg, len(frames), eng.max_len,
+                                   eng.dtype, device=eng.device)
+        last, _ = _prefill(eng, cfg, _plan_args(cfg, frames, prompt,
+                                                eng.device, bucket), cache)
+        logits = llm_lib.lm_logits(eng.params["llm"], cfg.llm, last)
+    return out, counts, logits.float().cpu()
+
+
+def parallel_rank(rank, world, store_dir, result_path) -> None:
+    """A rank of the multi-device part (spawned, one card each): an fsdp 2
+    Trainer step and a tensor 2 Engine generate."""
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.parallel import mesh as mesh_lib
+    from videollama2_tpu_torch.utils.synthetic import synthetic_train_batch
+    import torch.distributed as dist
+    device = mesh_lib.init_distributed(
+        "cuda", store=dist.FileStore(os.path.join(store_dir, "store"),
+                                     world), rank=rank, world_size=world)
+    cfg = parallel_config(cfglib)
+    batch = synthetic_train_batch(cfg, np.random.default_rng(3),
+                                  max(PAR_TRAIN_B, world), TRAIN_S,
+                                  TRAIN_MIN_VALID)
+    got = parallel_train_step(cfg, batch, kernel_counters(), device,
+                              mesh_fsdp=world)
+    gcfg = cfg.replace(num_frames=16)
+    frames, prompt, bucket = slice_inputs(gcfg, PAR_GEN_B)
+    tokens, _, logits = parallel_generate(
+        gcfg, frames, prompt, bucket, kernel_counters(),
+        mesh_lib.make_mesh(fsdp=1, tensor=world))
+    if rank == 0:
+        torch.save({"loss": got["loss"], "samples": got["samples"],
+                    "tokens": tokens, "logits": logits}, result_path)
+    dist.destroy_process_group()
+
+
+def run_parallel_phase(counters, k1, k2, gen) -> tuple:
+    """The "parallel" phase. World 1: a one-rank NCCL group in this
+    process, a stage-2 Trainer step and a greedy generate at full width
+    (Mistral-7B, 8 LLM layers) without a mesh and on the world-1 mesh
+    (parallel/: rule table, shards, gathers, the sharded step's loss and
+    gradient reductions, shard_fn), held bit-equal (the loss, every
+    trained tensor and fp32 master, the tokens and first-token logits),
+    with exact K1 / K2 / K8 / K9 counts; then K1, K2 (with and without its
+    LSE), K8 and K9 at a rank's shapes under tensor 2 and 4 and Ulysses seq
+    2 against their plain versions; with two devices or more, an fsdp 2
+    step (compare_step) and a tensor 2 generate (compare_logits) on two
+    ranks held to the unsharded results. Returns (the phase's record, its
+    kernel rows, the sharded runs' launches)."""
+    import torch.distributed as dist
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.parallel import mesh as mesh_lib
+    from videollama2_tpu_torch.utils.synthetic import synthetic_train_batch
+    t_phase = time.perf_counter()
+    cfg = parallel_config(cfglib)
+    L = cfg.llm.num_layers
+    batch = synthetic_train_batch(cfg, np.random.default_rng(3), PAR_TRAIN_B,
+                                  TRAIN_S, TRAIN_MIN_VALID)
+    rec = {}
+    # stage 2's step: without a mesh, then on the world-1 mesh
+    torch.cuda.reset_peak_memory_stats()
+    plain = parallel_train_step(cfg, batch, counters, "cuda")
+    plain_step = {"loss": plain["loss"], "samples": plain.pop("samples")}
+    plain_trained = {p: t.cpu() for p, t in plain.pop("trained").items()}
+    plain_masters = {p: t.cpu() for p, t in plain.pop("masters").items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = mesh_lib.init_distributed("cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mesh_kw = dict(mesh_data=1, mesh_fsdp=1, mesh_tensor=1, mesh_seq=1)
+        sharded = parallel_train_step(cfg, batch, counters, device,
+                                      **mesh_kw)
+        per_mb = {"encoder_attention": vit_layers(cfg)
+                  * max(PAR_TRAIN_B * cfg.num_frames // 128, 1),
+                  "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                  "flash_attention_bwd_dkv": L}
+        want = dict.fromkeys(counters, 0)
+        want.update(per_mb)
+        for label, run in (("unsharded", plain), ("world-1 mesh", sharded)):
+            log(f"[parallel] stage-2 Trainer step ({label}): loss "
+                f"{run['loss']:.6f}, {run['num_tokens']} supervised tokens, "
+                f"{run['step_s']:.2f} s, peak {run['peak_gb']:.1f} GB; "
+                f"launches {run['launches']}")
+            if run["launches"] != want:
+                raise RuntimeError(f"parallel {label} step: launches "
+                                   f"{run['launches']} != {want}")
+        diffs = {}
+        for p, t in sharded["trained"].items():
+            a, b = t.cpu(), plain_trained[p]
+            if not torch.equal(a, b):
+                diffs["/".join(p)] = (a.float() - b.float()).abs().max().item()
+        master_diffs = [p for p, t in sharded["masters"].items()
+                        if not torch.equal(t.cpu(), plain_masters[p])]
+        bit_equal = not diffs and not master_diffs \
+            and sharded["loss"] == plain["loss"]
+        log(f"[parallel] world-1 mesh vs unsharded: loss {sharded['loss']!r}"
+            f" vs {plain['loss']!r}; {len(plain_trained)} trained tensors "
+            f"and {len(plain_masters)} fp32 masters: "
+            + ("bit-equal" if bit_equal else
+               f"{len(diffs)} tensors differ (max "
+               f"{max(diffs.values(), default=0):.3e}), "
+               f"{len(master_diffs)} masters differ"))
+        if not bit_equal:
+            raise RuntimeError(
+                f"parallel: the world-1 sharded step is not bit-equal to "
+                f"the unsharded one (loss {sharded['loss']!r} vs "
+                f"{plain['loss']!r}; tensors {sorted(diffs)[:5]}, masters "
+                f"{['/'.join(p) for p in master_diffs[:5]]})")
+        rec["train"] = {"loss": sharded["loss"], "unsharded_loss":
+                        plain["loss"], "bit_equal": bit_equal,
+                        "step_s": sharded["step_s"],
+                        "unsharded_step_s": plain["step_s"],
+                        "peak_gb": sharded["peak_gb"],
+                        "launches": sharded["launches"]}
+        del sharded, plain, plain_trained, plain_masters
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the sharded Engine (shard_fn) at world 1 against the plain Engine
+        gcfg = cfg.replace(num_frames=16)
+        frames, prompt, bucket = slice_inputs(gcfg, PAR_GEN_B)
+        plain_tokens, _, plain_logits = parallel_generate(
+            gcfg, frames, prompt, bucket, counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_lib.make_mesh(fsdp=1)
+        tokens, gen_counts, logits = parallel_generate(
+            gcfg, frames, prompt, bucket, counters, mesh)
+        want_gen = dict.fromkeys(counters, 0)
+        want_gen.update(encoder_attention=vit_layers(gcfg) * max(
+            PAR_GEN_B * gcfg.num_frames // 128, 1), flash_attention=L)
+        log(f"[parallel] sharded Engine (world 1): launches {gen_counts}; "
+            f"tokens {'equal' if tokens == plain_tokens else 'DIFFER'} to "
+            f"the unsharded Engine's ({PAR_GEN_B} x {PAR_GEN_TOKENS}, first "
+            f"row {tokens[0][:8]}...)")
+        if gen_counts != want_gen:
+            raise RuntimeError(f"parallel generate: launches {gen_counts} "
+                               f"!= {want_gen}")
+        if tokens != plain_tokens or not torch.equal(logits, plain_logits):
+            raise RuntimeError("parallel: the world-1 sharded Engine's "
+                               "tokens or first-token logits differ from "
+                               "the unsharded Engine's")
+        log("[parallel] world-1 first-token logits bit-equal to the "
+            "unsharded Engine's")
+        rec["generate"] = {"tokens_equal": True, "logits_bit_equal": True,
+                           "launches": gen_counts}
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = {n: rec["train"]["launches"][n] + rec["generate"]["launches"][n]
+                for n in counters}
+
+    # K1, K2, K8 and K9 at a rank's shapes
+    rows = {}
+    clip_s, sig_s = 577, 729
+    tower = []
+    for tp in (2, 4):
+        for label, N, S, D in (("CLIP", 64, clip_s, 64),
+                               ("SigLIP", 128, sig_s, 72)):
+            qkv = tuple(rand_bf16(gen, (N, S, 16 // tp, D))
+                        for _ in range(3))
+            F = torch.nn.functional
+            sq, sk, sv, _ = sdpa_args(*qkv, None, False)
+            tower.append((f"{label} tensor {tp}: [{N},{S},{16 // tp},{D}]",
+                          (qkv, {}), (tuple(t.float() for t in qkv), {}),
+                          lambda f, qkv=qkv: (lambda: f(*qkv)),
+                          (attention_bound(qkv[0], qkv[1], None, False, 2,
+                                           qkv[0].nbytes),
+                           lambda sq=sq, sk=sk, sv=sv:
+                           F.scaled_dot_product_attention(sq, sk, sv))))
+    rows["encoder_attention"] = check_kernel(
+        "encoder_attention", k1.encoder_attention, k1.encoder_attention_plain,
+        tower, K1_TOL)
+    del tower
+    torch.cuda.empty_cache()
+    train_rows = {"flash_attention +lse": [], "flash_attention_bwd_dq": [],
+                  "flash_attention_bwd_dkv": []}
+    for label, B, S, H, K in PAR_TRAIN_SHAPES:
+        got = check_training_attention(gen, k2, B=B, S=S, H=H, K=K,
+                                       min_valid=S * 2 // 3,
+                                       tag=f"{label}: ")
+        for name, row in got.items():
+            train_rows[name].append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, r in train_rows.items():
+        rows[name] = {"max_abs_err": max(x["max_abs_err"] for x in r),
+                      "cases": r}
+    rec["kernels_s"] = time.perf_counter() - t_phase
+
+    # two ranks, one card each
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        log(f"[parallel] the multi-device part (fsdp 2 step, tensor 2 "
+            f"generate on 2 NCCL ranks) needs 2 devices; found {n_dev}")
+        rec["two_ranks"] = f"not run: needs 2 devices, found {n_dev}"
+    else:
+        import torch.multiprocessing as mp
+        with tempfile.TemporaryDirectory() as d:
+            result = os.path.join(d, "result.pt")
+            ctx = mp.get_context("spawn")
+            procs = [ctx.Process(target=parallel_rank,
+                                 args=(r, 2, d, result)) for r in range(2)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(PAR_TIMEOUT)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            if any(p.exitcode != 0 for p in procs):
+                raise RuntimeError(f"parallel: two-rank part failed "
+                                   f"({[p.exitcode for p in procs]})")
+            two = torch.load(result)
+        agree = [next((i for i, (a, b) in enumerate(zip(r2, r1)) if a != b),
+                      len(r1)) for r2, r1 in zip(two["tokens"], plain_tokens)]
+        log(f"[parallel] 2 ranks: tensor 2 tokens agree with the "
+            f"unsharded Engine's for the first {agree} of "
+            f"{PAR_GEN_TOKENS} a row")
+        # tensor parallelism sums the o and down projections in another
+        # order: the first-token logits move by rounding, and greedy
+        # tokens may part at near-ties after it
+        compare_logits("parallel tensor 2 first token", two["logits"],
+                       plain_logits)
+        step = compare_step("fsdp 2", two, plain_step)
+        if step["failed"]:
+            raise RuntimeError(step["failed"])
+        rec["two_ranks"] = {"fsdp_2_step": step, "tokens_agree": agree}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase {rec['phase_s']:.1f} s")
+    return rec, rows, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4692,6 +5112,13 @@ def main() -> None:
     slice_counts.update({f"train entry {n}": c
                          for n, c in entry_counts.items()})
 
+    # -- the "parallel" phase: the mesh, the sharded step and Engine -------
+    torch.cuda.reset_peak_memory_stats()
+    par, par_rows, par_launches = run_parallel_phase(counters, k1, k2, gen)
+    log(json.dumps({"parallel": par}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def by_slice(name):
         return {s: c[name] for s, c in slice_counts.items()}
 
@@ -4779,6 +5206,29 @@ def main() -> None:
         train_entry("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
                     "flash_attention_dkv.cu", "flash_attention.py:383",
                     ptxas=registers("flash_bwd_dkv_kernel"))]
+    for name, row, source, replaces in (
+            ("encoder_attention", "encoder_attention", "encoder_attention.cu",
+             "encoder_attention.py:230"),
+            ("flash_attention", "flash_attention +lse", "flash_attention.cu",
+             "flash_attention.py:179"),
+            ("flash_attention_bwd_dq", "flash_attention_bwd_dq",
+             "flash_attention_bwd.cu", "flash_attention.py:352"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
+             "flash_attention_dkv.cu", "flash_attention.py:383")):
+        r = par_rows[row]
+        first = r["cases"][0]
+        kernels.append({
+            "name": f"{name} (parallel phase: a rank's shapes)",
+            "route": "cuda", "source": f"videollama2_tpu_torch/csrc/{source}",
+            "replaces": f"videollama2_tpu/ops/{replaces}",
+            "launches": par_launches[name],
+            "launches_parallel": {"train step": par["train"]["launches"][name],
+                                  "generate": par["generate"]["launches"][
+                                      name]},
+            "max_abs_err": r["max_abs_err"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "cases": r["cases"]})
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

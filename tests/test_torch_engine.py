@@ -201,7 +201,9 @@ def test_unported_options_raise(tiny):
         eng.generate([[1, 2]], frames=_videos(cfg, "rgb"), media_group=[2])
     with pytest.raises(ValueError):     # as the JAX Engine: 8 or 16 only
         Engine(cfg, tp, dtype=torch.float32, kv_bits=4, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="under its mesh"):
+        # a sharded Engine is built under its mesh (tests/
+        # test_torch_parallel.py serves on one)
         Engine(cfg, tp, dtype=torch.float32, device="cpu",
                shard_fn=lambda p: p)
 

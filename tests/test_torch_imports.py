@@ -126,7 +126,9 @@ def test_port_reaches_no_jax():
                  "eval/inference_video_mcqa_videomme.py",
                  "eval/inference_video_oqa_activitynet.py",
                  "eval/inference_video_oqa_vcgpt.py",
-                 "eval/inference_video_cap_msvc.py"):
+                 "eval/inference_video_cap_msvc.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     # chip_smoke's serve phase writes its media with the test writers

@@ -756,8 +756,11 @@ def test_vision_tower_flag_loads_the_directory(ckpt, corpus, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--mesh_data", "--mesh_tensor",
                                   "--mesh_seq", "--mesh_fsdp"])
-def test_mesh_degrees_above_one_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+def test_mesh_degrees_above_one_raise(flag, tmp_path, monkeypatch):
+    """Without torchrun (no process group) a degree above one raises,
+    naming the launch (tests/test_torch_parallel.py runs it)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         ttrain.main(["--model_path", str(tmp_path), "--data_path", "a.json",
                      "--output_dir", str(tmp_path), flag, "2",
                      "--device", "cpu"])

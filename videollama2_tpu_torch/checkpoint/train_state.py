@@ -14,6 +14,13 @@ template's tensors (their device and dtype); the Adam moments go
 to the template's device and keep their saved dtype, which the optimizer's
 dtype promotion may have widened past the fresh state's (optimizer.py), so
 a resumed run continues bit for bit.
+
+Under a mesh (a parallel/sharding.Layout) the state holds shards: a save
+gathers one leaf at a time to the mesh's first rank, which writes the same
+file an unsharded run writes (no rank holds more than one whole leaf on
+its card), and a restore takes each rank's shard of every saved leaf. So a
+state saved on one mesh resumes on any other, or on none, as JAX's orbax
+restore re-pins to any mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import tempfile
 from typing import Optional
 
 import torch
+
+from ..parallel.sharding import walk
 
 STATE_FILE = "state.pt"
 
@@ -46,20 +55,45 @@ def _flat(tree: dict, prefix=()) -> dict:
     return out
 
 
-def save_train_state(directory: str, state, max_to_keep: int = 3) -> str:
+def _entries(tree: dict) -> dict:
+    """{"a/b/leaf": the dict holding the leaf}."""
+    return {path: entry for path, entry, _, _ in walk(tree)}
+
+
+def save_train_state(directory: str, state, max_to_keep: int = 3,
+                     layout=None) -> Optional[str]:
     """Write `state` (a train/step.TrainState) as step state.step; returns
-    the step's directory."""
-    os.makedirs(directory, exist_ok=True)
+    the step's directory. With a layout every rank of the mesh calls it
+    and the first writes (the others return None)."""
     step = int(state.step)
+    entries = _entries(state.params)
+
+    def whole(tensors: dict) -> dict:
+        if layout is None:
+            return tensors
+        out = {}
+        for k, t in tensors.items():
+            full = layout.unshard(k, t, entries[k])
+            if layout.mesh.is_main:
+                out[k] = full.cpu()
+        return out
+
     payload = {
         "step": step,
-        "params": {k: t.detach() for k, t in _flat(state.params).items()},
+        "params": whole({k: t.detach()
+                         for k, t in _flat(state.params).items()}),
         "count": dict(state.opt_state["count"]),
-        "mu": {"/".join(p): t for p, t in state.opt_state["mu"].items()},
-        "nu": {"/".join(p): t for p, t in state.opt_state["nu"].items()},
-        "master": {"/".join(p): t for p, t in
-                   state.opt_state.get("master", {}).items()},
+        "mu": whole({"/".join(p): t
+                     for p, t in state.opt_state["mu"].items()}),
+        "nu": whole({"/".join(p): t
+                     for p, t in state.opt_state["nu"].items()}),
+        "master": whole({"/".join(p): t for p, t in
+                         state.opt_state.get("master", {}).items()}),
     }
+    if layout is not None and not layout.mesh.is_main:
+        layout.barrier()
+        return None
+    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, str(step))
     tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=directory)
     try:
@@ -72,6 +106,8 @@ def save_train_state(directory: str, state, max_to_keep: int = 3) -> str:
             shutil.rmtree(tmp)
     for old in _steps(directory)[:-max_to_keep]:
         shutil.rmtree(os.path.join(directory, str(old)))
+    if layout is not None:
+        layout.barrier()
     return final
 
 
@@ -81,9 +117,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore_train_state(directory: str, template, step: Optional[int] = None):
+def restore_train_state(directory: str, template, step: Optional[int] = None,
+                        layout=None):
     """Restore step `step` (the latest when None) into `template` (a
-    TrainState of the same params and optimizer groups) and return it."""
+    TrainState of the same params and optimizer groups; with a layout, of
+    this rank's shards) and return it."""
     if step is None:
         step = latest_step(directory)
     if step is None:
@@ -91,12 +129,16 @@ def restore_train_state(directory: str, template, step: Optional[int] = None):
     saved = torch.load(os.path.join(directory, str(step), STATE_FILE),
                        map_location="cpu", weights_only=True, mmap=True)
     params = _flat(template.params)
+    entries = _entries(template.params)
+
+    def mine(k: str, t: torch.Tensor) -> torch.Tensor:
+        return t if layout is None else layout.shard(k, t, entries[k])
     if set(saved["params"]) != set(params):
         raise ValueError(f"step {step} in {directory} holds other params "
                          "than the run's: "
                          f"{sorted(set(saved['params']) ^ set(params))[:5]}")
     for k, t in params.items():
-        src = saved["params"][k]
+        src = mine(k, saved["params"][k])
         if tuple(src.shape) != tuple(t.shape):
             raise ValueError(f"{k}: saved {tuple(src.shape)}, the run's "
                              f"{tuple(t.shape)}")
@@ -109,8 +151,9 @@ def restore_train_state(directory: str, template, step: Optional[int] = None):
     opt["count"] = {g: int(c) for g, c in saved["count"].items()}
     for moment in ("mu", "nu"):
         for p, t in opt[moment].items():
-            opt[moment][p] = saved[moment]["/".join(p)].to(t.device,
-                                                            copy=True)
+            k = "/".join(p)
+            opt[moment][p] = mine(k, saved[moment][k]).to(t.device,
+                                                          copy=True)
     masters = opt.get("master", {})
     saved_masters = saved.get("master", {})
     if set(saved_masters) != {"/".join(p) for p in masters}:
@@ -118,6 +161,7 @@ def restore_train_state(directory: str, template, step: Optional[int] = None):
                          f"{sorted(saved_masters)[:5]}, the run keeps them "
                          f"of {sorted('/'.join(p) for p in masters)[:5]}")
     for p, t in masters.items():
-        t.copy_(saved_masters["/".join(p)])
+        k = "/".join(p)
+        t.copy_(mine(k, saved_masters[k]))
     template.step = int(saved["step"])
     return template

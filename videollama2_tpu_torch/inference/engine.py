@@ -22,7 +22,16 @@ distinct media once each for B >= G prompts (the dynamic batcher's grouped
 vision). Every mode runs the connector one media at a time
 (models/videollama2.aggregate_each), so a media's tokens do not depend on
 what it is batched with. The entry points run one call at a time (`_one_at_a_time`).
-Sharding raises NotImplementedError until its port.
+
+Sharded serving (JAX's `shard_fn`): an Engine built under a mesh (`with
+mesh:`, parallel/mesh.py) with shard_fn, typically `lambda p:
+sharding.shard_params(mesh, p, cfg)`, keeps this rank's shards: floating
+weights tensor- and fsdp-sharded, weight packs replicated. Every rank of
+the mesh makes the same calls with the same inputs; the layers gather
+their fsdp shards as they run and compute on the rank's heads and columns
+(models/llm.py), the KV cache holds the rank's kv heads, and the head's
+logits are gathered whole on every rank, so every rank emits the same
+tokens, those of the unsharded Engine.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..models import llm as llm_lib
 from ..models import videollama2 as vl2
 from ..multimodal import splice as splice_lib
 from ..ops import quant as quant_lib
+from ..parallel import sharding as sh
 from . import sampling
 from . import speculative as spec
 
@@ -104,7 +114,7 @@ def _one_at_a_time(method):
     and callers queue on the lock."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        with self._lock:
+        with self._lock, sh.use_mesh(self.mesh):
             return method(self, *args, **kwargs)
     return run
 
@@ -130,8 +140,12 @@ class Engine:
                  device="cuda", shard_fn: Optional[Callable] = None):
         if kv_bits not in (8, 16):
             raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
+        self.mesh = None
         if shard_fn is not None:
-            raise NotImplementedError("sharded engines are not ported yet")
+            self.mesh = sh.current_mesh()
+            if self.mesh is None:
+                raise ValueError("a sharded Engine is built under its mesh "
+                                 "(`with mesh: Engine(..., shard_fn=...)`)")
         if cfg.llm.is_moe and cfg.llm.moe_dispatch == "auto":
             # the JAX Engine's rule: serving runs the exact dense dispatch,
             # since every real prefill passes the auto rule's 64 tokens and
@@ -151,10 +165,22 @@ class Engine:
         self.buckets = tuple(b for b in buckets if b <= max_len)
         self.decode_chunk = decode_chunk
         self.device = check_device(device)
-        params = _prepare(params, dtype, self.device)
+        # fused and sharded where the caller's tree lies (for a sharded
+        # Engine the host, so only this rank's shards reach its card), then
+        # cast and moved; the cast commutes with the packs' concatenation
         if "llm" in params:
             params = dict(params, llm=quant_lib.fuse_qkv(params["llm"]))
+        if shard_fn is not None:
+            with self.mesh:
+                params = shard_fn(params)
+        params = _prepare(params, dtype, self.device)
         self.params = params
+        # the cache holds the rank's kv heads under tensor parallelism
+        self.cache_cfg = cfg.llm
+        if "llm" in params:
+            with sh.use_mesh(self.mesh):
+                self.cache_cfg = llm_lib.plan_and_config(params["llm"],
+                                                         cfg.llm)[1]
         self._lock = threading.Lock()
 
     # -- frames --------------------------------------------------------------
@@ -263,8 +289,9 @@ class Engine:
         vis_index = dev(plan.vis_index, torch.int32)
         valid_len = dev(plan.valid_len, torch.int32)
         positions = dev(plan.positions, torch.int32)
-        cache = llm_lib.init_cache(cfg.llm, B, self.max_len, self.dtype,
-                                   kv_bits=self.kv_bits, device=self.device)
+        cache = llm_lib.init_cache(self.cache_cfg, B, self.max_len,
+                                   self.dtype, kv_bits=self.kv_bits,
+                                   device=self.device)
         params = self.params
         if mode == "text":
             embeds = llm_lib.embed_tokens(params["llm"], text_ids, self.dtype)

@@ -5,7 +5,9 @@ RegStage of SE-bottlenecks (LayerNorm2d eps 1e-6, SiLU) -> Conv3d
 downsampler (kernel = stride = downsample; padding 1 for stc_connector, 0
 for v35) + SiLU -> RegStage -> readout MLP with exact GELU. Channels-last
 throughout, as in the JAX package. The other projector types are not ported
-yet.
+yet. Under a mesh the connector's shards (1x1 convs, sampler, readout:
+parallel/sharding's rules) are all gathered before it runs, and it runs
+whole on each rank.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ..core.config import ConnectorConfig
 
 from ..ops.conv import conv2d, conv3d
 from ..ops.layers import gelu_exact, layer_norm
+from ..parallel import sharding as sh
 
 LN2D_EPS = 1e-6  # timm LayerNorm2d default
 STC_TYPES = ("stc_connector", "stc_connector_v35")
@@ -101,11 +104,25 @@ def _mlp(x: torch.Tensor, mp: dict) -> torch.Tensor:
     return x
 
 
+class _Gathered(dict):
+    """A connector tree gathered already (aggregate_each gathers once for
+    its calls)."""
+
+
+def gather(params: dict) -> dict:
+    """The connector's params whole on every rank of the current mesh (the
+    identity without one, or on a tree gathered already)."""
+    if isinstance(params, _Gathered):
+        return params
+    return _Gathered(sh.gather_tree(sh.current_mesh(), params, "connector"))
+
+
 def apply(params: dict, cfg: ConnectorConfig, x: torch.Tensor) -> torch.Tensor:
     """x: [B, T, N, D] per-frame features -> [B, tokens, hidden]."""
     if cfg.projector_type not in STC_TYPES:
         raise NotImplementedError(
             f"projector {cfg.projector_type!r} is not ported yet")
+    params = gather(params)
     b, t, n, d = x.shape
     hw = int(round(n ** 0.5))
     x = x.reshape(b * t, hw, hw, d)

@@ -23,10 +23,20 @@ An int8 embedding is embed.weight_q8 {q int8 [V, D], scale [V, 1]}.
 Any projection entry may carry a LoRA adapter ("lora", train/lora.py),
 which dense applies; decode then takes the generic path, since the
 layered kernels read the base packs alone.
+
+Under a mesh (parallel/sharding: the entry points read the current mesh
+and pass its `Plan` down) the tree holds this rank's shards: each layer's
+fsdp shards are gathered just before it runs (ZeRO-3), qkv and gate/up run
+column-parallel on the rank's heads and columns, o and down row-parallel
+followed by an all-reduce over `tensor`, the Mixtral FFN on the rank's
+experts summed over `expert`, and under sequence parallelism each rank
+runs its tokens, attention on all tokens and its heads (Ulysses). The
+head is vocab-parallel: local logits all-gathered over `tensor`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -41,6 +51,7 @@ from ..ops import decode_matmul as dk
 from ..ops.layers import (apply_rope, dense, layer_params, rms_norm,
                           rope_table, unbind_layers)
 from ..ops.quant import PACKS, kernel_shapes
+from ..parallel import sharding as sh
 
 
 @dataclass
@@ -200,7 +211,7 @@ def embed_tokens(params: dict, token_ids: torch.Tensor,
     per-row scales) gathers only the looked-up int8 rows and their scales
     and multiplies them in fp32 before the cast (JAX `embed_tokens`; fp32
     when dtype is None)."""
-    emb = params["embed"]
+    emb = sh.gather_tree(sh.current_mesh(), params["embed"], "llm/embed")
     if "weight_q8" in emb:
         pack = emb["weight_q8"]
         rows = F.embedding(token_ids, pack["q"]).float()
@@ -219,9 +230,14 @@ def lm_logits(params: dict, cfg: LLMConfig, hidden: torch.Tensor,
     an int8 head goes through dense (w8a8 selects its branch) and its
     output in the hidden dtype is widened, as in the JAX head. With tied
     embeddings the head is the embedding's transpose (an int8 embedding
-    dequantized in fp32 first) on the floating branch."""
+    dequantized in fp32 first) on the floating branch. Under a mesh a
+    floating head is vocab-parallel: the rank's [D, V / tensor] columns
+    (fsdp shards gathered) give its logits, all-gathered over `tensor`
+    into the whole vocabulary on every rank (a tied head is the gathered
+    embedding)."""
+    mesh = sh.current_mesh()
     if cfg.tie_word_embeddings:
-        emb = params["embed"]
+        emb = sh.gather_tree(mesh, params["embed"], "llm/embed")
         if "weight_q8" in emb:
             pack = emb["weight_q8"]
             kernel = (pack["q"].float() * pack["scale"].float()).T
@@ -231,8 +247,31 @@ def lm_logits(params: dict, cfg: LLMConfig, hidden: torch.Tensor,
         head = params["lm_head"]
         if "kernel_q8" in head:
             return dense(hidden, head, w8a8).float()
+        head = sh.gather_tree(mesh, head, "llm/lm_head", keep=("tensor",))
         kernel = head["kernel"]
+        if mesh is not None and mesh.shape["tensor"] > 1:
+            x = sh.copy_to(hidden, mesh, ("tensor",))
+            out = torch.matmul(x.float(), kernel.to(hidden.dtype).float())
+            return sh.gather(out, out.dim() - 1, mesh, ("tensor",),
+                             {"tensor": False})
     return torch.matmul(hidden.float(), kernel.to(hidden.dtype).float())
+
+
+def _local_cfg(cfg: LLMConfig, plan: Optional[sh.Plan]) -> LLMConfig:
+    """cfg with the head counts of one tensor rank (plan.tp > 1)."""
+    if plan is None or plan.tp == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // plan.tp,
+        num_kv_heads=sh.local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
+                                       plan.tp))
+
+
+def plan_and_config(params: dict, cfg: LLMConfig):
+    """(Plan on the current mesh or None, cfg with the rank's heads)."""
+    plan = sh.plan_for(params["layers"], cfg.num_heads, cfg.num_kv_heads,
+                       cfg.is_moe)
+    return plan, _local_cfg(cfg, plan)
 
 
 def _split_qkv(cfg: LLMConfig, qkv: torch.Tensor):
@@ -257,30 +296,41 @@ def _moe_router(x: torch.Tensor, lp: dict, cfg: LLMConfig):
     return topw / topw.sum(-1, keepdim=True), topi
 
 
-def _ffn_moe(x: torch.Tensor, lp: dict, cfg: LLMConfig) -> torch.Tensor:
+def _ffn_moe(x: torch.Tensor, lp: dict, cfg: LLMConfig,
+             plan: Optional[sh.Plan] = None) -> torch.Tensor:
     """Mixtral sparse-MoE FFN (JAX `_ffn_moe`). "dense": every expert
     computes every token and the unselected ones weigh 0 (HF's exact
     semantics); "gather": capacity dispatch (`_ffn_moe_gather`); "auto":
     gather from 64 tokens (B x S), dense below. The dense expert products
     run one expert at a time, each expert's output weighted and summed in
     fp32 and the sum rounded once to x's dtype, which bounds the
-    transients to one expert's [B, S, F] (JAX's einsums hold all E)."""
+    transients to one expert's [B, S, F] (JAX's einsums hold all E).
+
+    Under a plan a rank runs its E / expert experts (on its F / tensor
+    columns) over every token: the router runs whole on each rank, x and
+    the routing weights enter through Megatron's f and the fp32 partial sum
+    is all-reduced over tensor and expert before the rounding."""
     mode = cfg.moe_dispatch
     if mode == "auto":
         mode = "gather" if x.shape[0] * x.shape[1] >= 64 else "dense"
     if mode == "gather":
-        return _ffn_moe_gather(x, lp, cfg)
+        return _ffn_moe_gather(x, lp, cfg, plan)
     topw, topi = _moe_router(x, lp, cfg)
     weights = torch.zeros(x.shape[:-1] + (cfg.num_experts,),
                           dtype=topw.dtype, device=x.device)
     weights = weights.scatter_add(-1, topi, topw).to(x.dtype)  # [..., E]
+    xe, weights = sh.enter(plan, x, True), sh.enter(plan, weights, True)
+    e0 = 0 if plan is None else plan.first_expert(cfg.num_experts)
     out = None
-    for e in range(cfg.num_experts):
-        g = torch.matmul(x, lp["gate"]["kernel"][e].to(x.dtype))
-        u = torch.matmul(x, lp["up"]["kernel"][e].to(x.dtype))
-        y = torch.matmul(F.silu(g) * u, lp["down"]["kernel"][e].to(x.dtype))
+    for j in range(lp["gate"]["kernel"].shape[0]):
+        e = e0 + j
+        g = torch.matmul(xe, lp["gate"]["kernel"][j].to(x.dtype))
+        u = torch.matmul(xe, lp["up"]["kernel"][j].to(x.dtype))
+        y = torch.matmul(F.silu(g) * u, lp["down"]["kernel"][j].to(x.dtype))
         y = y.float() * weights[..., e:e + 1].float()
         out = y if out is None else out + y
+    if plan is not None and plan.parallel(True):
+        out = plan.exit(out, True)
     return out.to(x.dtype)
 
 
@@ -298,14 +348,16 @@ def _capacity_slots(flat_e: torch.Tensor, N: int, cfg: LLMConfig):
     return pos_in_e.clamp(0, C - 1), pos_in_e < C, C
 
 
-def _ffn_moe_gather(x: torch.Tensor, lp: dict, cfg: LLMConfig
-                    ) -> torch.Tensor:
+def _ffn_moe_gather(x: torch.Tensor, lp: dict, cfg: LLMConfig,
+                    plan: Optional[sh.Plan] = None) -> torch.Tensor:
     """Capacity-based top-k dispatch (JAX `_ffn_moe_gather`): the N x k
     (token, expert) pairs in token-major order take arrival ranks within
     their expert; those ranked C or later are dropped; the kept tokens are
     packed into [E, C, D], each expert's SwiGLU runs over its block (one
     batched product a weight), and the outputs are added back to their
-    tokens weighted by the router."""
+    tokens weighted by the router. Under a plan with expert or tensor
+    degrees above one a rank runs its experts' blocks, adds the pairs
+    routed to them, and the sum is all-reduced as in `_ffn_moe`."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     N = B * S
@@ -315,41 +367,64 @@ def _ffn_moe_gather(x: torch.Tensor, lp: dict, cfg: LLMConfig
     flat_w = topw.reshape(-1)
     flat_t = torch.arange(N, device=x.device).repeat_interleave(k)
     slot, keep, C = _capacity_slots(flat_e, N, cfg)
+    sharded = plan is not None and plan.parallel(True)
+    if sharded:
+        xt, flat_w = plan.enter(xt, True), plan.enter(flat_w, True)
     contrib = torch.where(keep[:, None], xt[flat_t],
                           torch.zeros((), dtype=x.dtype, device=x.device))
     buf = x.new_zeros((E, C, D)).index_put_((flat_e, slot), contrib,
                                             accumulate=True)
+    if sharded:
+        El = lp["gate"]["kernel"].shape[0]
+        e0 = plan.first_expert(E)
+        buf = buf[e0:e0 + El]
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + El)
+        flat_e = (flat_e - e0).clamp(0, El - 1)
     g = torch.matmul(buf, lp["gate"]["kernel"].to(x.dtype))
     u = torch.matmul(buf, lp["up"]["kernel"].to(x.dtype))
     y = torch.matmul(F.silu(g) * u, lp["down"]["kernel"].to(x.dtype))
     pair_out = y[flat_e, slot] * (flat_w * keep).to(x.dtype)[:, None]
-    return x.new_zeros((N, D)).index_add_(0, flat_t, pair_out).reshape(
-        B, S, D)
+    out = x.new_zeros((N, D)).index_add_(0, flat_t, pair_out)
+    if sharded:
+        out = plan.exit(out, True)
+    return out.reshape(B, S, D)
 
 
 def _ffn(cfg: LLMConfig, x: torch.Tensor, lp: dict,
-         w8a8: bool) -> torch.Tensor:
-    """The layer's FFN: the MoE FFN where cfg.is_moe, else the SwiGLU."""
+         w8a8: bool, plan: Optional[sh.Plan] = None) -> torch.Tensor:
+    """The layer's FFN: the MoE FFN where cfg.is_moe, else the SwiGLU
+    (column-parallel gate/up, row-parallel down under a plan)."""
     if cfg.is_moe:
-        return _ffn_moe(x, lp, cfg)
-    return dense(F.silu(dense(x, lp["gate"], w8a8)) * dense(x, lp["up"], w8a8),
-                 lp["down"], w8a8)
+        return _ffn_moe(x, lp, cfg, plan)
+    x = sh.enter(plan, x)
+    return sh.row_dense(F.silu(dense(x, lp["gate"], w8a8))
+                        * dense(x, lp["up"], w8a8), lp["down"], w8a8, plan)
 
 
 def _layer(cfg: LLMConfig, x: torch.Tensor, lp: dict, cos: torch.Tensor,
            sin: torch.Tensor, valid_len: torch.Tensor,
-           cache: Optional[KVCache], i: int, w8a8: bool) -> torch.Tensor:
+           cache: Optional[KVCache], i: int, w8a8: bool,
+           plan: Optional[sh.Plan] = None) -> torch.Tensor:
+    """One decoder layer; cfg carries the rank's head counts under a
+    plan, whose fsdp gather runs here, so a checkpointed layer gathers
+    again in the backward."""
+    if plan is not None:
+        lp = plan.gather_layer(lp, "llm/layers")
     B, S, _ = x.shape
     h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-    q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
+    q, k, v = _split_qkv(cfg, dense(sh.enter(plan, h), lp["qkv"], w8a8))
     q, k = apply_rope(q, k, cos, sin)
     if cache is not None:
         _store_kv(cache, i, 0, k, v)
+    if plan is not None and plan.sp > 1:
+        q, k, v = (sh.sp_shard_heads(t, plan.mesh) for t in (q, k, v))
     out = attn_ops.attend(q, k, v, valid_len=valid_len, causal=True,
                           window=cfg.sliding_window)
-    x = x + dense(out.reshape(B, S, -1), lp["o"], w8a8)
+    if plan is not None and plan.sp > 1:
+        out = sh.sp_shard_tokens(out, plan.mesh)
+    x = x + sh.row_dense(out.reshape(B, S, -1), lp["o"], w8a8, plan)
     h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-    return x + _ffn(cfg, h, lp, w8a8)
+    return x + _ffn(cfg, h, lp, w8a8, plan)
 
 
 def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
@@ -364,19 +439,30 @@ def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
     layer in torch.utils.checkpoint, as the JAX package wraps its layer
     body in jax.checkpoint: only each layer's input is kept, and the layer
     runs again in the backward. Returns the final-normed hidden [B, S, D].
+    Under sequence parallelism (parallel/sharding.sequence_parallel) each
+    rank takes its S / seq tokens of embeds and positions and returns its
+    tokens' hidden states [B, S / seq, D].
     """
     check_supported(cfg, layers=params["layers"])
     if remat and cache is not None:
         raise ValueError("remat is for training: it takes no cache")
+    plan, lcfg = plan_and_config(params, cfg)
+    if plan is not None and plan.sp > 1:
+        if cache is not None:
+            raise ValueError("sequence parallelism is for training: it "
+                             "takes no cache")
+        embeds = sh.sp_shard_seq(embeds, plan.mesh)
+        positions = sh.sp_shard_seq(positions, plan.mesh)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = embeds
     layers = unbind_layers(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
         if remat:
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, valid_len, None, i,
-                           w8a8, use_reentrant=False)
+            x = checkpoint(_layer, lcfg, x, lp, cos, sin, valid_len, None,
+                           i, w8a8, plan, use_reentrant=False)
         else:
-            x = _layer(cfg, x, lp, cos, sin, valid_len, cache, i, w8a8)
+            x = _layer(lcfg, x, lp, cos, sin, valid_len, cache, i, w8a8,
+                       plan)
     return rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
 
 
@@ -409,6 +495,12 @@ def decode_mask(cfg: LLMConfig, valid_len: torch.Tensor, prompt_len: int,
 
 
 _PACKED = ("qkv", "o", "gate", "up", "down")
+
+
+def _layer_i(params: dict, plan: Optional[sh.Plan], i: int) -> dict:
+    """Layer i's params, its fsdp shards gathered under a plan."""
+    lp = layer_params(params["layers"], i)
+    return lp if plan is None else plan.gather_layer(lp, "llm/layers")
 
 
 def _packed_decode(layers: dict) -> Optional[int]:
@@ -445,6 +537,7 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     if bits is not None:
         return _decode_step_q8(params, cfg, token_embeds, cache, valid_len,
                                prompt_len, step, w8a8, bits)
+    plan, cfg = plan_and_config(params, cfg)
     B = token_embeds.shape[0]
     M = cache.max_len
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -454,18 +547,18 @@ def decode_step(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     mask = decode_mask(cfg, valid_len, prompt_len, step, M)
     x = token_embeds
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _layer_i(params, plan, i)
         h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
+        q, k, v = _split_qkv(cfg, dense(sh.enter(plan, h), lp["qkv"], w8a8))
         q, k = apply_rope(q, k, cos, sin)
         # the new row, shared by every sample, then the whole layer read
         # back (an int8 cache dequantized, the new row included)
         _store_kv(cache, i, write_pos, k, v)
         k_read, v_read = _read_kv(cache, i, slice(None), K, q.dtype)
         out = attn_ops.mha(q, k_read, v_read, mask=mask)
-        x = x + dense(out.reshape(B, 1, H * hd), lp["o"], w8a8)
+        x = x + sh.row_dense(out.reshape(B, 1, H * hd), lp["o"], w8a8, plan)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(cfg, h, lp, w8a8)
+        x = x + _ffn(cfg, h, lp, w8a8, plan)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x[:, 0], w8a8), cache
 
@@ -501,6 +594,7 @@ def decode_verify(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     [B, K, D]. Returns (logits [B, K, V] fp32, the cache written in place).
     """
     check_supported(cfg, layers=params["layers"])
+    plan, cfg = plan_and_config(params, cfg)
     B, K, _ = token_embeds.shape
     M = cache.max_len
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -531,16 +625,16 @@ def decode_verify(params: dict, cfg: LLMConfig, token_embeds: torch.Tensor,
     mask = mask[:, None]                                        # [B,1,K,M]
     x = token_embeds
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _layer_i(params, plan, i)
         h = rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_norm_eps)
-        q, k, v = _split_qkv(cfg, dense(h, lp["qkv"], w8a8))
+        q, k, v = _split_qkv(cfg, dense(sh.enter(plan, h), lp["qkv"], w8a8))
         q, k = apply_rope(q, k, cos, sin)
         _store_kv(cache, i, start, k, v)
         k_read, v_read = _read_kv(cache, i, slice(None), Kh, q.dtype)
         out = attn_ops.mha(q, k_read, v_read, mask=mask)
-        x = x + dense(out.reshape(B, K, H * hd), lp["o"], w8a8)
+        x = x + sh.row_dense(out.reshape(B, K, H * hd), lp["o"], w8a8, plan)
         h = rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_norm_eps)
-        x = x + _ffn(cfg, h, lp, w8a8)
+        x = x + _ffn(cfg, h, lp, w8a8, plan)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_norm_eps)
     return lm_logits(params, cfg, x, w8a8), cache
 

@@ -20,6 +20,7 @@ from ..constants import IGNORE_INDEX
 from ..core.config import ModelConfig
 from ..media import wire
 from ..multimodal import splice as splice_lib
+from ..parallel import sharding as sh
 from . import beats as beats_lib
 from . import connector as connector_lib
 from . import llm as llm_lib
@@ -152,7 +153,9 @@ def aggregate_each(params: dict, cfg: ModelConfig,
     tower and the LLM compute each row on its own, but the connector's bf16
     convolutions and GEMMs on the GPU pick their kernels by batch size, so
     a batched pass would give a media tokens that depend on its
-    batch-mates; one at a time gives each the tokens it gets alone."""
+    batch-mates; one at a time gives each the tokens it gets alone. Under
+    a mesh the connector is gathered once for all of them."""
+    params = dict(params, connector=connector_lib.gather(params["connector"]))
     return torch.cat([temporal_aggregator(params, cfg, frame_feats[b:b + 1])
                       for b in range(frame_feats.shape[0])])
 
@@ -202,7 +205,8 @@ def prefill_audio_visual(params: dict, cfg: ModelConfig,
 def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                   text_ids: torch.Tensor, is_visual: torch.Tensor,
                   vis_index: torch.Tensor, positions: torch.Tensor,
-                  valid_len: torch.Tensor, labels: torch.Tensor
+                  valid_len: torch.Tensor, labels: torch.Tensor,
+                  num_tokens: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, dict]:
     """Training forward (JAX `forward_train`): (mean masked CE loss,
     metrics {"loss", "num_tokens", "accuracy"}).
@@ -211,7 +215,14 @@ def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     its features); the connector, splice, LLM (each layer checkpointed, as
     JAX's remat=True) and fp32 head carry gradients. Labels use
     IGNORE_INDEX for unsupervised positions; the loss is next-token CE over
-    the supervised ones (HF causal-LM shift)."""
+    the supervised ones (HF causal-LM shift).
+
+    num_tokens (the sharded step's): the supervised tokens of the whole
+    global microbatch, which divides this rank's sum, so that the ranks'
+    losses and accuracies sum to the global means and their gradients to
+    the global mean's; metrics["num_tokens"] is then num_tokens. Under
+    sequence parallelism the rank's hidden states are its S / seq tokens,
+    scored against the same slice of the shifted labels."""
     with torch.no_grad():
         feats = frame_features(params, cfg, frames)
     vis_tokens = temporal_aggregator(params, cfg, feats)
@@ -222,13 +233,20 @@ def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     hidden = llm_lib.forward(params["llm"], cfg.llm, embeds, positions,
                              valid_len, remat=True)
     logits = llm_lib.lm_logits(params["llm"], cfg.llm, hidden)  # fp32
-    shift_logits = logits[:, :-1]
-    shift_labels = labels[:, 1:].long()
+    mesh = sh.current_mesh()
+    if mesh is not None and sh.sp_enabled() and mesh.shape["seq"] > 1:
+        shift_logits = logits
+        shift_labels = sh.sp_shard_seq(F.pad(labels[:, 1:].long(), (0, 1),
+                                             value=IGNORE_INDEX), mesh)
+    else:
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:].long()
     mask = shift_labels != IGNORE_INDEX
     safe_labels = torch.where(mask, shift_labels, 0)
     logp = F.log_softmax(shift_logits, dim=-1)
     token_ll = torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    num_tokens = mask.sum()
+    if num_tokens is None:
+        num_tokens = mask.sum()
     denom = torch.clamp(num_tokens, min=1)
     loss = -torch.where(mask, token_ll, 0.0).sum() / denom
     correct = ((shift_logits.argmax(-1) == safe_labels) & mask).sum()

@@ -16,6 +16,12 @@ Params (kernels [in, out], layers stacked on a leading L axis):
   CLIP only: cls_token.weight [D]   pre_ln {scale, bias} [D]
   layers: ln1/ln2 {scale, bias} [L, D]; qkv {kernel [L, D, 3D], bias [L, 3D]}
           o, fc1, fc2 {kernel, bias}
+
+Under a mesh (parallel/sharding) each layer's fsdp shards are gathered
+before it runs, and floating qkv / fc1 run column-parallel on the rank's
+H / tensor heads and columns, o / fc2 row-parallel with an all-reduce over
+`tensor`; the qkv bias (replicated, as JAX's rules leave it) is sliced to
+the rank's heads.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..ops import attention as attn_ops
 from ..ops.conv import conv2d
 from ..ops.layers import ACT2FN, dense, layer_norm, layer_params
 from ..ops.quant import kernel_shapes
+from ..parallel import sharding as sh
 
 
 def param_shapes(cfg: VisionConfig, int8: bool = False) -> dict:
@@ -80,23 +87,33 @@ def embeddings(params: dict, cfg: VisionConfig,
 
 
 def _encoder_layer(cfg: VisionConfig, x: torch.Tensor, lp: dict,
-                   w8a8: bool) -> torch.Tensor:
-    N, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+                   w8a8: bool, plan=None) -> torch.Tensor:
+    N, S, _ = x.shape
+    tp = 1 if plan is None else plan.tp
+    H, hd = cfg.num_heads // tp, cfg.head_dim
+    D = H * hd                                   # the rank's q/k/v width
     act = ACT2FN[cfg.hidden_act]
+    if plan is not None:
+        lp = plan.gather_layer(lp, "vision/layers")
+        if tp > 1 and lp["qkv"].get("bias") is not None:
+            cols = sh.qkv_columns(cfg.num_heads, cfg.num_heads, hd, tp,
+                                  plan.mesh.index("tensor"))
+            lp = dict(lp, qkv=dict(lp["qkv"], bias=lp["qkv"]["bias"][
+                ..., cols.to(x.device)]))
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                    cfg.layer_norm_eps)
-    qkv = dense(h, lp["qkv"], w8a8)
+    qkv = dense(sh.enter(plan, h), lp["qkv"], w8a8)
     # column slices of the fused projection: strided views, which the
     # kernel reads in place
     q = qkv[..., :D].unflatten(-1, (H, hd))
     k = qkv[..., D:2 * D].unflatten(-1, (H, hd))
     v = qkv[..., 2 * D:].unflatten(-1, (H, hd))
     attn = attn_ops.attend(q, k, v, causal=False)
-    x = x + dense(attn.reshape(N, S, D), lp["o"], w8a8)
-    h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
-                   cfg.layer_norm_eps)
-    return x + dense(act(dense(h, lp["fc1"], w8a8)), lp["fc2"], w8a8)
+    x = x + sh.row_dense(attn.reshape(N, S, D), lp["o"], w8a8, plan)
+    h = sh.enter(plan, layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
+                                  cfg.layer_norm_eps))
+    return x + sh.row_dense(act(dense(h, lp["fc1"], w8a8)), lp["fc2"], w8a8,
+                            plan)
 
 
 def features(params: dict, cfg: VisionConfig, pixels: torch.Tensor,
@@ -111,9 +128,11 @@ def features(params: dict, cfg: VisionConfig, pixels: torch.Tensor,
         x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
                        cfg.layer_norm_eps)
     n_layers = cfg.select_layer % (cfg.num_layers + 1)
+    plan = sh.plan_for(params["layers"], cfg.num_heads, cfg.num_heads,
+                       seq=False)
     for i in range(n_layers):
         x = _encoder_layer(cfg, x, layer_params(params["layers"], i),
-                           w8a8)
+                           w8a8, plan)
     if cfg.select_feature == "patch" and cfg.use_cls_token:
         return x[:, 1:]
     return x

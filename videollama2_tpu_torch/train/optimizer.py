@@ -205,9 +205,12 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def step(self, params: dict, grads: Dict[Path, torch.Tensor],
-             state: dict) -> dict:
+             state: dict, layout=None) -> dict:
         """Apply one update to `params` in place from {path: gradient} (the
-        trained paths); returns the new state."""
+        trained paths); returns the new state. With a layout
+        (parallel/sharding.Layout) params and gradients are this rank's
+        shards and the clip takes the global norm: each rank's share of
+        the squared norm, summed over the mesh."""
         cfg = self.cfg
         flat = flatten(params)
         masters = state.get("master", {})
@@ -215,7 +218,14 @@ class GroupedAdamW:
             count = state["count"][group]
             gs = [grads[p].float() if p in masters else grads[p]
                   for p in paths]
-            g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))
+            if layout is None:
+                sq = sum(torch.sum(g.float() ** 2) for g in gs)
+            else:
+                sq = layout.all_reduce_sum(torch.as_tensor(sum(
+                    layout.sq_norm("/".join(p), g, entry_of(params, p))
+                    for p, g in zip(paths, gs)), dtype=torch.float32,
+                    device=gs[0].device if gs else None))
+            g_norm = torch.sqrt(sq)
             if not bool(g_norm < cfg.max_grad_norm):
                 gs = [(g / g_norm.to(g.dtype)) * cfg.max_grad_norm
                       for g in gs]
@@ -239,6 +249,20 @@ class GroupedAdamW:
                     flat[p].copy_(param)
             state["count"][group] = count_inc
         return state
+
+
+def entry_of(tree: dict, path: Path) -> dict:
+    """The dict that holds the leaf at path."""
+    for k in path[:-1]:
+        tree = tree[k]
+    return tree
+
+
+def set_path(tree: dict, path: Path, value) -> None:
+    """tree[path[0]]...[path[-1]] = value, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def build_optimizer(params: dict, cfg: OptimizerConfig) -> GroupedAdamW:

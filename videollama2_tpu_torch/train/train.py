@@ -22,10 +22,17 @@ Differences from JAX:
   - the tokenizer: the port imports no tokenizer library, so it comes
     from `--tokenizer module:callable` (inference/api.load_tokenizer,
     called with --model_path), as in the serving entry points;
-  - the mesh flags (--mesh_data, --mesh_fsdp, --mesh_tensor, --mesh_seq)
-    are accepted so the recipes' lines run unchanged, but the port trains
-    on one device: a degree above one (--mesh_fsdp other than 1 or -1)
-    raises NotImplementedError (ROADMAP queue 1, item 13: parallelism);
+  - the mesh (--mesh_data, --mesh_fsdp, --mesh_tensor, --mesh_seq) spans
+    one process a card, as the reference launches under torchrun
+    (scripts/vllava/pretrain.sh):
+
+      python -m torch.distributed.run --nproc_per_node 4 \
+        -m videollama2_tpu_torch.train.train --mesh_fsdp 4 ...
+
+    joins the process group torchrun describes (parallel/mesh.
+    init_distributed: NCCL, or gloo with --device cpu) and trains on a
+    mesh over its ranks (train/trainer.py); a plain `python -m ...` is a
+    one-rank run with no process group, where a degree above one raises;
   - --device: "cuda" by default; nothing runs on the CPU unless asked;
   - --vision_tower is read: in the plain-LLM branch the tower (and its
     widths, from its config.json) comes from that local directory, and a
@@ -52,9 +59,6 @@ import warnings
 from typing import Optional, Sequence
 
 import torch
-
-QUEUE_ITEM = "ROADMAP queue 1, item 13"
-
 
 def parse_bool(x: str) -> bool:
     return str(x).lower() in ("1", "true", "yes")
@@ -107,7 +111,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--lora_alpha", type=int, default=256)
     ap.add_argument("--lora_dropout", type=float, default=0.05)
     ap.add_argument("--bits", type=int, default=16)
-    # mesh (accepted; one device only, see check_mesh)
+    # mesh (one process a card under torchrun, see check_mesh)
     ap.add_argument("--mesh_data", type=int, default=1)
     ap.add_argument("--mesh_fsdp", type=int, default=-1)
     ap.add_argument("--mesh_tensor", type=int, default=1)
@@ -118,18 +122,24 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_mesh(args) -> None:
-    """One device: every mesh degree must be 1 (-1, JAX's "the rest of the
-    devices", is one device here)."""
+def check_mesh(args) -> bool:
+    """Whether the run spans a process group: torchrun's (WORLD_SIZE in
+    the environment). Without one every mesh degree must be 1 (-1, JAX's
+    "the rest of the devices", is one device here)."""
+    if "WORLD_SIZE" in os.environ:
+        return True
     over = [f"--{n} {getattr(args, n)}" for n in
             ("mesh_data", "mesh_tensor", "mesh_seq")
             if getattr(args, n) > 1]
     if args.mesh_fsdp not in (1, -1):
         over.append(f"--mesh_fsdp {args.mesh_fsdp}")
     if over:
-        raise NotImplementedError(
-            f"{', '.join(over)}: the port trains on one device; data, "
-            f"FSDP, tensor and sequence parallelism wait for {QUEUE_ITEM}")
+        raise ValueError(
+            f"{', '.join(over)}: a mesh of more than one device runs one "
+            "process a card: launch under torchrun (python -m "
+            "torch.distributed.run --nproc_per_node N -m "
+            "videollama2_tpu_torch.train.train ...)")
+    return False
 
 
 def _tower_config(vision, tower_dir: str):
@@ -216,7 +226,7 @@ def _to_device(tree: dict, device) -> dict:
 def main(argv: Optional[Sequence[str]] = None):
     """Run the training the flags describe; returns the Trainer."""
     args = build_argparser().parse_args(argv)
-    check_mesh(args)
+    distributed = check_mesh(args)
 
     from ..checkpoint import convert_hf, projector_io
     from ..checkpoint.from_jax import params_from_jax
@@ -227,7 +237,11 @@ def main(argv: Optional[Sequence[str]] = None):
     from . import optimizer as opt_lib
     from .trainer import Trainer, TrainerConfig
 
-    device = check_device(args.device)
+    if distributed:
+        from ..parallel.mesh import init_distributed
+        device = init_distributed(args.device)
+    else:
+        device = check_device(args.device)
     tokenizer = load_tokenizer(args.tokenizer, args.model_path)
     if getattr(tokenizer, "pad_token", "") is None \
             and getattr(tokenizer, "unk_token", None) is not None:
@@ -246,7 +260,12 @@ def main(argv: Optional[Sequence[str]] = None):
         else:
             tree["connector"] = convert_hf.load_pretrain_adapter(
                 args.pretrain_mm_mlp_adapter, cfg.connector)
-    params = _to_device(params_from_jax(tree, cfg), device)
+    # under a mesh the Trainer takes each rank's shards to its card from
+    # the host tree, unless the base is quantized or injected there first
+    on_card = not distributed or args.bits != 16 or args.lora_enable
+    params = params_from_jax(tree, cfg)
+    if on_card:
+        params = _to_device(params, device)
     del tree
     # QLoRA / quantized-base training (reference train.py:404-423): the LLM
     # base frozen in int8 or folded int4 packs, made from fp32 on the device
@@ -290,7 +309,9 @@ def main(argv: Optional[Sequence[str]] = None):
         seq_len=args.model_max_length, save_steps=args.save_steps,
         log_steps=args.logging_steps, seed=args.seed,
         group_by_modality_length=args.group_by_modality_length,
-        compute_dtype="bfloat16" if args.bf16 else "float32")
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        mesh_data=args.mesh_data, mesh_fsdp=args.mesh_fsdp,
+        mesh_tensor=args.mesh_tensor, mesh_seq=args.mesh_seq)
     trainer = Trainer(cfg, params, opt_cfg, tcfg, device=device,
                       dataset=dataset)
     trainer.train()
@@ -299,3 +320,5 @@ def main(argv: Optional[Sequence[str]] = None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -1,5 +1,5 @@
-"""Training loop on one device (port of videollama2_tpu/train/trainer.py
-without the mesh and without orbax).
+"""Training loop (port of videollama2_tpu/train/trainer.py without orbax),
+on one device or on a mesh.
 
 A Trainer steps either over a dataset (`dataset=`, a train/data
 SupervisedDataset: `train()` builds each global batch of
@@ -36,6 +36,19 @@ masters. JAX's Trainer keeps the params in the dtype they were loaded in
 (fp32) and casts only the frames; here the model runs in bf16 on the
 card, as the reference's --bf16 runs under DeepSpeed, whose optimizer
 also keeps fp32 masters.
+
+The mesh (mesh_data / mesh_fsdp / mesh_tensor / mesh_seq, JAX's fields)
+needs a process group
+(parallel/mesh.init_distributed, one rank a card under torchrun); without
+one the degrees must be 1 and the Trainer runs on one device as above.
+Under a process group the Trainer shards `params` in place (each leaf of
+the caller's dict becomes this rank's shard, on the rank's card, so the
+whole tree is not kept there), the global batch is
+per_device_batch_size x gradient_accumulation_steps x data x fsdp
+samples of which each rank builds only its own rows, the step runs sharded
+(train/step.py), and only the mesh's first rank logs and writes; the saves
+gather one leaf at a time to it (checkpoint/train_state.py), in the format
+an unsharded run writes, so a run resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -51,11 +64,14 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import projector_io, train_state
 from ..core.config import ModelConfig
 from ..inference.engine import check_device
 from ..ops.quant import PACKS
+from ..parallel import mesh as mesh_lib
+from ..parallel import sharding as sh
 from . import data as data_lib
 from . import optimizer as opt_lib
 from .optimizer import Path
@@ -75,6 +91,38 @@ class TrainerConfig:
     seed: int = 42
     group_by_modality_length: bool = False
     compute_dtype: Optional[str] = None
+    # mesh
+    mesh_data: int = 1
+    mesh_fsdp: int = -1
+    mesh_tensor: int = 1
+    mesh_seq: int = 1
+
+
+def trainer_mesh(cfg: TrainerConfig) -> Optional[mesh_lib.Mesh]:
+    """The Trainer's mesh: None without a process group, where every
+    degree must be 1 (fsdp -1, "the rest of the devices", is one)."""
+    degrees = dict(data=cfg.mesh_data, fsdp=cfg.mesh_fsdp,
+                   tensor=cfg.mesh_tensor, seq=cfg.mesh_seq)
+    if dist.is_initialized():
+        return mesh_lib.make_mesh(**degrees)
+    over = [f"{k} {v}" for k, v in degrees.items()
+            if v > 1 or (k == "fsdp" and v not in (1, -1))]
+    if over:
+        raise ValueError(f"mesh degrees {', '.join(over)} need a process "
+                         "group: launch under torchrun (parallel/mesh."
+                         "init_distributed)")
+    return None
+
+
+def _shard_in_place(tree: dict, layout: sh.Layout, device,
+                    prefix: str = "") -> None:
+    """Replace each leaf of `tree` by this rank's shard on `device`."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            _shard_in_place(v, layout, device, path)
+        else:
+            tree[k] = layout.shard(path, v.detach(), tree).to(device)
 
 
 def _cast(tree: dict, dtype: torch.dtype, trained: Dict[Path, bool],
@@ -113,7 +161,13 @@ class Trainer:
                  opt_cfg: opt_lib.OptimizerConfig,
                  trainer_cfg: TrainerConfig, device="cuda",
                  dataset: Optional[data_lib.SupervisedDataset] = None):
-        self.device = check_device(device)
+        self.mesh = trainer_mesh(trainer_cfg)
+        self.layout = None
+        self.device = check_device(device if self.mesh is None
+                                   else self.mesh.device or device)
+        if self.mesh is not None:
+            self.layout = sh.Layout(self.mesh, model_cfg)
+            _shard_in_place(params, self.layout, self.device)
         want = self.device
         elsewhere = sorted({str(t.device) for t in
                             opt_lib.flatten(params).values()
@@ -145,7 +199,8 @@ class Trainer:
         del masters
         self.step_fn = step_lib.make_train_step(
             model_cfg, self.tx, opt_lib.trainable_mask(params, self.opt_cfg),
-            grad_accum=trainer_cfg.gradient_accumulation_steps)
+            grad_accum=trainer_cfg.gradient_accumulation_steps,
+            mesh=self.mesh, sequence_parallel=trainer_cfg.mesh_seq > 1)
         self._last_saved = -1
         self._preempted = False
 
@@ -154,13 +209,25 @@ class Trainer:
         step = train_state.latest_step(ckpt_dir)
         self.start_step = 0
         if step is not None:
-            print(f"Resuming from checkpoint step {step}", flush=True)
-            train_state.restore_train_state(ckpt_dir, self.state, step)
+            self._say(f"Resuming from checkpoint step {step}")
+            train_state.restore_train_state(ckpt_dir, self.state, step,
+                                            self.layout)
             self.start_step = self._last_saved = step
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank logs and writes (the mesh's first rank)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _say(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
+
     def _global_batch(self) -> int:
+        n = 1 if self.mesh is None else (self.mesh.shape["data"]
+                                         * self.mesh.shape["fsdp"])
         return (self.cfg.per_device_batch_size
-                * self.cfg.gradient_accumulation_steps)
+                * self.cfg.gradient_accumulation_steps * n)
 
     def _index_batches(self, epoch: int):
         """The dataset's global batches of an epoch, as index lists."""
@@ -176,13 +243,18 @@ class Trainer:
 
     def _batches(self, batches: Optional[Iterable[data_lib.Batch]]):
         """(batch, host seconds to build it) for the steps after
-        start_step: the first start_step batches are skipped unbuilt."""
+        start_step: the first start_step batches are skipped unbuilt. Under
+        a mesh each batch holds this rank's rows only: a given global batch
+        is sliced (shard_batch), a dataset batch built from those rows."""
         skip = self.start_step
+        accum = self.cfg.gradient_accumulation_steps
         if batches is not None:
             for batch in batches:
                 if skip:
                     skip -= 1
                     continue
+                if self.mesh is not None:
+                    batch = sh.shard_batch(batch, self.mesh, accum)
                 yield batch, 0.0
             return
         if self.dataset is None:
@@ -194,6 +266,9 @@ class Trainer:
                     skip -= 1
                     continue
                 t0 = time.perf_counter()
+                if self.mesh is not None:
+                    idxs = [idxs[r] for r in sh.batch_rows(
+                        self.mesh, len(idxs), accum)]
                 batch = self.collator([self.dataset[int(i)] for i in idxs])
                 yield batch, time.perf_counter() - t0
 
@@ -204,7 +279,7 @@ class Trainer:
         previous = self._install_preemption_handler()
         t0, data_s = time.time(), 0.0
         try:
-            with open(log_path, "a") as logf:
+            with open(log_path if self.is_main else os.devnull, "a") as logf:
                 todo = self._batches(batches)
                 while self.state.step < self.total_steps:
                     got = next(todo, None)
@@ -214,11 +289,11 @@ class Trainer:
                     data_s += built_s
                     self.state, metrics = self.step_fn(self.state, batch)
                     step = self.state.step
-                    if self._preempted:
+                    if self._stop_now():
                         # preemption-safe shutdown (JAX's): save at this
                         # step and return; a new Trainer resumes from it
-                        print(f"preemption signal received: saving at step "
-                              f"{step} and exiting", flush=True)
+                        self._say(f"preemption signal received: saving at "
+                                  f"step {step} and exiting")
                         self.save(step)
                         return self.state
                     if step % self.cfg.log_steps == 0:
@@ -228,10 +303,10 @@ class Trainer:
                                  / self.cfg.log_steps,
                                  data_s=data_s / self.cfg.log_steps)
                         t0, data_s = time.time(), 0.0
-                        print(f"step {step}: loss={m['loss']:.4f} "
-                              f"acc={m['accuracy']:.3f} "
-                              f"({m['sec_per_step']:.2f}s/step, batch "
-                              f"built in {m['data_s']:.2f}s)", flush=True)
+                        self._say(f"step {step}: loss={m['loss']:.4f} "
+                                  f"acc={m['accuracy']:.3f} "
+                                  f"({m['sec_per_step']:.2f}s/step, batch "
+                                  f"built in {m['data_s']:.2f}s)")
                         logf.write(json.dumps(m) + "\n")
                         logf.flush()
                     if step % self.cfg.save_steps == 0:
@@ -241,6 +316,14 @@ class Trainer:
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
         return self.state
+
+    def _stop_now(self) -> bool:
+        """Whether a SIGTERM reached this rank (under a mesh: any rank, so
+        that every rank saves at the same step)."""
+        if self.layout is None:
+            return self._preempted
+        flag = torch.tensor(float(self._preempted), device=self.device)
+        return bool(self.layout.all_reduce_sum(flag) > 0)
 
     def _install_preemption_handler(self):
         """SIGTERM sets a flag the loop reads after each step; returns the
@@ -262,16 +345,30 @@ class Trainer:
         self._last_saved = step
         params = _with_masters(self.state.params,
                                self.state.opt_state["master"])
-        if self.opt_cfg.tune_mm_mlp_adapter:
-            # pretrain stage: projector-only save
-            # (videollama2_trainer.py:320-341)
-            projector_io.save_projector_only(
-                os.path.join(self.cfg.output_dir, f"adapter-{step}"),
-                params["connector"])
-        if self.opt_cfg.lora_enable:
-            projector_io.export_lora_split(
-                os.path.join(self.cfg.output_dir, f"lora-{step}"),
-                params["llm"], params["connector"], self.model_cfg)
+        saves = self.opt_cfg.tune_mm_mlp_adapter or self.opt_cfg.lora_enable
+        if saves and self.layout is not None:
+            # the connector whole (one leaf at a time) on the first rank;
+            # LoRA adapters are replicated
+            full = {path: self.layout.unshard(path, t, entry)
+                    for path, entry, _, t in sh.walk(
+                        params["connector"], "connector")}
+            connector = {}
+            for path, t in full.items():
+                opt_lib.set_path(connector, tuple(path.split("/")[1:]),
+                                 t.cpu())
+            params = dict(params, connector=connector)
+        if saves and self.is_main:
+            if self.opt_cfg.tune_mm_mlp_adapter:
+                # pretrain stage: projector-only save
+                # (videollama2_trainer.py:320-341)
+                projector_io.save_projector_only(
+                    os.path.join(self.cfg.output_dir, f"adapter-{step}"),
+                    params["connector"])
+            if self.opt_cfg.lora_enable:
+                projector_io.export_lora_split(
+                    os.path.join(self.cfg.output_dir, f"lora-{step}"),
+                    params["llm"], params["connector"], self.model_cfg)
         train_state.save_train_state(
-            os.path.join(self.cfg.output_dir, "checkpoints"), self.state)
-        print(f"saved checkpoint at step {step}", flush=True)
+            os.path.join(self.cfg.output_dir, "checkpoints"), self.state,
+            layout=self.layout)
+        self._say(f"saved checkpoint at step {step}")
