@@ -5,15 +5,17 @@ PyTorch version at the shapes the main paths give it (and K10, the
 head-pair tower attention, against K1 as well; its own path, the
 `pack_pairs=True` entry of scripts/profile_torch_vit_attn.py, is driven
 once with every counter at 0), then drives full-width video-QA models
-(seeded random weights) through Engine.generate twice in each of seven
+(seeded random weights) through Engine.generate twice in each of eight
 slices. VideoLLaMA2-7B-16F (CLIP-L/336 + STC + Mistral-7B): bf16 (bf16
 weights and KV cache), int8 serving (int8 LLM and tower packs, W8A8
 prefill, int8 KV cache, decode on the layered int8 kernels) and int4
 serving, `load_4bit` (folded int4 LLM layers, int8 head and tower, W4A8
 prefill, int8 KV cache, decode on the layered int4 kernels).
 VideoLLaMA2.1-7B-16F (SigLIP-SO400M/384 + STCv35 + Qwen2-7B, 28 query
-heads on 4 kv heads): bf16, and bench.py's BENCH_MODEL=qwen2 serving tree
-(int8 layers, head, tower and embedding, int8 KV cache). The Llama-2
+heads on 4 kv heads): bf16, bench.py's BENCH_MODEL=qwen2 serving tree
+(int8 layers, head, tower and embedding, int8 KV cache) and its
+BENCH_BITS=4 tree (folded int4 layers, decode on the layered int4
+kernels). The Llama-2
 preset (VideoLLaMA2 over Llama-2-7B: 32 kv heads, one a query head, F
 11008) in the int8 serving tree. VideoLLaMA2-8x7B (CLIP + STC +
 Mixtral-8x7B, 8 experts, top-2, at its 8 frames, the LLM cut to 8 of 32
@@ -84,7 +86,18 @@ the shapes a rank gets under tensor 2 and 4 (Mistral-7B and Qwen2-7B)
 and Ulysses seq 2 against their plain versions; with two cards or more
 it also runs an fsdp 2 step and a tensor 2 generate on two NCCL ranks
 against the world-1 results (scripts/profile_torch_parallel.py runs that
-part alone, on 2 and 4 cards).
+part alone, on 2 and 4 cards). Then the "projectors" phase swaps
+VideoLLaMA2-7B's connector (CLIP whole, 8 of Mistral-7B's 32 layers,
+bf16) for five of the other projector types (linear, mlp2x_gelu,
+stp_connector, spatial_pool, spatial_conv; identity cannot splice the
+tower's 1024 wide features into the 4096 wide LLM): a B 16 generate each
+with exact K1 / K2 counts, first-token logits against the plain
+attention, a B 4 generate against each video's B 1 (differences held to
+near-ties), the connector's ms beside STC's and two stage-1 steps; then
+a generate under utils/profiling.device_trace whose trace must hold K1's
+and K2's kernels and the annotate ranges, and a stage-2 step under
+remat=True and one under remat="dots", whose losses and exact bit sums
+of every trained tensor and fp32 master must be equal.
 The "train entry" phase runs first, right after the build and the
 writing of the api phases' checkpoints, so that this process holds no
 more than its CUDA context while it runs: `python -m
@@ -4379,14 +4392,17 @@ def _sample(t: torch.Tensor) -> torch.Tensor:
     return flat[::max(1, flat.numel() // PAR_SAMPLE)].float().cpu()
 
 
-def parallel_train_step(cfg, batch, counters, device, **mesh) -> dict:
+def parallel_train_step(cfg, batch, counters, device, remat=True,
+                        **mesh) -> dict:
     """One Trainer step of stage 2's mask (the LLM and the connector
     trained, bf16 with fp32 masters) from the seed-0 params, on a mesh of
     the given degrees when a process group is up (`batch` is the global
     batch): loss, launches, the trained tensors and their masters as they
     end (this rank's shards), and `samples`: for each trained leaf, whole
     (gathered on every rank), the _sample of its start, its Adam first
-    moment and its master."""
+    moment and its master. remat: the LLM's policy (models/llm.forward),
+    given to the step the Trainer runs."""
+    from videollama2_tpu_torch.train import step as step_lib
     from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
                                                        entry_of, flatten,
                                                        trainable_mask)
@@ -4402,6 +4418,13 @@ def parallel_train_step(cfg, batch, counters, device, **mesh) -> dict:
             output_dir=out_dir, per_device_batch_size=PAR_TRAIN_B,
             max_steps=1, log_steps=1, save_steps=10 ** 9,
             compute_dtype="bfloat16", **mesh), device=device)
+        if remat is not True:
+            trainer.step_fn = step_lib.make_train_step(
+                cfg, trainer.tx, trainable_mask(trainer.state.params,
+                                                trainer.opt_cfg),
+                grad_accum=trainer.cfg.gradient_accumulation_steps,
+                mesh=trainer.mesh,
+                sequence_parallel=trainer.cfg.mesh_seq > 1, remat=remat)
         inner, got = trainer.step_fn, {}
 
         def step(state, b, *a):
@@ -4740,6 +4763,415 @@ def run_parallel_phase(counters, k1, k2, gen) -> tuple:
     return rec, rows, launches
 
 
+PROJ_TYPES = ("linear", "mlp2x_gelu", "stp_connector", "spatial_pool",
+              "spatial_conv")
+PROJ_LAYERS = 8          # Mistral-7B's widths, 8 of its 32 LLM layers
+PROJ_B, PROJ_CHECK_B = 16, 4
+PROJ_TRAIN_B = 2         # stage 1: 2 videos of 8 frames at seq TRAIN_S
+PROJ_TRAIN_STEPS = 2     # the first step carries one-time costs
+PROJ_CONNECTOR_ITERS = 3
+PROJ_TRACE_TYPE = "mlp2x_gelu"
+# the stage-2 step under each policy (scripts/profile_torch_projectors.py
+# runs the pair twice in turns)
+REMAT_ORDER = (True, "dots")
+# the kernels' symbols a device trace of a generate must hold (K1, K2)
+TRACE_SYMBOLS = ("encoder_attention_pipelined_kernel",
+                 "flash_attention_kernel")
+TRACE_RANGES = ("encode", "prefill", "decode")
+
+
+def projector_config(cfglib, projector_type: str, frames: int = 16):
+    """VideoLLaMA2-7B at `frames` frames with its connector replaced by
+    `projector_type` and the LLM cut to PROJ_LAYERS layers."""
+    cfg = cfglib.preset("videollama2_mistral").replace(num_frames=frames)
+    return cfg.replace(
+        llm=dataclasses.replace(cfg.llm, num_layers=PROJ_LAYERS),
+        connector=dataclasses.replace(cfg.connector,
+                                      projector_type=projector_type))
+
+
+def generate_launches(counters, cfg, B) -> dict:
+    """A bf16 generate's launches: K1 for each tower chunk of each layer,
+    K2 once a layer, every other kernel 0 (the bf16 decode is plain)."""
+    want = dict.fromkeys(counters, 0)
+    want.update(encoder_attention=vit_layers(cfg)
+                * max(B * cfg.num_frames // 128, 1),
+                flash_attention=cfg.llm.num_layers)
+    return want
+
+
+def step_launches(counters, cfg, B) -> dict:
+    """A train step's launches under remat (True or "dots"): K1 for the
+    frozen tower, K2 in the forward and again in the recompute, K8 and K9
+    once a layer."""
+    L = cfg.llm.num_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(encoder_attention=vit_layers(cfg)
+                * max(B * cfg.num_frames // 128, 1),
+                flash_attention=2 * L, flash_attention_bwd_dq=L,
+                flash_attention_bwd_dkv=L)
+    return want
+
+
+def traced_generate(eng, cfg, frames, prompt, counters, gcfg) -> dict:
+    """One generate under utils/profiling.device_trace with annotate
+    ranges around the encode (models/videollama2.encode_frames), the
+    prefill (models/llm.prefill) and the decode (the Engine's
+    _decode_tail): fails unless the trace holds K1's and K2's kernels and
+    the three ranges."""
+    from videollama2_tpu_torch.models import llm as llm_lib
+    from videollama2_tpu_torch.models import videollama2 as vl2
+    from videollama2_tpu_torch.utils import profiling
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with profiling.annotate(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    saved = [(vl2, "encode_frames", vl2.encode_frames),
+             (llm_lib, "prefill", llm_lib.prefill)]
+    for (module, attr, fn), name in zip(saved, TRACE_RANGES):
+        setattr(module, attr, ranged(name, fn))
+    eng._decode_tail = ranged("decode", eng._decode_tail)
+    want = generate_launches(counters, cfg, len(frames))
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            with profiling.device_trace(d):
+                _, stats, counts = counted_call(
+                    "projectors traced generate", counters, want,
+                    lambda cb: eng.generate(
+                        [prompt] * len(frames),
+                        frames=eng.upload_frames(frames), gen=gcfg,
+                        eos_token_id=-1, stream_cb=cb))
+            trace_s = time.perf_counter() - t0
+            path = os.path.join(d, profiling.TRACE_FILE)
+            size = os.path.getsize(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+        del eng._decode_tail
+    names = [e.get("name", "") for e in events]
+    kernels = {s: sum(s in n for n in names) for s in TRACE_SYMBOLS}
+    ranges = {r: names.count(r) for r in TRACE_RANGES}
+    device_events = sum(e.get("cat") == "kernel" for e in events)
+    log(f"[projectors] traced generate ({len(frames)} x "
+        f"{gcfg.max_new_tokens} tokens, device_trace + annotate): "
+        f"{trace_s:.2f} s with the trace written ({size / 1e6:.1f} MB, "
+        f"{len(events)} events, {device_events} device kernels); kernel "
+        f"events {kernels}, ranges {ranges}; launches {counts}")
+    if not all(kernels.values()) or not all(ranges.values()):
+        raise RuntimeError(f"projectors: the device trace lacks K1's or "
+                           f"K2's kernels or a range: {kernels}, {ranges}")
+    return {"trace_s": trace_s, "trace_mb": size / 1e6,
+            "events": len(events), "device_kernels": device_events,
+            "kernel_events": kernels, "ranges": ranges,
+            "generate": stats, "launches": counts}
+
+
+def prefill_last(eng, cfg, frames, prompt, bucket) -> torch.Tensor:
+    """The last valid token's hidden state [B, D] of a bf16 prefill of the
+    videos (the input of the first token's head)."""
+    from videollama2_tpu_torch.models import llm as llm_lib
+    cache = llm_lib.init_cache(cfg.llm, len(frames), bucket, torch.bfloat16,
+                               device=eng.device)
+    last, _ = _prefill(eng, cfg, _plan_args(cfg, frames, prompt, eng.device,
+                                            bucket), cache)
+    return last
+
+
+def projector_stage1_steps(cfg, params, batch, counters) -> dict:
+    """PROJ_TRAIN_STEPS stage-1 Trainer steps (tune_mm_mlp_adapter: only
+    the connector trains, bf16 with fp32 masters) over `params` (its
+    connector cloned first): losses, each step's seconds (a sync on each
+    side), peak, launches, and how many connector tensors' fp32 masters
+    moved."""
+    from videollama2_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                       flatten)
+    from videollama2_tpu_torch.train.trainer import Trainer, TrainerConfig
+    conn = {p: t.clone() for p, t in flatten(params["connector"]).items()}
+    tree = {}
+    for p, t in conn.items():
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = t
+    start = {p: t.clone() for p, t in conn.items()}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(cfg, dict(params, connector=tree), OptimizerConfig(
+            learning_rate=1e-3, warmup_ratio=0.0, tune_mm_mlp_adapter=True),
+            TrainerConfig(output_dir=out_dir,
+                          per_device_batch_size=PROJ_TRAIN_B,
+                          max_steps=PROJ_TRAIN_STEPS, log_steps=1,
+                          save_steps=10 ** 9, compute_dtype="bfloat16"),
+            device="cuda")
+        inner, got = trainer.step_fn, {"loss": [], "step_s": []}
+
+        def step(state, b, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = inner(state, b, *a)
+            got["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            got["step_s"].append(time.perf_counter() - t0)
+            return state, m
+        trainer.step_fn = step
+        for fn in counters.values():
+            fn.launches = 0
+        with state_saves({}, write=False):
+            trainer.train(iter([batch] * PROJ_TRAIN_STEPS))
+    got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    got["launches"] = {n: fn.launches for n, fn in counters.items()}
+    # the fp32 masters: an Adam step of lr 1e-3 on a norm's scale of 1 is
+    # below half a bf16 ulp there, so its bf16 copy keeps its value
+    masters = trainer.state.opt_state["master"]
+    got["moved"] = sum(not torch.equal(masters[("connector",) + p],
+                                       start[p].float()) for p in start)
+    got["tensors"] = len(start)
+    return got
+
+
+def run_projectors_phase(counters, attn, k1, k2) -> tuple:
+    """The "projectors" phase: VideoLLaMA2-7B's CLIP tower whole and 8 of
+    Mistral-7B's 32 layers, seeded bf16 weights and cache, its connector
+    replaced by each of PROJ_TYPES (the identity projector passes the
+    tower's 1024 wide features to a 4096 wide LLM, which cannot be
+    spliced: it runs on the CPU only, tests/test_torch_projectors.py).
+    For each type: a B 16 generate of 16-frame I420 videos with exact K1
+    / K2 counts, first-token logits against the plain attention, the rows
+    of a B 4 generate against each video's B 1 generate (prefill hidden
+    states, first-token logits, tokens: a difference must be a
+    near-tie), the connector's ms at B 16 one media at a time
+    beside STC's, and a stage-1 step of 2 videos x 8 frames at seq
+    TRAIN_S (every connector tensor's fp32 master moved, finite losses),
+    twice. Then one generate under
+    utils/profiling.device_trace, and a stage-2 step under remat=True and
+    one under "dots" (REMAT_ORDER; equal losses, and equal exact bit sums
+    of every trained tensor and fp32 master). Returns (the phase's record,
+    the launch counts of each counted run)."""
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.inference.engine import (Engine,
+                                                        GenerationConfig)
+    from videollama2_tpu_torch.models import videollama2 as vl2
+    from videollama2_tpu_torch.train.optimizer import flatten
+    from videollama2_tpu_torch.utils import profiling
+    from videollama2_tpu_torch.utils.synthetic import (
+        synthetic_connector_params, synthetic_params, synthetic_train_batch)
+    timer = profiling.StageTimer()
+    t_phase = time.perf_counter()
+    rec, counts = {"identity": "not run on the card: its 1024 wide "
+                   "features cannot be spliced into the 4096 wide LLM "
+                   "(a ValueError naming both); tests/test_torch_"
+                   "projectors.py runs it at equal widths on the CPU"}, {}
+    log(f"[projectors] identity: {rec['identity']}")
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    with timer.stage("weights"):
+        base_cfg = projector_config(cfglib, "stc_connector")
+        base = synthetic_params(base_cfg, dtype=torch.bfloat16,
+                                device="cuda", seed=0)
+        torch.cuda.synchronize()
+    frames, prompt, _ = slice_inputs(base_cfg, PROJ_B)
+    with torch.inference_mode(), timer.stage("tower features"):
+        feats = vl2.frame_features(base, base_cfg,
+                                   torch.from_numpy(frames).cuda())
+    train_cfg = projector_config(cfglib, "stc_connector", frames=8)
+    train_rng = np.random.default_rng(4)
+    rec["types"] = {}
+    for pt in ("stc_connector",) + PROJ_TYPES:
+        cfg = projector_config(cfglib, pt)
+        conn = base["connector"] if pt == "stc_connector" else \
+            synthetic_connector_params(cfg.connector, dtype=torch.bfloat16,
+                                       device="cuda", seed=0)
+        params = dict(base, connector=conn)
+        with torch.inference_mode(), timer.stage("connector ms"):
+            ms = cuda_ms(lambda: vl2.aggregate_each(params, cfg, feats),
+                         iters=PROJ_CONNECTOR_ITERS)
+        r = {"visual_tokens": cfg.tokens_per_video, "connector_b16_ms": ms,
+             "connector_params_m": sum(t.numel() for t in _leaves(conn))
+             / 1e6}
+        rec["types"][pt] = r
+        if pt == "stc_connector":
+            log(f"[projectors] stc_connector (the preset's): connector "
+                f"{ms:.2f} ms at B {PROJ_B}, one media at a time")
+            continue
+        _, _, bucket = slice_inputs(cfg, PROJ_B)
+        r["bucket"] = bucket
+        eng = Engine(cfg, params, dtype=torch.bfloat16,
+                     max_len=bucket + NEW_TOKENS, buckets=(bucket,),
+                     decode_chunk=NEW_TOKENS, kv_bits=16, device="cuda")
+        with timer.stage("generate B 16"):
+            out, stats, counts[f"projectors {pt}"] = counted_call(
+                f"projectors {pt} B {PROJ_B}", counters,
+                generate_launches(counters, cfg, PROJ_B),
+                lambda cb: eng.generate(
+                    [prompt] * PROJ_B, frames=eng.upload_frames(frames),
+                    gen=gcfg, eos_token_id=-1, stream_cb=cb))
+        toks = np.asarray(out)
+        if toks.shape != (PROJ_B, NEW_TOKENS) or toks.min() < 0 \
+                or toks.max() >= cfg.llm.vocab_size:
+            raise RuntimeError(f"projectors {pt}: bad tokens {toks.shape}")
+        r.update(first_token_s=stats["first_token_s"],
+                 decode_ms_per_token=stats["ms_per_token"],
+                 generate_s=stats["call_s"])
+        with timer.stage("against plain"):
+            check_against_plain(eng, cfg, frames[:2], prompt, bucket, attn,
+                                k1, k2, label=f"projectors {pt}")
+        with timer.stage("B 4 against B 1"), LogitTap() as tap:
+            b4, _, _ = counted_call(
+                f"projectors {pt} B {PROJ_CHECK_B}", counters,
+                generate_launches(counters, cfg, PROJ_CHECK_B),
+                lambda cb: eng.generate(
+                    [prompt] * PROJ_CHECK_B,
+                    frames=eng.upload_frames(frames[:PROJ_CHECK_B]),
+                    gen=gcfg, eos_token_id=-1, stream_cb=cb), tap)
+            b4_picks = list(tap.picks)
+            b1 = []
+            for v in range(PROJ_CHECK_B):
+                o, _, _ = counted_call(
+                    f"projectors {pt} B 1 video {v}", counters,
+                    generate_launches(counters, cfg, 1),
+                    lambda cb: eng.generate(
+                        [prompt], frames=eng.upload_frames(frames[v:v + 1]),
+                        gen=gcfg, eos_token_id=-1, stream_cb=cb), tap)
+                b1.append((o[0], list(tap.picks)))
+        first4 = b4_picks[0].float()
+        first1 = torch.stack([p[0][0] for _, p in b1]).float()
+        with torch.inference_mode():
+            last4 = prefill_last(eng, cfg, frames[:PROJ_CHECK_B], prompt,
+                                 bucket)
+            last1 = torch.cat([prefill_last(eng, cfg, frames[v:v + 1],
+                                            prompt, bucket)
+                               for v in range(PROJ_CHECK_B)])
+        r["b4_vs_b1"] = {
+            "tokens_equal": [b4[v] == b1[v][0] for v in range(PROJ_CHECK_B)],
+            "prefill_hidden_bit_equal": bool(torch.equal(last4, last1)),
+            "first_logits_bit_equal": bool(torch.equal(first4, first1)),
+            "first_logits_max_abs_diff":
+                (first4 - first1).abs().max().item()}
+        log(f"[projectors] {pt}: B {PROJ_CHECK_B} rows against B 1: "
+            f"{r['b4_vs_b1']}")
+        compare_logits(f"projectors {pt} first token B {PROJ_CHECK_B} vs "
+                       f"B 1", first4, first1)
+        held = check_tokens(f"projectors {pt} B {PROJ_CHECK_B} vs B 1",
+                            [o for o, _ in b1], b4,
+                            lambda b, p: b1[b][1][p][0],
+                            lambda b, p: b4_picks[p][b])
+        if not held["ok"]:
+            raise RuntimeError(f"projectors {pt}: B {PROJ_CHECK_B} tokens "
+                               f"differ from B 1 beyond a near-tie")
+        del eng, b4_picks, b1
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = projector_config(cfglib, pt, frames=8)
+        batch = synthetic_train_batch(tcfg, train_rng, PROJ_TRAIN_B, TRAIN_S,
+                                      TRAIN_MIN_VALID)
+        with timer.stage("stage-1 steps"):
+            step = projector_stage1_steps(tcfg, params, batch, counters)
+        counts[f"projectors {pt} stage-1 steps"] = step["launches"]
+        want = {n: PROJ_TRAIN_STEPS * c for n, c in step_launches(
+            counters, tcfg, PROJ_TRAIN_B).items()}
+        r["stage1_steps"] = {k: step[k] for k in ("loss", "step_s",
+                                                  "peak_gb", "moved",
+                                                  "tensors")}
+        log(f"[projectors] {pt}: {PROJ_TRAIN_STEPS} stage-1 steps "
+            f"({PROJ_TRAIN_B} x {tcfg.num_frames} frames, "
+            f"{tcfg.tokens_per_video} visual tokens a video, seq "
+            f"{TRAIN_S}): losses {step['loss']}, "
+            f"{[round(x, 3) for x in step['step_s']]} s, peak "
+            f"{step['peak_gb']:.1f} GB, {step['moved']} of "
+            f"{step['tensors']} connector tensors' fp32 masters moved; "
+            f"launches {step['launches']} (want {want})")
+        if step["launches"] != want or not all(map(math.isfinite,
+                                                   step["loss"])) \
+                or step["moved"] != step["tensors"]:
+            raise RuntimeError(f"projectors {pt}: stage-1 steps wrong")
+        log(f"[projectors] {pt}: {cfg.tokens_per_video} visual tokens a "
+            f"video, bucket {bucket}; first token "
+            f"{r['first_token_s']:.3f} s, decode "
+            f"{r['decode_ms_per_token']:.2f} ms/token; connector "
+            f"{ms:.2f} ms at B {PROJ_B} (stc_connector "
+            f"{rec['types']['stc_connector']['connector_b16_ms']:.2f})")
+        del params, conn, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # one generate under the profiler
+    cfg = projector_config(cfglib, PROJ_TRACE_TYPE)
+    _, _, bucket = slice_inputs(cfg, PROJ_B)
+    params = dict(base, connector=synthetic_connector_params(
+        cfg.connector, dtype=torch.bfloat16, device="cuda", seed=0))
+    eng = Engine(cfg, params, dtype=torch.bfloat16,
+                 max_len=bucket + NEW_TOKENS, buckets=(bucket,),
+                 decode_chunk=NEW_TOKENS, kv_bits=16, device="cuda")
+    with timer.stage("traced generate"):
+        rec["trace"] = traced_generate(eng, cfg, frames, prompt, counters,
+                                       gcfg)
+    counts["projectors traced generate"] = rec["trace"].pop("launches")
+    del eng, params, base, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat="dots" against remat=True: a stage-2 step each, compared by the
+    # loss and each trained tensor's and fp32 master's exact bit sum (the
+    # tensors themselves are dropped before the next run, so each run's
+    # peak is its own)
+    with timer.stage("remat pair"):
+        batch = synthetic_train_batch(train_cfg, np.random.default_rng(3),
+                                      PAR_TRAIN_B, TRAIN_S, TRAIN_MIN_VALID)
+        runs = []
+        for remat in REMAT_ORDER:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = parallel_train_step(train_cfg, batch, counters, "cuda",
+                                      remat=remat)
+            run["remat"] = remat
+            for key in ("trained", "masters"):
+                paths = sorted(run[key])
+                run[key] = dict(zip(paths, _checksums(
+                    [run[key][p] for p in paths])))
+            runs.append(run)
+            counts[f"projectors remat {remat} step {len(runs)}"] = \
+                run["launches"]
+    want = step_launches(counters, train_cfg, PAR_TRAIN_B)
+    ref = runs[0]
+    rec["remat"] = {"runs": [], "bit_equal": True}
+    for run in runs:
+        differ = [p for key in ("trained", "masters")
+                  for p, c in run[key].items() if c != ref[key][p]]
+        bit_equal = not differ and run["loss"] == ref["loss"]
+        rec["remat"]["runs"].append({
+            "remat": run["remat"], "loss": run["loss"],
+            "step_s": run["step_s"], "peak_gb": run["peak_gb"],
+            "bit_equal_to_first": bit_equal})
+        rec["remat"]["bit_equal"] &= bit_equal
+        log(f"[projectors] stage-2 step ({PAR_TRAIN_B} x "
+            f"{train_cfg.num_frames} frames, seq {TRAIN_S}, {PROJ_LAYERS} "
+            f"LLM layers), remat={run['remat']!r}: loss {run['loss']!r}, "
+            f"{run['step_s']:.3f} s, peak {run['peak_gb']:.1f} GB; "
+            f"{len(run['trained'])} trained tensors' and fp32 masters' bit "
+            f"sums " + ("equal to the first run's" if bit_equal else
+                        f"differ from the first run's: {len(differ)} "
+                        f"({['/'.join(p) for p in differ[:5]]})"))
+        if run["launches"] != want:
+            raise RuntimeError(f"projectors remat {run['remat']}: launches "
+                               f"{run['launches']} != {want}")
+    if not rec["remat"]["bit_equal"]:
+        raise RuntimeError("projectors: the remat=\"dots\" steps are not "
+                           "bit-equal to the remat=True ones")
+    del runs, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["stage_timer"] = timer.summary()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[projectors] StageTimer: {json.dumps(rec['stage_timer'])}")
+    log(f"[projectors] phase {rec['phase_s']:.1f} s")
+    return rec, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4903,7 +5335,7 @@ def main() -> None:
         raise RuntimeError(f"K10 path: launch counts {pairs_counts} != {want}")
     torch.cuda.empty_cache()
 
-    # -- the six serving slices at full width -------------------------------
+    # -- the seven serving slices at full width -----------------------------
     B = 16
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
     steps = NEW_TOKENS - 1
@@ -4914,6 +5346,7 @@ def main() -> None:
             ("int4 slice", "videollama2_mistral", 4, False),
             ("2.1 bf16 slice", "videollama2_qwen2", None, False),
             ("2.1 int8 slice", "videollama2_qwen2", 8, True),
+            ("2.1 int4 slice", "videollama2_qwen2", 4, True),
             ("llama int8 slice", "videollama2_llama", 8, False)):
         cfg = cfglib.preset(preset).replace(num_frames=16)
         frames, prompt, bucket = slice_inputs(cfg, B)
@@ -5119,6 +5552,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- the "projectors" phase: the other connector types, remat="dots",
+    # utils/profiling --------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    proj, proj_counts = run_projectors_phase(counters, attn, k1, k2)
+    slice_counts.update(proj_counts)
+    log(json.dumps({"projectors": proj}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def by_slice(name):
         return {s: c[name] for s, c in slice_counts.items()}
 
@@ -5146,6 +5588,7 @@ def main() -> None:
                 "launches_eval": eval_total[name],
                 "launches_train_entry": {r: c[name] for r, c in
                                          entry_counts.items()},
+                "launches_by_slice": by_slice(name),
                 **train_kernels[key], **extra}
 
     def registers(kernel):

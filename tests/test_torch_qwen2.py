@@ -298,3 +298,49 @@ def test_qwen2_int8_slice_matches_jax_engine(tiny_int8, kv_bits):
                                   w8a8=True)
     np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
     assert [o[0] for o in got] == list(ref.argmax(-1))
+
+
+@pytest.fixture(scope="module")
+def tiny_int4(tiny):
+    """bench.py's BENCH_MODEL=qwen2 BENCH_BITS=4 tree: folded int4 LLM
+    layers (the fused qkv with its biases), an int8 head, tower and
+    embedding."""
+    cfg, jp, _ = tiny
+    jq = dict(jp, llm=jquant.quantize_llm_params(jp["llm"], bits=4,
+                                                 include_embed=True),
+              vision=jquant.quantize_vision_params(jp["vision"]))
+    return cfg, jq, params_from_jax(_host(jq), cfg)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_qwen2_int4_slice_matches_jax_engine(tiny_int4, kv_bits):
+    """The 2.1 int4 path: W8A8 tower, W4A8 prefill with the qkv biases, the
+    int8 embedding beside int4 layers, an int8 head, and decode on K3 and
+    the int4 layered kernels at 7 query heads a kv head (plain versions
+    here; Pallas in interpret mode in the JAX Engine, under
+    force_native_quant). Greedy tokens identical; first-token logits to
+    1e-4. Frames as in test_qwen2_int8_slice_matches_jax_engine."""
+    cfg, jq, tq = tiny_int4
+    frames = _videos(cfg, "float", seed=7)
+    gen_kw = dict(max_new_tokens=NEW_TOKENS)
+    jeng = JaxEngine(cfg, jq, dtype=jnp.float32, max_len=128, buckets=(64,),
+                     kv_bits=kv_bits)
+    eng = Engine(cfg, tq, dtype=torch.float32, max_len=128, buckets=(64,),
+                 kv_bits=kv_bits, device="cpu")
+    layers = eng.params["llm"]["layers"]
+    assert set(layers["qkv"]) == {"kernel_q4", "bias"}
+    assert set(eng.params["llm"]["embed"]) == {"weight_q8"}
+    assert set(eng.params["llm"]["lm_head"]) == {"kernel_q8"}
+    with jlayers.force_native_quant():
+        want = jeng.generate(PROMPTS, frames=frames,
+                             gen=JaxGenerationConfig(**gen_kw),
+                             eos_token_id=-1)
+    got = eng.generate(PROMPTS, frames=frames,
+                       gen=GenerationConfig(**gen_kw), eos_token_id=-1)
+    assert got == want and all(len(o) == NEW_TOKENS for o in got)
+    with jlayers.force_native_quant(), jlayers.quant_inference(), \
+            jlayers.w8a8_prefill():
+        port, ref = _first_logits(cfg, jeng.params, eng.params, frames,
+                                  w8a8=True)
+    np.testing.assert_allclose(port, ref, rtol=0, atol=FP32_LOGIT_ATOL)
+    assert [o[0] for o in got] == list(ref.argmax(-1))

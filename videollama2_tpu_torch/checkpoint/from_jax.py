@@ -97,6 +97,8 @@ def params_from_jax(jax_params: dict, cfg) -> dict:
             raise ValueError(f"{'.'.join(path)}: JAX shape {arr.shape}, "
                              f"port expects {shape}")
         _set(out, path, arr.contiguous())
+    for k in shapes:  # a subtree without leaves: the identity connector
+        out.setdefault(k, {})
     _carry_adapters(jax_params, cfg, take, out["llm"]["layers"])
     unused = sorted(".".join(p) for p in set(src) - consumed)
     if unused:

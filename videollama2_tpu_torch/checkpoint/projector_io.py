@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,12 +63,15 @@ def load_projector_only(directory: str, like: dict) -> dict:
     return build(like, ())
 
 
-def _projector_state_dict(connector_params: dict, prefix: str) -> dict:
+def _projector_state_dict(connector_params: dict, prefix: str,
+                          projector_type: Optional[str] = None) -> dict:
     """Connector params -> a torch state dict in the reference's key
-    layout (the port's copy of the JAX package's; the inverse of
+    layout (the port's copy of the JAX package's, but for the linear
+    projector's keys; the inverse of
     convert_hf.connector_params_from_state_dict): conv kernels [*k, I, O]
     -> [O, I, *k], linear kernels [in, out] -> [out, in], each leaf on the
-    CPU in its dtype."""
+    CPU in its dtype. projector_type is needed only for a tree of one
+    top-level fc1 (linear or mlp1x_gelu)."""
     sd = {}
 
     def cpu(t):
@@ -104,21 +108,39 @@ def _projector_state_dict(connector_params: dict, prefix: str) -> dict:
     for i, (_, fc) in enumerate(sorted(p.get("readout", {}).items())):
         sd[prefix + f"readout.{2 * i}.weight"] = cpu(fc["kernel"].T)
         sd[prefix + f"readout.{2 * i}.bias"] = cpu(fc["bias"])
-    # linear / mlpNx projectors: fc1, fc2... at the top level
-    for name, fc in sorted(p.items()):
-        if re.match(r"^fc\d+$", name):
-            idx = 2 * (int(name[2:]) - 1)
-            sd[prefix + f"{idx}.weight"] = cpu(fc["kernel"].T)
-            sd[prefix + f"{idx}.bias"] = cpu(fc["bias"])
+    # linear / mlpNx projectors: fc1, fc2... at the top level. An mlpNx
+    # projector is an nn.Sequential (Linear at 0, 2, 4...); a linear one is
+    # a plain nn.Linear, whose keys have no index (projector.py:116-118).
+    # The JAX package writes the linear one at index 0 too, which neither
+    # package's load_pretrain_adapter reads back.
+    fcs = sorted((int(name[2:]), fc) for name, fc in p.items()
+                 if re.match(r"^fc\d+$", name))
+    if projector_type is None and len(fcs) == 1:
+        raise ValueError("a lone fc1 is a linear or an mlp1x_gelu "
+                         "projector, whose keys differ: pass the config")
+    if projector_type == "linear":
+        fcs = [(None, fc) for _, fc in fcs]
+    for d, fc in fcs:
+        key = prefix if d is None else prefix + f"{2 * (d - 1)}."
+        sd[key + "weight"] = cpu(fc["kernel"].T)
+        sd[key + "bias"] = cpu(fc["bias"])
     return sd
 
 
-def export_hf_projector_bin(path: str, connector_params: dict) -> None:
+def export_hf_projector_bin(path: str, connector_params: dict,
+                            cfg=None) -> None:
     """The connector as a torch `mm_projector.bin` in the reference's key
     layout (model.mm_projector.*; projector.py:49-63), which the reference
-    and both packages' load_pretrain_adapter read."""
-    torch.save(_projector_state_dict(connector_params, "model.mm_projector."),
-               path)
+    and both packages' load_pretrain_adapter read (the JAX package's own
+    export of a linear projector excepted). cfg: the ModelConfig or
+    ConnectorConfig, which a linear or mlp1x_gelu projector needs."""
+    torch.save(_projector_state_dict(connector_params, "model.mm_projector.",
+                                     _projector_type(cfg)), path)
+
+
+def _projector_type(cfg) -> Optional[str]:
+    return None if cfg is None else getattr(cfg, "connector",
+                                            cfg).projector_type
 
 
 def export_lora_split(directory: str, llm_params: dict,
@@ -166,7 +188,8 @@ def export_lora_split(directory: str, llm_params: dict,
                        for n in adapters)}, f, indent=2)
 
     torch.save(_projector_state_dict(connector_params,
-                                     "base_model.model.model.mm_projector."),
+                                     "base_model.model.model.mm_projector.",
+                                     _projector_type(model_cfg)),
                os.path.join(directory, "non_lora_trainables.bin"))
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(model_config_to_hf(model_cfg), f, indent=2)

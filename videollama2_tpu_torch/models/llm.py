@@ -37,12 +37,14 @@ head is vocab-parallel: local logits all-gathered over `tensor`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.config import LLMConfig
 from ..ops import attention as attn_ops
@@ -427,23 +429,55 @@ def _layer(cfg: LLMConfig, x: torch.Tensor, lp: dict, cos: torch.Tensor,
     return x + _ffn(cfg, h, lp, w8a8, plan)
 
 
+# the products of activations by weights: a matmul of a [..., in] tensor by
+# an [in, out] kernel reaches the dispatcher as one of these, after the
+# reshape that folds its leading dims
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of remat="dots" (JAX's
+    dots_with_no_batch_dims_saveable): the outputs of the products without
+    batch dims (the projections, the FFN and LoRA's products) are saved;
+    everything else (norms, rope, SiLU, attention, products with batch
+    dims) runs again in the backward."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_kwargs(remat) -> dict:
+    """torch.utils.checkpoint's arguments for a remat setting (True or
+    "dots"); ValueError for any other string."""
+    if remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, dots_saveable)}
+    if isinstance(remat, str):
+        raise ValueError(f"unknown remat policy {remat!r}: False, True or "
+                         f"'dots'")
+    return {}
+
+
 def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
             positions: torch.Tensor, valid_len: torch.Tensor,
             cache: Optional[KVCache] = None,
-            w8a8: bool = False, remat: bool = False) -> torch.Tensor:
+            w8a8: bool = False,
+            remat: Union[bool, str] = False) -> torch.Tensor:
     """Full-sequence forward (prefill and training). embeds [B, S, D],
     positions [B, S], valid_len [B] int32. Writes each layer's k/v into
     cache rows [0, S) in place when a cache is given (an int8 cache stores
     the rows quantized; attention itself uses the exact k/v). w8a8 selects
     the serving branch of int8 packs. remat (training, no cache) wraps each
     layer in torch.utils.checkpoint, as the JAX package wraps its layer
-    body in jax.checkpoint: only each layer's input is kept, and the layer
-    runs again in the backward. Returns the final-normed hidden [B, S, D].
+    body in jax.checkpoint: with True only each layer's input is kept, and
+    the layer runs again in the backward; with "dots" the layer's products
+    with the weights are kept too (`dots_saveable`) and the rest runs
+    again. Returns the final-normed hidden [B, S, D].
     Under sequence parallelism (parallel/sharding.sequence_parallel) each
     rank takes its S / seq tokens of embeds and positions and returns its
     tokens' hidden states [B, S / seq, D].
     """
     check_supported(cfg, layers=params["layers"])
+    remat_kw = remat_kwargs(remat)
     if remat and cache is not None:
         raise ValueError("remat is for training: it takes no cache")
     plan, lcfg = plan_and_config(params, cfg)
@@ -459,7 +493,7 @@ def forward(params: dict, cfg: LLMConfig, embeds: torch.Tensor,
     for i, lp in enumerate(layers):
         if remat:
             x = checkpoint(_layer, lcfg, x, lp, cos, sin, valid_len, None,
-                           i, w8a8, plan, use_reentrant=False)
+                           i, w8a8, plan, use_reentrant=False, **remat_kw)
         else:
             x = _layer(lcfg, x, lp, cos, sin, valid_len, cache, i, w8a8,
                        plan)

@@ -1,5 +1,6 @@
 """Multimodal assembly (port of videollama2_tpu/models/videollama2.py):
-frames -> CLIP or SigLIP tower -> STC connector, and on the audio-visual
+frames -> CLIP or SigLIP tower -> connector (models/connector: any of the
+eight projector types), and on the audio-visual
 model fbank -> BEATs -> 2-layer MLP projector (`encode_audio`); then the
 splice -> LLM prefill (serving) or LLM forward, head and shifted
 cross-entropy (training, `forward_train`, video only as in the JAX
@@ -11,7 +12,7 @@ cfg.audio is set, "audio": {"encoder": BEATs, "projector": MLP}.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -139,12 +140,20 @@ def encode_audio(params: dict, cfg: ModelConfig,
 def temporal_aggregator(params: dict, cfg: ModelConfig,
                         frame_feats: torch.Tensor) -> torch.Tensor:
     """[B, T, N, D_vision] -> [B, tokens, D_llm] through the connector;
-    the linear and mlp* projectors take the mean over T first."""
-    pt = cfg.connector.projector_type
-    if pt in ("mlp2x_gelu", "linear") or pt.startswith("mlp"):
+    the linear and mlp* projectors take the mean over T first. The
+    identity projector passes the tower's features through, so it runs
+    only where D_vision is D_llm: other widths raise a ValueError here,
+    before the splice (where the JAX package fails to broadcast)."""
+    conn = cfg.connector
+    k = connector_lib.kind(conn.projector_type)
+    if k in ("linear", "mlp"):
         frame_feats = frame_feats.mean(dim=1)
-    return connector_lib.apply(params["connector"], cfg.connector,
-                               frame_feats)
+    elif k == "identity" and conn.mm_hidden_size != cfg.llm.hidden_size:
+        raise ValueError(
+            f"the identity projector passes the tower's width "
+            f"mm_hidden_size {conn.mm_hidden_size} to an LLM of "
+            f"hidden_size {cfg.llm.hidden_size}: they must be equal")
+    return connector_lib.apply(params["connector"], conn, frame_feats)
 
 
 def aggregate_each(params: dict, cfg: ModelConfig,
@@ -206,14 +215,17 @@ def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                   text_ids: torch.Tensor, is_visual: torch.Tensor,
                   vis_index: torch.Tensor, positions: torch.Tensor,
                   valid_len: torch.Tensor, labels: torch.Tensor,
-                  num_tokens: Optional[torch.Tensor] = None
+                  num_tokens: Optional[torch.Tensor] = None,
+                  remat: Union[bool, str] = True
                   ) -> Tuple[torch.Tensor, dict]:
     """Training forward (JAX `forward_train`): (mean masked CE loss,
     metrics {"loss", "num_tokens", "accuracy"}).
 
     The tower runs under torch.no_grad (frozen, as JAX's stop_gradient on
-    its features); the connector, splice, LLM (each layer checkpointed, as
-    JAX's remat=True) and fp32 head carry gradients. Labels use
+    its features); the connector, splice, LLM and fp32 head carry
+    gradients. remat is llm.forward's: each layer checkpointed (True, the
+    default, as JAX's), its products with the weights saved and the rest
+    recomputed ("dots"), or nothing recomputed (False). Labels use
     IGNORE_INDEX for unsupervised positions; the loss is next-token CE over
     the supervised ones (HF causal-LM shift).
 
@@ -231,7 +243,7 @@ def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     embeds = splice_lib.compose_embeds(text_emb, vis_tokens, is_visual,
                                        vis_index)
     hidden = llm_lib.forward(params["llm"], cfg.llm, embeds, positions,
-                             valid_len, remat=True)
+                             valid_len, remat=remat)
     logits = llm_lib.lm_logits(params["llm"], cfg.llm, hidden)  # fp32
     mesh = sh.current_mesh()
     if mesh is not None and sh.sp_enabled() and mesh.shape["seq"] > 1:

@@ -44,6 +44,11 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor, bias=None,
 
 def avg_pool3d(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
     """nn.AvgPool3d(window) with stride=window, no padding.
-    x: [N, T, H, W, C]."""
-    out = F.avg_pool3d(x.permute(0, 4, 1, 2, 3), tuple(window))
-    return out.permute(0, 2, 3, 4, 1)
+    x: [N, T, H, W, C]. The CPU has no half-precision avg_pool3d: there
+    bf16 / fp16 input is averaged in fp32 and rounded back, as CUDA's
+    kernel accumulates in fp32."""
+    y = x.permute(0, 4, 1, 2, 3)
+    if y.device.type == "cpu" and y.dtype in (torch.bfloat16, torch.float16):
+        return F.avg_pool3d(y.float(), tuple(window)).to(
+            x.dtype).permute(0, 2, 3, 4, 1)
+    return F.avg_pool3d(y, tuple(window)).permute(0, 2, 3, 4, 1)

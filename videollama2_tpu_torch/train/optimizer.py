@@ -216,6 +216,9 @@ class GroupedAdamW:
         masters = state.get("master", {})
         for group, paths in self.groups.items():
             count = state["count"][group]
+            if not paths:  # a group without params (the identity connector)
+                state["count"][group] = count + 1
+                continue
             gs = [grads[p].float() if p in masters else grads[p]
                   for p in paths]
             if layout is None:

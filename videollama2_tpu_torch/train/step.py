@@ -34,6 +34,7 @@ import torch
 
 from ..constants import IGNORE_INDEX
 from ..core.config import ModelConfig
+from ..models import llm as llm_lib
 from ..models import videollama2 as vl2
 from ..parallel import sharding as sh
 from .data import Batch
@@ -91,7 +92,7 @@ def _tree_to(tree: dict, device) -> dict:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: Batch,
-            num_tokens: Optional[torch.Tensor] = None):
+            num_tokens: Optional[torch.Tensor] = None, remat=True):
     """forward_train on one microbatch, moved to the params' device;
     floating frames are cast to the params' dtype (JAX's compute dtype),
     uint8 frames are normalized on the device (JAX `_loss_fn`)."""
@@ -106,7 +107,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Batch,
         _to_device(batch.vis_index, device),
         _to_device(batch.positions, device),
         _to_device(batch.valid_len, device, torch.int32),
-        _to_device(batch.labels, device), num_tokens=num_tokens)
+        _to_device(batch.labels, device), num_tokens=num_tokens,
+        remat=remat)
 
 
 def _global_tokens(mb: Batch, mesh, device) -> torch.Tensor:
@@ -119,13 +121,16 @@ def _global_tokens(mb: Batch, mesh, device) -> torch.Tensor:
 
 def make_train_step(cfg: ModelConfig, tx: GroupedAdamW,
                     trainable: Dict[Path, bool], grad_accum: int = 1,
-                    mesh=None, sequence_parallel: bool = False):
+                    mesh=None, sequence_parallel: bool = False,
+                    remat=True):
     """Build step(state, batch) -> (state, metrics). `trainable` ({path:
     bool}, optimizer.trainable_mask) sets requires_grad on the params.
     With a mesh the state holds shards (init_sharded_state) and `batch` is
     this rank's rows of the global batch (shard_batch(batch, mesh,
     grad_accum)); sequence_parallel turns on Ulysses sequence parallelism
-    over the mesh's seq axis."""
+    over the mesh's seq axis. remat is the LLM's (models/llm.forward:
+    True, "dots" or False), as JAX's make_train_step takes it."""
+    llm_lib.remat_kwargs(remat)  # an unknown policy raises here
     layout = None if mesh is None else sh.Layout(mesh, cfg)
     sp_on = sequence_parallel and mesh is not None
 
@@ -143,8 +148,9 @@ def make_train_step(cfg: ModelConfig, tx: GroupedAdamW,
         device = next(iter(flat.values())).device
         for mb in microbatches(batch, grad_accum):
             n = None if mesh is None else _global_tokens(mb, mesh, device)
-            loss, metrics = loss_fn(state.params, cfg, mb, n)
-            loss.backward()
+            loss, metrics = loss_fn(state.params, cfg, mb, n, remat)
+            if loss.requires_grad:  # nothing trains (stage 1, identity)
+                loss.backward()
             for p in trained:
                 g = flat[p].grad
                 flat[p].grad = None

@@ -4,8 +4,9 @@ Released checkpoints are not needed to run or time the model: this builds
 every parameter of `models/videollama2.param_shapes(cfg)` from one seeded
 torch.Generator, with the JAX package's init scales (normal(0, 0.02)
 kernels and embeddings, ones for norm scales and BEATs's gate constants,
-zeros for biases, He-normal connector convs, 1/sqrt(fan_in) readout and
-audio projector). Random values, unlike constant
+zeros for biases, He-normal connector convs, 1/sqrt(fan_in) for the
+connector's MLPs (the readout, and the fc* of the linear and mlp{N}x_gelu
+projectors) and the audio projector). Random values, unlike constant
 fills, give every attention row a different softmax, so a kernel bug shows
 up in the output. The quantized variants (int8 or folded int4 LLM layers,
 an int8 head and tower) quantize that same tree on the device with
@@ -42,7 +43,8 @@ def _init(path, shape, dtype, device, generator) -> torch.Tensor:
     std = 0.02
     if path[0] == "connector":
         fan_in = math.prod(shape[:-1])
-        std = math.sqrt((1.0 if path[1] == "readout" else 2.0) / fan_in)
+        mlp = path[1] == "readout" or path[1].startswith("fc")
+        std = math.sqrt((1.0 if mlp else 2.0) / fan_in)
     elif path[:2] == ("audio", "projector"):
         std = math.sqrt(1.0 / shape[0])
     w = torch.randn(shape, generator=generator, dtype=dtype, device=device)
