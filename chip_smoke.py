@@ -44,18 +44,27 @@ from media/csrc where libavcodec is, else a named error and an
 error_code 1 answer). The "api" phase loads a checkpoint
 in the released 7B-16F layout (LLM cut to 8 layers) through model_init
 and answers through mm_infer, mm_infer_batch, a 3-turn ChatSession and
-mm_infer_session. The "av" phase runs VideoLLaMA2.1-AV (the 2.1 slice's
+mm_infer_session (a word-level toy tokenizer keeps every call's decode
+length, and so its launch counts, fixed); its checkpoint also holds
+tests/tokenizer_writer.py's full-vocabulary Mistral tokenizer files, which
+the port's reader (multimodal/hf_tokenizer.py) must tokenize as the
+committed golden ids of the `tokenizers` library do, and a second
+model_init with no tokenizer reads them and answers one clip (launch
+counts derived from where the real EOS fell). The "av" phase runs VideoLLaMA2.1-AV (the 2.1 slice's
 model with the BEATs audio tower and its projector) on the 2.1 int8
 slice's weights plus a seeded bf16 audio branch: 16 audio-visual prompts
 (16 frames and 10.24 s of audio each, fbank made on the host) twice, 16
 audio-only ones twice, the BEATs encode timed, and first-token and decode
 logits held against the plain versions; its api calls load a checkpoint
 in the released VideoLLaMA2.1-AV layout (LLM cut to 8 layers) and answer
-through mm_infer (audio on a .wav, and av) and mm_infer_session. The
+through mm_infer (audio on a .wav, and av) and mm_infer_session, then
+the same golden check and tokenizer-less model_init on its Qwen2
+tokenizer files. The
 "eval" phase runs the evaluation harness on the api phase's checkpoint in
 bf16: the MVBench inference script as `python -m` in a child process over a GIF
 task and a JPEG frame-directory task it writes (then the merge and the
-scorer's command line), the Video-MME inference script in this process (JSON
+scorer's command line; once more with no --tokenizer, on the
+checkpoint's own files), the Video-MME inference script in this process (JSON
 question file, SRT subtitles, mm_infer_batch), run_batched over grouped
 videos, each record and answer held to a direct B 1 mm_infer's, and
 quant_accuracy.measure's six variants on the checkpoint's LLM (K3-K7 on
@@ -109,7 +118,9 @@ writes: stage 1, the same run stopped by SIGTERM and resumed (bit-equal
 to the uninterrupted one), stage 2 and VideoLLaMA2.1 stage 1, under
 --bf16 (bf16 compute, fp32 masters of the trained tensors), each with
 exact launch counts, every trained tensor moved and every frozen one
-bit-unchanged.
+bit-unchanged; stage 2 and VideoLLaMA2.1 stage 1 run with no --tokenizer,
+on the LLM directory's own tokenizer files, and the tokenization's share
+of the host time of stage 2's dataset items is measured.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -131,6 +142,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,6 +192,13 @@ DECODE_CHECK_STEPS = 3
 MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "manifests", "videollama2_7b_16f.json")
 API_LLM_LAYERS = 8
+# the ids `tokenizers` gives on tests/tokenizer_writer.py's full-vocabulary
+# files (tests/test_torch_tokenizer.py keeps them current)
+TOKENIZER_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "fixtures", "tokenizer_golden.json")
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                   "special_tokens_map.json")
+TOKENIZER_TIMING_ITERS = 20
 API_BATCH = 16
 # the "av" phase: VideoLLaMA2.1-AV on the 2.1 int8 slice's tree plus a
 # seeded bf16 audio branch; each row's 10.24 s of 16 kHz audio makes 1022
@@ -1389,7 +1408,199 @@ def write_api_checkpoint(ckpt) -> dict:
         f"(LLM layers 0-{API_LLM_LAYERS - 1} of 32), "
         f"{n_params / 1e9:.3f} B params, {out['checkpoint_gb']:.2f} GB "
         f"bf16 safetensors in {out['write_s']:.1f} s")
+    out["tokenizer_write_s"] = write_tokenizer(ckpt, "mistral")
+    log(f"[api] wrote the Mistral tokenizer files (32,000 entries, "
+        f"tests/tokenizer_writer.py) in {out['tokenizer_write_s']:.2f} s")
     return out
+
+
+def write_tokenizer(ckpt, family) -> float:
+    """tests/tokenizer_writer.py's full-vocabulary files of `family`
+    ("mistral", its older serialization, or "qwen2") into the directory
+    `ckpt`; returns the seconds taken."""
+    import tokenizer_writer
+    t0 = time.perf_counter()
+    if family == "mistral":
+        tokenizer_writer.write_mistral(ckpt)
+    else:
+        tokenizer_writer.write_qwen2(ckpt)
+    return time.perf_counter() - t0
+
+
+def check_tokenizer_golden(family, path) -> dict:
+    """The port's reader (multimodal/hf_tokenizer.py) on the tokenizer
+    files in `path` against the committed golden ids of `family`: the ids
+    of each golden text with and without the special tokens, the multimodal
+    chunk ids, build_prompt_ids of the golden prompts (the chat-templated
+    video, audio-visual and text prompts) and decode(encode(text)) ==
+    text. Returns the load seconds and the host microseconds an encoded
+    prompt takes, cold (the reader's per-word cache empty) and warm."""
+    from videollama2_tpu_torch.core import config as cfglib
+    from videollama2_tpu_torch.inference import api
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
+    from videollama2_tpu_torch.multimodal.tokenizer import \
+        tokenizer_multimodal_token
+    with open(TOKENIZER_GOLDEN, encoding="utf-8") as f:
+        golden = json.load(f)["families"][family]
+    t0 = time.perf_counter()
+    tok = hf_tokenizer.load(path)
+    load_s = time.perf_counter() - t0
+    cfg = cfglib.tiny_model(golden["model_type"])
+
+    def prompts():
+        return [api.build_prompt_ids(p["instruct"], cfg, tok, p["modal"])
+                for p in golden["prompts"]]
+    t0 = time.perf_counter()  # the first call compiles the chat template
+    got_prompts = prompts()
+    cold_us = (time.perf_counter() - t0) / len(golden["prompts"]) * 1e6
+    t0 = time.perf_counter()
+    for _ in range(TOKENIZER_TIMING_ITERS):
+        prompts()
+    warm_us = ((time.perf_counter() - t0) / TOKENIZER_TIMING_ITERS
+               / len(golden["prompts"]) * 1e6)
+    texts = golden["texts"]
+    checks = {
+        "len": (len(tok), golden["len"]),
+        "ids": ([tok(t).input_ids for t in texts], golden["ids"]),
+        "ids_plain": ([tok(t, add_special_tokens=False).input_ids
+                       for t in texts], golden["ids_plain"]),
+        "chunks": ([tokenizer_multimodal_token("<video>\nhi there", tok,
+                                               "<video>")], golden["chunks"]),
+        "prompts": (got_prompts, [p["ids"] for p in golden["prompts"]]),
+        "decode(encode(text))": (
+            [tok.decode(tok(t, add_special_tokens=False).input_ids)
+             for t in texts], texts)}
+    bad = [k for k, (got, want) in checks.items() if got != want]
+    if bad:
+        raise RuntimeError(f"[tokenizer] {family}: the reader differs from "
+                           f"the golden ids of `tokenizers` in {bad}")
+    out = {"load_s": load_s, "encode_us_cold": cold_us,
+           "encode_us_warm": warm_us,
+           "prompt_ids": [len(p) for p in got_prompts],
+           "golden_texts": len(texts)}
+    log(f"[tokenizer] {family}: the reader's ids equal the golden ids of "
+        f"`tokenizers` ({len(texts)} texts with and without special "
+        f"tokens, {len(got_prompts)} chat-templated prompts of "
+        f"{out['prompt_ids']} ids, decode(encode(text)) == text); load "
+        f"{load_s:.3f} s, {cold_us:.0f} us an encoded prompt on the first "
+        f"call (template compiled, word cache empty), {warm_us:.0f} us "
+        f"warm (host)")
+    return out
+
+
+def decode_steps_run(tokens, eos, max_new_tokens, chunk, budget) -> int:
+    """The decode steps an Engine.generate of one prompt ran for `tokens`
+    (its output, EOS included): none when the prefill's token is EOS, else
+    whole decode chunks up to the one holding EOS, capped by
+    max_new_tokens and the cache rows after the bucket, `budget`
+    (inference/engine.py _decode_tail)."""
+    total = min(max_new_tokens - 1, budget)
+    if not tokens or tokens[0] == eos:
+        return 0
+    if eos in tokens:
+        return min(-(-tokens.index(eos) // chunk) * chunk, total)
+    return total
+
+
+def run_e2e_script(ckpt, counters) -> tuple:
+    """scripts/e2e_smoke_torch.py on the api checkpoint, in this process
+    (bf16, the card; bucket 1792 holds the 1,521 video tokens and the
+    system prompt, 128 cache rows after it): model_init with no tokenizer,
+    the processors on a GIF and a PNG it writes, mm_infer (video, image,
+    text, the I420 wire) and mm_infer_batch, each answer the decode of its
+    tokens. Its tower and
+    prefill must launch K1 and K2 and no packed kernel run (bf16 weights,
+    bf16 cache). Returns the seconds and the launch counts."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "e2e_smoke_torch.py")
+    spec = importlib.util.spec_from_file_location("e2e_smoke_torch", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    script.main(["--model-path", ckpt, "--max-len", "1920", "--bucket",
+                 "1792"])
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0}
+    counts = {n: c.launches for n, c in counters.items()}
+    on_path = {"encoder_attention", "flash_attention"}
+    if not all(counts[n] for n in on_path) or any(
+            v for n, v in counts.items() if n not in on_path):
+        raise RuntimeError(f"[e2e] launches {counts}: K1 and K2 only")
+    log(f"[e2e] scripts/e2e_smoke_torch.py on the api checkpoint (bf16, "
+        f"its own tokenizer): {out['s']:.1f} s, launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def run_own_tokenizer_call(label, ckpt, family, cfg, counters, clip,
+                           **init) -> tuple:
+    """The reader against the golden ids on the checkpoint's own tokenizer
+    files, then model_init(ckpt, **init) with no tokenizer (it reads those
+    files; the bucket fits the prompt the reader makes, with 128 cache
+    rows after it) and one mm_infer of the I420 `clip`, with exact launch
+    counts derived from the tokens it returned (decode_steps_run: the
+    seeded model may meet the real EOS id). Its answer must be the decode
+    of its tokens. Returns the numbers and the launch counts."""
+    from videollama2_tpu_torch.inference import api
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
+    out = {"golden": check_tokenizer_golden(family, ckpt)}
+    question = "What is happening in this video?"
+    prompt = api.build_prompt_ids(question, cfg, hf_tokenizer.load(ckpt),
+                                  "video")
+    bucket = -(-spliced_length_of({"video": prompt},
+                                  cfg.tokens_per_video)["video"] // 128) * 128
+    budget = 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, _, tok = api.model_init(ckpt, buckets=(bucket,),
+                                   max_len=bucket + budget, **init)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    if not isinstance(tok, hf_tokenizer.HFTokenizer):
+        raise RuntimeError(f"[{label}] model_init gave {type(tok)}")
+    tokens = []
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answer = api.mm_infer(clip, question, model, tok,
+                          max_new_tokens=NEW_TOKENS,
+                          stream_cb=lambda b, t: tokens.__setitem__(
+                              slice(None), list(t)))
+    torch.cuda.synchronize()
+    out["call_s"] = time.perf_counter() - t0
+    counts = {n: c.launches for n, c in counters.items()}
+    steps = decode_steps_run(tokens, tok.eos_token_id, NEW_TOKENS,
+                             model.engine.decode_chunk, budget)
+    want = phase_launches(counters, cfg, 1, True, steps, True)
+    log(f"[{label}] mm_infer on the checkpoint's own tokenizer: "
+        f"{len(prompt)} prompt ids, bucket {bucket}, "
+        f"{len(tokens)} tokens (EOS {tok.eos_token_id} "
+        f"{'met' if tok.eos_token_id in tokens else 'not met'}), "
+        f"{steps} decode steps, launches {counts} (want {want})")
+    if counts != want:
+        raise RuntimeError(f"[{label}] own tokenizer: kernel launch counts "
+                           f"{counts} != {want}")
+    if answer != tok.decode(tokens, skip_special_tokens=True).strip():
+        raise RuntimeError(f"[{label}] own tokenizer: the answer "
+                           f"{answer!r} is not the decode of its tokens")
+    out.update(tokens=len(tokens), decode_steps=steps, bucket=bucket,
+               prompt_ids=len(prompt), eos_met=tok.eos_token_id in tokens)
+    log(f"[{label}] model_init with no tokenizer (the directory's "
+        f"{family} files): {out['load_s']:.2f} s; mm_infer "
+        f"{out['call_s']:.3f} s; answer {answer[:60]!r}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
 
 
 def run_api_phase(ckpt, written, counters, attn, k1, k2, k3, dk):
@@ -1467,6 +1678,20 @@ def run_api_phase(ckpt, written, counters, attn, k1, k2, k3, dk):
     check_decode_against_plain(eng, cfg, clips, prompt, BUCKET, k3, dk, 8)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[api] peak device memory {out['peak_gb']:.2f} GB")
+    del model, eng
+    # the checkpoint's own tokenizer (tests/tokenizer_writer.py's Mistral
+    # files, written with it), and the other Mistral serialization's files
+    # against the golden ids
+    with tempfile.TemporaryDirectory() as newer:
+        import tokenizer_writer
+        tokenizer_writer.write_mistral(newer, legacy=False)
+        out["tokenizer_metaspace"] = check_tokenizer_golden(
+            "mistral_metaspace", newer)
+    out["own_tokenizer"], counts["mm_infer own tokenizer"] = \
+        run_own_tokenizer_call(
+            "api", ckpt, "mistral_legacy", cfg, counters, clips[0],
+            load_8bit=True, kv_bits=8)
+    out["e2e"], counts["e2e_smoke_torch"] = run_e2e_script(ckpt, counters)
     return out, counts
 
 
@@ -2302,6 +2527,10 @@ def write_api_av_checkpoint(ckpt) -> dict:
         f"28), {n_params / 1e9:.3f} B params, "
         f"{out['checkpoint_gb']:.2f} GB bf16 safetensors in "
         f"{out['write_s']:.1f} s")
+    out["tokenizer_write_s"] = write_tokenizer(ckpt, "qwen2")
+    log(f"[api av] wrote the Qwen2 tokenizer files (151,643 BPE entries "
+        f"and 3 added tokens, tests/tokenizer_writer.py) in "
+        f"{out['tokenizer_write_s']:.2f} s")
     return out
 
 
@@ -2436,8 +2665,10 @@ def run_api_av_phase(ckpt_dir, written, counters, attn, k1, k2, k3, dk):
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[api av] peak device memory {out['peak_gb']:.2f} GB")
     del model, eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    out["own_tokenizer"], counts["mm_infer own tokenizer"] = \
+        run_own_tokenizer_call(
+            "api av", ckpt_dir, "qwen2", cfg, counters, clips[0],
+            load_8bit=True, kv_bits=8)
     return out, counts
 
 
@@ -3419,6 +3650,8 @@ def write_plain_dirs(root, cfg, ckpt) -> tuple:
         os.symlink(weights, os.path.join(llm_dir, "model.safetensors"))
     with open(os.path.join(llm_dir, "config.json"), "w") as f:
         json.dump(_hf_llm_config(cfg, API_LLM_LAYERS), f)
+    for name in TOKENIZER_FILES:  # the checkpoint's tokenizer
+        shutil.copy(os.path.join(ckpt, name), os.path.join(llm_dir, name))
     src = read_safetensors(weights)
     with open(os.path.join(tower_dir, "config.json"), "w") as f:
         json.dump(_hf_tower_config(cfg.vision), f)
@@ -3612,6 +3845,42 @@ def run_train_entry_phase(api_ckpt, api_av_ckpt, counters) -> tuple:
     return out, counts
 
 
+def tokenization_share(corpus, llm_dir, cfg) -> dict:
+    """Host seconds of the stage-2 corpus (sft.json) on the LLM directory's
+    own tokenizer, each on a fresh reader (its word cache empty, as in a
+    child's first epoch): the dataset's items whole (media decode and
+    resize, then tokenization) against the tokenization alone (the same
+    conversations through data.preprocess)."""
+    import copy
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
+    from videollama2_tpu_torch.train import data as data_lib
+    path = [os.path.join(corpus, "sft.json")]
+    args = data_lib.DataArguments(data_path=path, data_folder=corpus,
+                                  num_frames=cfg.num_frames)
+    ds = data_lib.SupervisedDataset(path, hf_tokenizer.load(llm_dir), args,
+                                    cfg)
+    tok = hf_tokenizer.load(llm_dir)
+    t0 = time.perf_counter()
+    for sample in ds.list_data_dict:
+        sources = [copy.deepcopy(sample["conversations"])]
+        tag = next((f"<{k}>" for k in ("video", "image") if k in sample),
+                   None)
+        if tag:
+            sources = data_lib.preprocess_multimodal(sources, tag)
+        data_lib.preprocess(sources, tok, tag)
+    tok_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    item_s = time.perf_counter() - t0
+    out = {"samples": len(ds), "items_s": item_s, "tokenize_s": tok_s,
+           "share": tok_s / item_s}
+    log(f"[train entry] stage 2's corpus on its own tokenizer (host): "
+        f"{len(ds)} items in {item_s:.3f} s, their tokenization alone "
+        f"{tok_s:.4f} s, a {out['share']:.2%} share")
+    return out
+
+
 def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
                    extra_flags=()) -> dict:
     """The phase's five processes (see run_train_entry_phase) over the
@@ -3627,7 +3896,11 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
 
     def flags(llm, tower, out_dir, model_type="videollama2_mistral",
               projector="stc_connector", stage=1, steps=TE_STEPS,
-              save_steps=2, epochs=2):
+              save_steps=2, epochs=2, own_tokenizer=False):
+        # own_tokenizer: no --tokenizer, the LLM directory's own files
+        # (tests/tokenizer_writer.py's, copied from the api checkpoints)
+        tok_flags = ([] if own_tokenizer
+                     else ["--tokenizer", "chip_smoke:toy_tokenizer"])
         common = [
             "--model_type", model_type, "--model_path", llm,
             "--vision_tower", tower, "--mm_projector_type", projector,
@@ -3638,7 +3911,7 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
             "--lr_scheduler_type", "cosine", "--save_steps", str(save_steps),
             "--logging_steps", "1", "--bf16", "true", "--max_steps",
             str(steps), "--mesh_fsdp", "-1", "--mesh_tensor", "1",
-            "--tokenizer", "chip_smoke:toy_tokenizer", *extra_flags]
+            *tok_flags, *extra_flags]
         if stage == 1:
             return common + [
                 "--tune_mm_mlp_adapter", "true", "--data_path",
@@ -3739,7 +4012,8 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
                            TE_FT_MB)
     rep_d, _ = run_entry(
         "stage 2", flags(m_llm, m_tower, d_dir, stage=2,
-                         steps=TE_STAGE2_STEPS, save_steps=500, epochs=1)
+                         steps=TE_STAGE2_STEPS, save_steps=500, epochs=1,
+                         own_tokenizer=True)
         + ["--pretrain_mm_mlp_adapter",
            os.path.join(a_dir, f"adapter-{TE_STEPS}")], report("d"))
     first_conn = {k[len("master:connector/"):]: v
@@ -3750,6 +4024,7 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
                            "1's adapter")
     out["stage2"] = check_entry_run("stage 2", rep_d, _train_log(d_dir),
                                     want2)
+    out["stage2"]["tokenization"] = tokenization_share(corpus, m_llm, mcfg)
     counts["stage 2"] = rep_d["launches"]
     shutil_rm(a_dir)
     shutil_rm(d_dir)
@@ -3760,7 +4035,8 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
     rep_e, _ = run_entry(
         "2.1 stage 1", flags(q_llm, q_tower, e_dir, "videollama2_qwen2",
                              "stc_connector_v35", steps=TE_QWEN2_STEPS,
-                             save_steps=500, epochs=1), report("e"))
+                             save_steps=500, epochs=1, own_tokenizer=True),
+        report("e"))
     out["qwen2_stage1"] = check_entry_run("2.1 stage 1", rep_e,
                                           _train_log(e_dir), wantq)
     counts["2.1 stage 1"] = rep_e["launches"]
@@ -4007,6 +4283,7 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
     from videollama2_tpu_torch.eval import quant_accuracy as qa
     from videollama2_tpu_torch.inference import api
     from videollama2_tpu_torch.media.preprocess import process_video
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
     import videollama2_tpu_torch
 
     cfg = api_config()
@@ -4047,6 +4324,22 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
             f"scorer {out['mvbench_score']}")
         if len(records) != 4 or any("error" in r for r in records):
             raise RuntimeError(f"[eval] mvbench records {records}")
+        # the same script without --tokenizer: the checkpoint's own files
+        own_answers = os.path.join(root, "mvbench_own", "1_0.jsonl")
+        t0 = time.perf_counter()
+        eval_child("mvbench own tokenizer", [
+            "videollama2_tpu_torch.eval.inference_video_mcqa_mvbench",
+            "--model-path", ckpt, "--question-file", media["mvbench_json"],
+            "--video-folder", media["mvbench_video"],
+            "--answer-file", own_answers, "--num-chunks", "1",
+            "--chunk-idx", "0"], root)
+        out["mvbench_own_tokenizer_process_s"] = time.perf_counter() - t0
+        own_records = common.merge_chunks(
+            [own_answers], os.path.join(root, "mvbench_own", "merge.json"),
+            return_records=True)
+        if len(own_records) != 4 or any("error" in r for r in own_records):
+            raise RuntimeError(f"[eval] mvbench own tokenizer records "
+                               f"{own_records}")
 
         t0 = time.perf_counter()
         model, processor, tok = api.model_init(
@@ -4067,7 +4360,8 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
                 if os.path.exists(path):
                     with open(path) as f:
                         annos[task] = (json.load(f), has_se)
-            for r in records:
+            def direct(r, tokenizer, label):
+                """A record's option index from a direct B 1 mm_infer."""
                 task, j = r["index"].rsplit(":", 1)
                 item, has_se = annos[task][0][int(j)], annos[task][1]
                 tensor = process_video(
@@ -4075,23 +4369,38 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
                     s=item.get("start") if has_se else None,
                     e=item.get("end") if has_se else None,
                     aspect_ratio=None, num_frames=cfg.num_frames)
-                resp, _, counts[f"mvbench {r['index']}"] = counted_call(
-                    f"eval mvbench {r['index']}", counters, want_b1,
+                resp, _, counts[f"{label} {r['index']}"] = counted_call(
+                    f"eval {label} {r['index']}", counters, want_b1,
                     lambda cb: api.mm_infer(
                         tensor, mvb.build_prompt(item["question"],
                                                  item["candidates"]),
-                        model, tok, modal="video", max_new_tokens=64,
+                        model, tokenizer, modal="video", max_new_tokens=64,
                         stream_cb=cb))
                 letters = [chr(ord("A") + i)
                            for i in range(len(item["candidates"]))]
                 pred = letters.index(common.extract_choice_letter(
                     resp, item["candidates"], letters=letters))
-                if r["pred"] != pred or pred == 2:
+                if r["pred"] != pred:
                     raise RuntimeError(
-                        f"[eval] mvbench {r['index']}: record pred "
+                        f"[eval] {label} {r['index']}: record pred "
                         f"{r['pred']}, direct mm_infer {pred} ({resp[:40]!r})")
+                return pred
+
+            for r in records:
+                if direct(r, tok, "mvbench") == 2:
+                    raise RuntimeError(f"[eval] mvbench {r['index']}: the "
+                                       "fallback letter C")
             log(f"[eval] MVBench records equal direct B 1 mm_infer letters: "
                 f"{[r['pred'] for r in records]}")
+            # the child that read the checkpoint's own tokenizer against
+            # direct calls through the reader (its answers are random text:
+            # the fallback letter C may stand)
+            reader = hf_tokenizer.load(ckpt)
+            for r in own_records:
+                direct(r, reader, "mvbench own tokenizer")
+            log(f"[eval] MVBench records of the child on the checkpoint's "
+                f"own tokenizer equal direct B 1 mm_infer letters through "
+                f"the reader: {[r['pred'] for r in own_records]}")
 
             # (b) Video-MME in this process
             batches = []
@@ -5202,6 +5511,9 @@ def main() -> None:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    import jinja2  # the tokenizer reader's chat templates (torch needs it)
+    log(f"jinja2 {jinja2.__version__} (chat templates of the port's "
+        f"tokenizer reader, multimodal/hf_tokenizer.py)")
     t_start = time.perf_counter()
 
     # -- build -----------------------------------------------------------

@@ -43,6 +43,7 @@ from videollama2_tpu_torch.core import config as tcfglib
 from videollama2_tpu_torch.inference import api as tapi
 from videollama2_tpu_torch.models import llm as tllm
 from videollama2_tpu_torch.models import videollama2 as tvl2
+from videollama2_tpu_torch.multimodal import hf_tokenizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -486,8 +487,15 @@ def test_api_surface_and_unported_parts(ckpt, port_loaded):
     with pytest.raises(NotImplementedError, match="progressive JPEG"):
         processor["image"](b"\xff\xd8\xff\xc2\x00\x0b\x08\x00\x08\x00\x08"
                            b"\x01\x01\x11\x00\xff\xd9")
-    with pytest.raises(ValueError, match="tokenizer"):
-        videollama2_tpu_torch.model_init(ckpt, device="cpu")
+    # with no tokenizer object model_init reads the directory's
+    # tokenizer.json; one that holds only tokenizer.model (which JAX's
+    # use_fast=True converts) raises before any weight is read
+    spm_only = os.path.join(os.path.dirname(ckpt), "spm_only")
+    os.makedirs(spm_only, exist_ok=True)
+    open(os.path.join(spm_only, "tokenizer.model"), "wb").close()
+    with pytest.raises(hf_tokenizer.SentencePieceOnlyError,
+                       match="tokenizer.model"):
+        videollama2_tpu_torch.model_init(spm_only, device="cpu")
     with pytest.raises(ValueError, match="wire"):
         videollama2_tpu_torch.model_init(ckpt, tokenizer=tok, device="cpu",
                                          wire="yuv")
@@ -524,6 +532,86 @@ def test_quantized_load_gives_the_jax_packs(ckpt, tokenizer, bits):
     answer = tapi.mm_infer(_float_frames(model.config), "What happens ?",
                            model, tok, max_new_tokens=4)
     assert isinstance(answer, str)
+
+
+@pytest.fixture(scope="module")
+def port_own_tokenizer(ckpt):
+    """model_init with no tokenizer: the directory's own files."""
+    return videollama2_tpu_torch.model_init(
+        ckpt, dtype=torch.float32, max_len=256, buckets=(128,), device="cpu")
+
+
+@pytest.mark.parametrize("modal", ["video", "image", "text"])
+def test_model_init_reads_the_directory_tokenizer(jax_loaded, port_loaded,
+                                                  port_own_tokenizer, modal):
+    """model_init(path) with no tokenizer answers as JAX's model_init(path)
+    (AutoTokenizer on the same directory) and as the port given
+    AutoTokenizer: the same prompt ids, tokens and strings."""
+    jmodel, _, jtok = jax_loaded
+    tmodel, _, ttok = port_loaded
+    omodel, _, otok = port_own_tokenizer
+    assert isinstance(otok, hf_tokenizer.HFTokenizer)
+    assert (otok.pad_token, otok.pad_token_id) == (jtok.pad_token,
+                                                   jtok.pad_token_id)
+    assert otok.eos_token_id == jtok.eos_token_id
+    media = None if modal == "text" else _float_frames(omodel.config, seed=3)
+    question = "What happens in the video ?"
+    assert tapi.build_prompt_ids(question, omodel.config, otok, modal) == \
+        japi.build_prompt_ids(question, jmodel.config, jtok, modal)
+    answers, streams = {}, {}
+    for name, pkg, model, tok in (
+            ("jax", videollama2_tpu, jmodel, jtok),
+            ("port", videollama2_tpu_torch, tmodel, ttok),
+            ("own", videollama2_tpu_torch, omodel, otok)):
+        answers[name] = pkg.mm_infer(
+            media, question, model, tok, modal=modal,
+            max_new_tokens=NEW_TOKENS,
+            stream_cb=lambda b, toks, name=name: streams.__setitem__(
+                name, list(toks)))
+    assert streams["own"] == streams["jax"] == streams["port"]
+    assert answers["own"] == answers["jax"] == answers["port"]
+    assert answers["own"] == otok.decode(streams["own"],
+                                         skip_special_tokens=True).strip()
+
+
+def test_synthetic_path_reads_its_tokenizer_directory(ckpt, tokenizer):
+    """synthetic://...&tokenizer=<dir> reads that directory's files (JAX
+    _model_init_synthetic); without it and without an object, it raises
+    as JAX's does."""
+    path = f"synthetic://tiny?bits=8&kv_bits=8&max_len=256&tokenizer={ckpt}"
+    own, _, otok = tapi.model_init(path, dtype=torch.float32,
+                                   buckets=(128,), device="cpu")
+    given, _, _ = tapi.model_init(path, dtype=torch.float32, buckets=(128,),
+                                  tokenizer=tokenizer, device="cpu")
+    assert isinstance(otok, hf_tokenizer.HFTokenizer)
+    frames = _float_frames(own.config)
+    assert tapi.mm_infer(frames, "What happens ?", own, otok,
+                         max_new_tokens=4) == \
+        tapi.mm_infer(frames, "What happens ?", given, tokenizer,
+                      max_new_tokens=4)
+    for api in (tapi, japi):
+        with pytest.raises(ValueError, match="tokenizer="):
+            api.model_init("synthetic://tiny?bits=8", device="cpu") \
+                if api is tapi else api.model_init("synthetic://tiny?bits=8")
+
+
+def test_e2e_smoke_script_runs_on_the_directory_tokenizer(ckpt, capsys):
+    """scripts/e2e_smoke_torch.py --device cpu on the tiny checkpoint:
+    model_init with no tokenizer, the processors, mm_infer (video, image,
+    text, a batch, the I420 wire), each answer the decode of its tokens."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "e2e_smoke_torch", os.path.join(ROOT, "scripts", "e2e_smoke_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    script.main(["--model-path", ckpt, "--device", "cpu", "--dtype",
+                 "float32", "--max-new-tokens", "6"])
+    out = capsys.readouterr().out
+    assert "tokenizer: HFTokenizer" in out
+    for tag in ("VIDEO ANSWER:", "IMAGE ANSWER:", "TEXT ANSWER:",
+                "BATCH ANSWERS:", "I420 ANSWER:"):
+        assert tag in out
+    assert out.rstrip().endswith("E2E OK")
 
 
 def test_synthetic_model_path(tokenizer):

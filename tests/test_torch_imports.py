@@ -1,8 +1,11 @@
 """The PyTorch port, chip_smoke.py, the port's profile scripts
-(scripts/profile_torch_*.py) and scripts/quant_accuracy_torch.py import no
-jax and nothing of the JAX package,
+(scripts/profile_torch_*.py), scripts/quant_accuracy_torch.py and
+scripts/e2e_smoke_torch.py import no jax and nothing of the JAX package,
 and none of the libraries the GPU host lacks (PIL, imageio, transformers,
-safetensors, tokenizers), not even in a function:
+safetensors, tokenizers, regex, sentencepiece), not even in a function:
+the port reads tokenizer files with its own plain-Python reader
+(multimodal/hf_tokenizer.py), which may import jinja2, a requirement of
+torch's own package, for chat templates;
 the port keeps its own copies of the host modules it needs (held equal to
 the originals by tests/test_torch_config.py). Checked on the source (AST)
 rather than in a subprocess, because an interpreter may preload jax at
@@ -16,10 +19,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "videollama2_tpu_torch"
 REFERENCE = ROOT / "videollama2_tpu"
-# the GPU host has neither PIL, imageio, transformers, safetensors nor
-# tokenizers
+# the GPU host has neither PIL, imageio, transformers, safetensors,
+# tokenizers, regex nor sentencepiece
 FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "PIL", "safetensors",
-             "tokenizers", "imageio")
+             "tokenizers", "imageio", "regex", "sentencepiece")
 
 
 def _walk(node, skip_functions: bool):
@@ -72,7 +75,9 @@ def _closure():
     the imports that run at import time do."""
     todo = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
             + sorted((ROOT / "scripts").glob("profile_torch_*.py"))
-            + [ROOT / "scripts" / "quant_accuracy_torch.py"])
+            + [ROOT / "scripts" / "quant_accuracy_torch.py",
+               ROOT / "scripts" / "e2e_smoke_torch.py",
+               ROOT / "tests" / "tokenizer_writer.py"])
     seen = {}
     while todo:
         path = todo.pop()
@@ -128,13 +133,14 @@ def test_port_reaches_no_jax():
                  "eval/inference_video_oqa_vcgpt.py",
                  "eval/inference_video_cap_msvc.py",
                  "parallel/__init__.py", "parallel/mesh.py",
-                 "parallel/sharding.py"):
+                 "parallel/sharding.py", "multimodal/hf_tokenizer.py",
+                 "multimodal/chat_template.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
     # chip_smoke's serve phase writes its media with the test writers
     # and its "train entry" phase its corpus
     for helper in ("avi_writer.py", "png_writer.py", "jpeg_writer.py",
-                   "gif_writer.py"):
+                   "gif_writer.py", "tokenizer_writer.py"):
         assert ROOT / "tests" / helper in closure
     bad = sorted(f"{p.relative_to(ROOT)} imports {m}"
                  for p, mods in closure.items() for m in mods
@@ -152,6 +158,9 @@ def test_port_reaches_no_jax():
     ("from tokenizers import Tokenizer", True),
     ("import imageio", True),
     ("from PIL import Image", True),
+    ("import regex", True),
+    ("import sentencepiece as spm", True),
+    ("from jinja2.sandbox import ImmutableSandboxedEnvironment", False),
 ])
 def test_scanner_sees_jax_imports(tmp_path, src, expect_bad):
     f = tmp_path / "m.py"

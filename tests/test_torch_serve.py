@@ -448,6 +448,38 @@ class _Recorder:
         return self._engine.generate(ids, frames=frames, **kw)
 
 
+def test_worker_reads_the_checkpoint_tokenizer(ckpt, loaded, jax_worker,
+                                              media):
+    """A worker given no tokenizer reads the checkpoint's own files
+    (multimodal/hf_tokenizer.py) in model_init; with the module's fp32
+    model in place of the one it loaded, its streamed chunks (decoded
+    through the reader) equal the JAX worker's, and a batcher over the
+    reader streams what one over AutoTokenizer does."""
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
+    worker = worker_mod.ModelWorker("http://localhost:1", "", ckpt,
+                                    model_name="tiny", register=False,
+                                    session_cache=0, device="cpu")
+    assert isinstance(worker.tokenizer, hf_tokenizer.HFTokenizer)
+    worker.model, worker.processor = loaded[0], loaded[1]
+    for extra in ({}, {"video": media["avi"]}):
+        params = {"prompt": "describe the video briefly",
+                  "temperature": 0.0, "max_new_tokens": 8, **extra}
+        got = [json.loads(c) for c in b"".join(
+            worker.generate_stream(params)).split(b"\0") if c]
+        want = [json.loads(c) for c in b"".join(
+            jax_worker.generate_stream(params)).split(b"\0") if c]
+        assert got == want and got[-1]["error_code"] == 0
+    streams = []
+    for tok in (worker.tokenizer, loaded[2]):
+        batcher = DynamicBatcher(loaded[0], tok, max_batch=2, window_ms=10)
+        try:
+            streams.append(_drain(batcher.submit(
+                "tell me a story", "text", None, max_new_tokens=8)))
+        finally:
+            batcher.close()
+    assert streams[0] == streams[1] and streams[0][-1][0] == "done"
+
+
 @pytest.fixture(scope="module")
 def batch_stack(loaded):
     model, _, tok = loaded
@@ -858,8 +890,11 @@ def test_cli_chat_loop(ckpt, media, monkeypatch, capsys):
 def test_load_tokenizer(ckpt):
     tok = tapi.load_tokenizer("test_torch_serve:load_tiny_tokenizer", ckpt)
     assert tok("the cat").input_ids
-    for spec, match in ((None, "tokenizer factory"),
-                        ("nomodule", "module:callable"),
+    # no factory: the directory's own files, read as the factory reads them
+    own = tapi.load_tokenizer(None, ckpt)
+    assert type(own).__name__ == "HFTokenizer"
+    assert own("the cat").input_ids == tok("the cat").input_ids
+    for spec, match in (("nomodule", "module:callable"),
                         ("no_such_module_x:load", "cannot resolve"),
                         ("test_torch_serve:missing", "cannot resolve")):
         with pytest.raises(ValueError, match=match):

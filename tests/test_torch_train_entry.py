@@ -545,6 +545,45 @@ def test_main_pretrain_and_finetune_match_jax(ckpt, corpus, tmp_path,
     np.testing.assert_allclose(_losses(t2), _losses(j2), rtol=LOSS_RTOL)
 
 
+def test_main_without_tokenizer_flag_builds_jax_ids(ckpt, corpus, tmp_path,
+                                                    monkeypatch):
+    """finetune.sh's flags with no --tokenizer: train.py reads
+    --model_path's own tokenizer files (multimodal/hf_tokenizer.py), and
+    its dataset's ids and labels equal those of JAX's dataset, whose
+    train.py reads the directory with AutoTokenizer."""
+    from videollama2_tpu_torch.multimodal import hf_tokenizer
+    built = []
+    orig = tdata.SupervisedDataset.__init__
+
+    def record(self, *a, **kw):
+        orig(self, *a, **kw)
+        built.append(self)
+    monkeypatch.setattr(tdata.SupervisedDataset, "__init__", record)
+    trainer = ttrain.main(_flags(ckpt, corpus, str(tmp_path / "t"), 2)
+                          + ["--device", "cpu"])
+    assert trainer.state.step == 1
+    (tds,) = built
+    assert isinstance(tds.tokenizer, hf_tokenizer.HFTokenizer)
+    jcfg, _ = _cfgs()
+    path = [os.path.join(corpus, "sft.json")]
+    jds = jdata.SupervisedDataset(
+        path, hf_tokenizer_reference(ckpt),
+        jdata.DataArguments(data_path=path, data_folder=corpus,
+                            is_pretraining=False), jcfg)
+    assert len(tds) == len(jds)
+    for i in range(len(jds)):
+        for key in ("input_ids", "labels"):
+            np.testing.assert_array_equal(tds[i][key], jds[i][key])
+
+
+def hf_tokenizer_reference(path):
+    """JAX train.py's tokenizer (pad -> unk as there)."""
+    tok = hf_tokenizer(path)
+    if tok.pad_token is None and tok.unk_token is not None:
+        tok.pad_token = tok.unk_token
+    return tok
+
+
 def test_main_bf16_keeps_fp32_masters_and_matches_jax(ckpt, corpus, tmp_path,
                                                      monkeypatch, one_device):
     """pretrain.sh's flags with --bf16 true (its default): the model runs in

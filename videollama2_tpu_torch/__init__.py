@@ -6,7 +6,9 @@ hand-written CUDA kernels (csrc/) where the JAX package has Pallas kernels.
 The JAX package stays the reference; this package imports nothing of it
 and keeps its own copies of the host modules it needs (core.config,
 constants, media.wire, multimodal.tokenizer, inference.speculative). Entry points: the public API
-`model_init(model_path, tokenizer=...) -> (model, processor, tokenizer)`,
+`model_init(model_path) -> (model, processor, tokenizer)` (the
+directory's own tokenizer files, read by multimodal.hf_tokenizer, or a
+caller's `tokenizer=`),
 `mm_infer` and `mm_infer_batch` (inference.api, on a released checkpoint
 directory through checkpoint.convert_hf), the prefix-cached chat entries
 `ChatSession` and `mm_infer_session` (inference.api),

@@ -8,9 +8,9 @@ the per-video multi-reference captions ride through as `answer` for the
 GPT-judge correctness/detailedness scorers.
 
 Port of videollama2_tpu/eval/inference_video_cap_msvc.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ multiple choice over long egocentric videos; generation failure degrades to
 option index 2 / 'C' (:119-130); answers dumped as (q_uid, letter-index) CSV.
 
 Port of videollama2_tpu/eval/inference_video_mcqa_egoschema.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

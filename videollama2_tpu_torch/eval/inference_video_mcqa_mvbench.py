@@ -10,9 +10,9 @@ option INDICES, pred defaulting to 2 on extraction failure (:124-149,
 :182).
 
 Port of videollama2_tpu/eval/inference_video_mcqa_mvbench.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

@@ -23,9 +23,9 @@ across the batch; per-chunk output is JSONL and the merge step produces the
 same JSON array the reference's bash `[ ... ]` wrap yields.
 
 Port of videollama2_tpu/eval/inference_video_mcqa_videomme.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ to --output-file. The same script serves MSVD/MSRVTT/TGIF (the bare-name
 fallback). Generation errors degrade to pred="error" (:125-127).
 
 Port of videollama2_tpu/eval/inference_video_oqa_activitynet.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

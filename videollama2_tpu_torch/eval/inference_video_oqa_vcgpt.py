@@ -9,9 +9,9 @@ the prompt; output records are {'video_name', 'Q', 'A', 'P'} /
 :124); videos resolve over the 5-extension list.
 
 Port of videollama2_tpu/eval/inference_video_oqa_vcgpt.py:
-the same flags, prompts, records and chunking, plus
-`--tokenizer module:callable` and `--device` (cuda by default) for the
-port's model_init.
+the same flags, prompts, records and chunking, plus `--device` (cuda by
+default) and an optional `--tokenizer module:callable` for the port's
+model_init, which reads the checkpoint's own tokenizer files without it.
 """
 
 from __future__ import annotations

@@ -7,11 +7,14 @@ tokenization, processors, generation defaults and decode as the JAX
 package, on the port's Engine. The port imports no tokenizer or image
 library, so:
 
-* `model_init` takes the caller's tokenizer object (`tokenizer=`, e.g.
-  `transformers.AutoTokenizer.from_pretrained(model_path)`); any object
-  with `__call__(text, add_special_tokens=False).input_ids`,
-  `apply_chat_template`, `decode` and `eos_token_id` will do. The serving
-  entry points name a factory for it (`load_tokenizer`).
+* `model_init` reads the checkpoint directory's own tokenizer files
+  (tokenizer.json and its config) with the port's plain-Python reader,
+  multimodal/hf_tokenizer.py, which gives the ids and strings of the JAX
+  package's `AutoTokenizer.from_pretrained(model_path, use_fast=True)`. A
+  caller's object (`tokenizer=`) wins; any object with
+  `__call__(text, add_special_tokens=False).input_ids`,
+  `apply_chat_template`, `decode` and `eos_token_id` will do. The entry
+  points take a factory for one as an override (`load_tokenizer`).
 * The processors decode with the port's own readers (media/): PNG, PPM and
   BMP images and frame directories everywhere, video containers and their
   audio tracks through the C++ libavcodec decoder where it builds; JPEG
@@ -55,6 +58,7 @@ from ..media import wire as wire_lib
 from ..media.preprocess import (process_image, process_video,
                                 process_video_i420)
 from ..models import llm as llm_lib
+from ..multimodal import hf_tokenizer
 from ..multimodal.tokenizer import (tokenizer_multimodal_token,
                                     tokenizer_multimodal_tokens)
 from ..ops import quant
@@ -140,15 +144,13 @@ def _apply_wire(processor: dict, wire: str, cfg) -> dict:
 
 
 def load_tokenizer(spec: Optional[str], model_path: str):
-    """The serving entry points' tokenizer: `spec` names a factory as
-    "module:callable" (resolved with importlib at run time), called with
-    the model path; e.g. a module holding `def load(path): return
-    transformers.AutoTokenizer.from_pretrained(path)` and
-    `--tokenizer mymodule:load`."""
+    """The entry points' tokenizer: with no `spec`, the tokenizer files of
+    the directory `model_path` (multimodal/hf_tokenizer.load, as the JAX
+    package's AutoTokenizer.from_pretrained(model_path, use_fast=True));
+    else `spec` names a factory as "module:callable" (resolved with
+    importlib at run time), called with the model path."""
     if not spec:
-        raise ValueError("the port imports no tokenizer library: name a "
-                         "tokenizer factory as --tokenizer module:callable "
-                         "(called with the model path)")
+        return hf_tokenizer.load(model_path)
     module, sep, attr = spec.partition(":")
     if not sep or not module or not attr:
         raise ValueError(f"--tokenizer must be module:callable, got {spec!r}")
@@ -162,11 +164,12 @@ def load_tokenizer(spec: Optional[str], model_path: str):
 
 def add_model_flags(ap) -> None:
     """The two flags every command line of the port adds to the JAX
-    package's: `--tokenizer`, a factory for load_tokenizer, and `--device`
-    (cuda by default), both for model_init."""
+    package's: `--tokenizer`, an optional factory for load_tokenizer (the
+    checkpoint's own tokenizer files by default), and `--device` (cuda by
+    default), both for model_init."""
     ap.add_argument("--tokenizer", default=None, metavar="MODULE:CALLABLE",
-                    help="tokenizer factory, called with the model path "
-                         "(the port imports no tokenizer library)")
+                    help="a tokenizer factory called with the model path, "
+                         "in place of the checkpoint's own tokenizer files")
     ap.add_argument("--device", default="cuda")
 
 
@@ -201,8 +204,9 @@ def model_init(model_path: Optional[str] = None, dtype=None,
     load_pretrained_model's LoRA, pretrain-adapter and full paths through
     model_base: a LoRA directory, the peft split save, is merged into
     model_base's kernels before load_8bit / load_4bit), plus `tokenizer`,
-    the caller's tokenizer object (returned as the third element; its pad
-    token falls back to its unk token), and
+    the caller's tokenizer object (by default the directory's own files,
+    read by multimodal/hf_tokenizer.py; returned as the third element; its
+    pad token falls back to its unk token), and
     `device` ("cuda" by default; "cpu" runs the plain versions of the
     kernels). load_8bit quantizes the LLM (int8 head included) and the
     tower to int8 packs, load_4bit the LLM to folded int4 packs with an
@@ -217,12 +221,9 @@ def model_init(model_path: Optional[str] = None, dtype=None,
         raise ValueError(f"wire must be 'rgb' or 'i420', got {wire!r}")
     if model_path is None:
         raise ValueError("model_path is required (no network access)")
-    if tokenizer is None:
-        raise ValueError("model_init needs the caller's tokenizer object "
-                         "(tokenizer=..., e.g. transformers.AutoTokenizer."
-                         "from_pretrained(model_path)): the port imports "
-                         "no tokenizer library")
     device = check_device(device)
+    if tokenizer is None:
+        tokenizer = hf_tokenizer.load(_tokenizer_dir(model_path))
     if getattr(tokenizer, "pad_token", "") is None \
             and getattr(tokenizer, "unk_token", None) is not None:
         tokenizer.pad_token = tokenizer.unk_token
@@ -249,13 +250,27 @@ def model_init(model_path: Optional[str] = None, dtype=None,
             tokenizer)
 
 
+def _tokenizer_dir(model_path: str) -> str:
+    """Where model_init reads the tokenizer: the checkpoint directory, or
+    a synthetic:// path's `tokenizer=` directory (JAX model_init)."""
+    if not model_path.startswith("synthetic://"):
+        return model_path
+    tok_dir = parse_qs(urlparse(model_path).query).get("tokenizer")
+    if tok_dir is None:
+        raise ValueError("synthetic:// model paths need "
+                         "?tokenizer=<local tokenizer dir> "
+                         "(e.g. from scripts/make_tiny_checkpoint.py)")
+    return tok_dir[0]
+
+
 def _model_init_synthetic(model_path: str, dtype, max_len: int, device,
                           **kwargs) -> VideoLLaMA2:
     """model_path = 'synthetic://<preset or tiny>?bits=8&kv_bits=8
-    &max_len=512&num_frames=16': the preset-scale model with seeded random
-    weights made on the device (utils/synthetic; bits 8 or 4 quantize the
-    LLM and the tower as bench.py does, bits 0 keeps them floating).
-    Throughput numbers are real, answers are not."""
+    &max_len=512&num_frames=16&tokenizer=<dir>': the preset-scale model
+    with seeded random weights made on the device (utils/synthetic; bits 8
+    or 4 quantize the LLM and the tower as bench.py does, bits 0 keeps them
+    floating); model_init reads the tokenizer of `tokenizer`. Throughput
+    numbers are real, answers are not."""
     u = urlparse(model_path)
     q = {k: v[0] for k, v in parse_qs(u.query).items()}
     cfg = (cfglib.tiny_model() if u.netloc == "tiny"

@@ -1,7 +1,8 @@
 """Interactive CLI chat (port of videollama2_tpu/serve/cli.py).
 
-Loads a checkpoint with a tokenizer factory (`--tokenizer module:callable`,
-inference/api.load_tokenizer), optionally attaches an image or a video, and
+Loads a checkpoint with its own tokenizer files (or a factory named by
+`--tokenizer module:callable`, inference/api.load_tokenizer), optionally
+attaches an image or a video, and
 answers each turn through a prefix-cached ChatSession: the media is encoded
 and the history prefilled once, and each later turn feeds only its new
 tokens.

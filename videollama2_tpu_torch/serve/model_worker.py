@@ -7,9 +7,10 @@ and 15 s heartbeats with the queue length, a concurrency semaphore
 safety gate on the input and the streamed output, and \\0-delimited JSON
 chunk streaming with the same `error_code`s — on stdlib HTTP, over the
 port's Engine. The worker takes the tokenizer object (`tokenizer=`, as the
-port's model_init does) or a `preloaded=(model, processor, tokenizer)`
-tuple; its command line names a tokenizer factory (`--tokenizer
-module:callable`, inference/api.load_tokenizer). A request whose media
+port's model_init does; by default the checkpoint's own tokenizer files)
+or a `preloaded=(model, processor, tokenizer)` tuple; its command line may
+name a tokenizer factory (`--tokenizer module:callable`,
+inference/api.load_tokenizer) in their place. A request whose media
 cannot be decoded (a container on a host without the decoder, a JPEG)
 gets one chunk with error_code 1.
 """

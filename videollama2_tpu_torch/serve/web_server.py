@@ -5,7 +5,8 @@ Replaces the reference's gradio web servers (serve/gradio_web_server.py and
 gradio_web_server_adhoc.py). Same topology: the page talks to this server,
 which either proxies to a controller-managed worker (multi-model mode,
 --controller-address) or serves an in-process model (adhoc mode,
---model-path, with a --tokenizer factory). Conversations and votes are
+--model-path, with its own tokenizer files or a --tokenizer factory).
+Conversations and votes are
 logged to LOGDIR as JSON lines (gradio_web_server.py:32-35,338-349 parity).
 An uploaded file is spooled to a temporary file for the processors and
 removed after the request.

@@ -6,7 +6,7 @@ scripts/custom/*.sh) run with the module name changed. Launch:
 
   python -m videollama2_tpu_torch.train.train \\
     --model_type videollama2_mistral --model_path LLM_DIR \\
-    --vision_tower CLIP_DIR --tokenizer mytok:load \\
+    --vision_tower CLIP_DIR \\
     --data_path anno.json --data_folder media/ \\
     --output_dir out/ --tune_mm_mlp_adapter true ...
 
@@ -19,9 +19,11 @@ directory holding mm_projector.npz, the Trainer's adapter-{step}/, or
 mm_projector.bin), the dataset, the optimizer and the Trainer.
 
 Differences from JAX:
-  - the tokenizer: the port imports no tokenizer library, so it comes
-    from `--tokenizer module:callable` (inference/api.load_tokenizer,
-    called with --model_path), as in the serving entry points;
+  - the tokenizer: --model_path's own tokenizer files, read by the port's
+    plain-Python reader (multimodal/hf_tokenizer.py), as JAX's
+    AutoTokenizer.from_pretrained(model_path) reads them; an optional
+    `--tokenizer module:callable` (inference/api.load_tokenizer, called
+    with --model_path) takes their place, as in the serving entry points;
   - the mesh (--mesh_data, --mesh_fsdp, --mesh_tensor, --mesh_seq) spans
     one process a card, as the reference launches under torchrun
     (scripts/vllava/pretrain.sh):
