@@ -33,13 +33,19 @@ against fresh generates, each call with exact launch counts and every
 token difference held to a near-tie. On the int8 slice's Engine the
 "serve" phase runs the media layer and the serving plane: the
 processors on a 16-frame 480x640 directory (PNG and BMP frames, written
-here) and a 480x640 PNG; a controller and a model worker on localhost
-streaming a video and an image request (exact launch counts, the tokens
-of a direct Engine.generate); 16 concurrent video requests over 4
-videos plus 2 text ones on a dynamic-batching worker against the plain
-worker (requests/s; answers held to B = 1 up to near-ties; each
-distinct video of a batch encoded once); two chat completions of the
-OpenAI-compatible server; and the container paths (the decoder built
+here) and a 480x640 PNG; the still-image formats (every file of
+tests/fixtures/torch_images/ held to its golden digest of PIL's pixels,
+host decode times of progressive and baseline JPEG and of Adam7 and
+plain PNG, a 16-frame directory of progressive JPEG and Adam7 PNG
+frames through the processors); a controller and a model worker on
+localhost streaming a video, a PNG image and a progressive JPEG image
+request (exact launch counts, the tokens of a direct Engine.generate);
+16 concurrent video requests over 4 videos plus 2 text ones on a
+dynamic-batching worker against the plain worker (requests/s; answers
+held to B = 1 up to near-ties; each distinct video of a batch encoded
+once); three chat completions of the OpenAI-compatible server (a PNG
+and a progressive JPEG data URL, a video path); and the container
+paths (the decoder built
 from media/csrc where libavcodec is, else a named error and an
 error_code 1 answer). The "api" phase loads a checkpoint
 in the released 7B-16F layout (LLM cut to 8 layers) through model_init
@@ -3063,19 +3069,119 @@ def calls_launches(counters, cfg, calls, packed=True) -> dict:
     return want
 
 
+IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "torch_images")
+
+
+def check_image_fixtures() -> tuple:
+    """Decode every file of tests/fixtures/torch_images/ with the port's
+    reader (its C++ helpers as g++ built them on this host) and hold the
+    pixels' shape and SHA-256 to golden.json, PIL's pixels on the CPU
+    host. Returns name -> bytes and name -> pixels."""
+    import hashlib
+    from videollama2_tpu_torch.media import image_io
+    with open(os.path.join(IMAGE_FIXTURES, "golden.json")) as f:
+        golden = json.load(f)
+    files, pixels = {}, {}
+    for name, want in sorted(golden.items()):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        rgb = image_io.read_image(data)
+        got = {"shape": list(rgb.shape), "sha256": hashlib.sha256(
+            np.ascontiguousarray(rgb).tobytes()).hexdigest()}
+        if got != want:
+            raise RuntimeError(f"images: {name} decodes to {got}, its "
+                               f"golden digest is {want}")
+        files[name], pixels[name] = data, rgb
+    log(f"[images] {len(golden)} fixtures ({', '.join(sorted(golden))}) "
+        "decode to their golden digests (PIL's pixels)")
+    return files, pixels
+
+
+def run_still_images(rng, processors, root, smi) -> tuple:
+    """The still-image formats on the host: the fixtures against their
+    golden digests; the host ms (median of 5) to decode a 480x640 and a
+    1920x1080 progressive JPEG against baseline files of the same pixels,
+    and an Adam7 PNG against a plain one; a 16-frame 480x640 directory of
+    progressive JPEG and Adam7 PNG frames through the processors. Returns
+    the numbers, the fixtures' bytes and their pixels."""
+    from jpeg_writer import PROGRESSIVE, encode_jpeg
+    from png_writer import encode_png
+    from videollama2_tpu_torch.media import image_io, video_reader
+
+    files, pixels = check_image_fixtures()
+    photo = pixels["progressive_480x640.jpg"]
+    big = smooth_frames(rng, 1, 1080, 1920)[0]
+    still = smooth_frames(rng, 1, 480, 640)[0]
+    samples = {
+        "progressive JPEG 480x640 (PIL's script)":
+            files["progressive_480x640.jpg"],
+        "baseline JPEG 480x640": encode_jpeg(photo, 85, "4:2:0"),
+        "progressive JPEG 1920x1080 (libjpeg's script)": encode_jpeg(
+            big, 85, "4:2:0", script=PROGRESSIVE),
+        "baseline JPEG 1920x1080": encode_jpeg(big, 85, "4:2:0"),
+        "Adam7 PNG 480x640": encode_png(still, interlace=True),
+        "PNG 480x640": encode_png(still),
+    }
+    decode_ms = {}
+    for label, data in samples.items():
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            image_io.read_image(data)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[label] = statistics.median(runs)
+    log(f"[images] ({smi}) host ms to decode (median of 5): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in decode_ms.items()))
+    clip = smooth_frames(rng, 16, 480, 640)
+    clip_dir = os.path.join(root, "stills_clip")
+    os.makedirs(clip_dir)
+    for i, frame in enumerate(clip):
+        with open(os.path.join(clip_dir, f"{i:03d}.img"), "wb") as f:
+            f.write(encode_jpeg(frame, 85, "4:2:0", script=PROGRESSIVE)
+                    if i % 2 == 0 else encode_png(frame, interlace=True))
+    decoded = np.stack(video_reader.read_video_frames(clip_dir, 16))
+    err = np.abs(decoded[::2].astype(int) - clip[::2]).mean()
+    if not np.array_equal(decoded[1::2], clip[1::2]) or err > 12:
+        raise RuntimeError("images: the progressive JPEG / Adam7 PNG "
+                           "directory did not decode to its frames (JPEG "
+                           f"mean error {err:.2f})")
+    S = processors["rgb"]["image"](photo).shape[1]
+    frame_dir_ms = {}
+    for wire in ("rgb", "i420"):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            video = processors[wire]["video"](clip_dir)
+            frame_dir_ms[f"video {wire} ms"] = (time.perf_counter()
+                                                - t0) * 1e3
+        shape = (16, S, S, 3) if wire == "rgb" else (16, S * 3 // 2, S)
+        if video.shape != shape or video.dtype != np.uint8:
+            raise RuntimeError(f"images: processor shape {video.shape} on "
+                               f"the {wire} wire")
+    log(f"[images] ({smi}) processors on a 16-frame 480x640 directory (8 "
+        "progressive JPEG, 8 Adam7 PNG; JPEG frames within "
+        f"{err:.2f} levels of their source, PNG frames equal): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in frame_dir_ms.items()))
+    return ({"decode_ms": decode_ms, "frame_dir_host_ms": frame_dir_ms},
+            files, pixels)
+
+
 def run_serve_phase(eng, cfg, counters, smi) -> tuple:
     """The "serve" phase on the int8 slice's Engine (VideoLLaMA2-7B-16F,
     int8 packs, W8A8 prefill, int8 KV cache) with a word-level toy
     tokenizer: the processors on a 16-frame 480x640 directory (PNG and
-    BMP frames) and a 480x640 PNG; a controller and a model worker on
-    localhost streaming a video and an image request through the proxy,
-    each with exact launch counts and the tokens of a direct
-    Engine.generate on the same processed frames; 16 concurrent video
+    BMP frames) and a 480x640 PNG; the still-image formats
+    (run_still_images); a controller and a model worker on localhost
+    streaming a video, a PNG image and a progressive JPEG image request
+    through the proxy, each with exact launch counts and the tokens of a
+    direct Engine.generate on the same processed frames (the JPEG's
+    digest-checked pixels); 16 concurrent video
     requests over 4 distinct videos plus 2 text requests on a worker with
     dynamic batching against the same 18 on the plain worker (answers held
     to B = 1 up to near-ties, the tower run once a distinct video of a
-    group, requests/s and the batcher's stats); two chat completions of
-    the OpenAI-compatible server; the container paths. Returns the
+    group, requests/s and the batcher's stats); three chat completions of
+    the OpenAI-compatible server (a progressive JPEG data URL's held to a
+    direct generate too); the container paths. Returns the
     numbers and the launch counts of each serialized request."""
     from http.server import ThreadingHTTPServer
     import threading
@@ -3138,6 +3244,12 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
                 f"{k} {v:.1f}" for k, v in host.items()))
         video_i420 = processors["i420"]["video"](clip_dir)
         image_i420 = processors["i420"]["image"](image_path)
+        out["still_images"], fixture_files, fixture_pixels = \
+            run_still_images(rng, processors, root.name, smi)
+        prog = "progressive_480x640.jpg"
+        b64_prog = base64.b64encode(fixture_files[prog]).decode()
+        # the digest-checked pixels, as the worker processes them
+        prog_i420 = processors["i420"]["image"](fixture_pixels[prog])
 
         # -- 2. controller + worker: two serialized streamed requests -------
         controller = ctrl_mod.Controller("shortest_queue")
@@ -3156,7 +3268,9 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
         b64_image = base64.b64encode(image_png).decode()
         for kind, extra, tensor, modal in (
                 ("video", {"video": clip_dir}, video_i420, "video"),
-                ("image", {"images": [b64_image]}, image_i420, "image")):
+                ("image", {"images": [b64_image]}, image_i420, "image"),
+                ("progressive JPEG image", {"images": [b64_prog]},
+                 prog_i420, "image")):
             question = f"what happens in the {kind} ?"
             ids = api.build_prompt_ids(question, cfg, tok, modal)
             frames = tensor[None]
@@ -3321,13 +3435,19 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
             preloaded=(model, processors["i420"], tok))
         oai_url = serve(openai_api.make_handler(backend))
         data_url = "data:image/png;base64," + b64_image
+        prog_url = "data:image/jpeg;base64," + b64_prog
+        sent = {"image": "data-URL PNG", "video": "video path",
+                "progressive JPEG image": "data-URL progressive JPEG"}
         for kind, part, tensor, modal in (
                 ("image", {"type": "image_url",
                            "image_url": {"url": data_url}},
                  image_i420, "image"),
                 ("video", {"type": "video_url",
                            "video_url": {"url": clip_dir}},
-                 video_i420, "video")):
+                 video_i420, "video"),
+                ("progressive JPEG image", {
+                    "type": "image_url", "image_url": {"url": prog_url}},
+                 prog_i420, "image")):
             body = {"messages": [{"role": "user", "content": [
                 {"type": "text", "text": f"describe the {kind}"}, part]}],
                 "max_tokens": NEW_TOKENS}
@@ -3350,11 +3470,22 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
                     call["ids"][0] != api.build_prompt_ids(
                         f"describe the {kind}", cfg, tok, modal):
                 raise RuntimeError(f"serve openai {kind}: {reply}")
+            if kind == "progressive JPEG image":
+                direct = eng.generate(
+                    [call["ids"][0]], frames=np.broadcast_to(
+                        tensor[None], (1, cfg.num_frames) + tensor.shape[1:]),
+                    gen=GenerationConfig(max_new_tokens=NEW_TOKENS),
+                    eos_token_id=-1, image_mode=True)[0]
+                if call["outs"][0] != direct:
+                    raise RuntimeError("serve openai progressive JPEG: the "
+                                       "tokens differ from a direct "
+                                       "Engine.generate")
             counts[f"serve openai {kind}"] = got
             out[f"openai_{kind}_s"] = took
             log(f"[serve] ({smi}) OpenAI chat completion with a "
-                f"{'data-URL PNG' if kind == 'image' else 'video path'}: "
-                f"{took:.3f} s, launches {got}")
+                f"{sent[kind]}: {took:.3f} s, launches {got}"
+                + ("; tokens equal a direct Engine.generate"
+                   if kind == "progressive JPEG image" else ""))
 
         # -- 5. container paths ---------------------------------------------
         avi = os.path.join(root.name, "clip.avi")

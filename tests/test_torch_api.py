@@ -463,6 +463,29 @@ def test_mm_infer_matches_jax(jax_loaded, port_loaded, modal):
     assert answers["port"] == answers["jax"]
 
 
+def test_mm_infer_on_a_progressive_jpeg_matches_jax(jax_loaded, port_loaded):
+    """A progressive JPEG image (tests/fixtures/torch_images/) through
+    each package's image processor gives equal tensors and the same
+    tokens from mm_infer."""
+    path = os.path.join(ROOT, "tests", "fixtures", "torch_images",
+                        "progressive_480x640.jpg")
+    jmodel, jproc, jtok = jax_loaded
+    tmodel, tproc, ttok = port_loaded
+    jt, tt = np.asarray(jproc["image"](path)), np.asarray(tproc["image"](path))
+    assert tt.dtype == jt.dtype
+    np.testing.assert_array_equal(tt, jt)
+    streams = {}
+    for name, pkg, model, tok, tensor in (
+            ("jax", videollama2_tpu, jmodel, jtok, jt),
+            ("port", videollama2_tpu_torch, tmodel, ttok, tt)):
+        pkg.mm_infer(tensor, "What is in the image ?", model, tok,
+                     modal="image", max_new_tokens=NEW_TOKENS,
+                     stream_cb=lambda b, toks, name=name: streams.__setitem__(
+                         name, list(toks)))
+    assert len(streams["port"]) >= 1
+    assert streams["port"] == streams["jax"]
+
+
 def test_mm_infer_batch_matches_jax(jax_loaded, port_loaded):
     jmodel, _, jtok = jax_loaded
     tmodel, _, ttok = port_loaded
@@ -484,8 +507,8 @@ def test_api_surface_and_unported_parts(ckpt, port_loaded):
     # a format the port does not read raise
     with pytest.raises(OSError, match="cannot open video"):
         processor["video"]("clip.mp4")
-    with pytest.raises(NotImplementedError, match="progressive JPEG"):
-        processor["image"](b"\xff\xd8\xff\xc2\x00\x0b\x08\x00\x08\x00\x08"
+    with pytest.raises(NotImplementedError, match="arithmetic-coded JPEG"):
+        processor["image"](b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x08\x00\x08"
                            b"\x01\x01\x11\x00\xff\xd9")
     # with no tokenizer object model_init reads the directory's
     # tokenizer.json; one that holds only tokenizer.model (which JAX's

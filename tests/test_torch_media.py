@@ -133,6 +133,16 @@ def _still_cases():
     bmp[54:54 + h * stride] = b"".join(
         body[r * stride:(r + 1) * stride] for r in reversed(range(h)))
     cases["bmp 24 top-down"] = bytes(bmp)
+    # formats the reader once refused (tests/test_torch_images.py holds
+    # each kind over its full range)
+    rgb = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+    cases["JPEG progressive"] = _pil_bytes(rgb, "JPEG", progressive=True)
+    cases["GIF"] = _pil_bytes(rgb, "GIF")
+    cases["bit depth 16"] = _pil_bytes(Image.fromarray(
+        rng.integers(0, 65535, (4, 4)).astype(np.uint16)), "PNG")
+    rgb = Image.fromarray(_smooth(rng, 16, 16, 3))
+    cases["CMYK/YCCK JPEG"] = _pil_bytes(rgb.convert("CMYK"), "JPEG")
+    cases["RGB-coded JPEG"] = _pil_bytes(rgb, "JPEG", keep_rgb=True)
     return cases
 
 
@@ -167,11 +177,8 @@ def _unsupported_cases():
     rng = np.random.default_rng(1)
     rgb = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
     return {
-        "JPEG progressive": _pil_bytes(rgb, "JPEG", progressive=True),
-        "GIF": _pil_bytes(rgb, "GIF"),
+        "WebP": _pil_bytes(rgb, "WEBP"),
         "TIFF": _pil_bytes(rgb, "TIFF"),
-        "bit depth 16": _pil_bytes(Image.fromarray(
-            rng.integers(0, 65535, (4, 4)).astype(np.uint16)), "PNG"),
         "bits with compression": _pil_bytes(rgb.convert("P"), "BMP"),
     }
 
@@ -329,15 +336,22 @@ def _jpeg_refusals():
     rgb = Image.fromarray(_smooth(rng, 16, 16, 3))
     base = _pil_bytes(rgb, "JPEG", subsampling=2)
     sof = base.index(b"\xff\xc0")
+    # PIL's progressive script cut after its sixth scan: luma AC stops at
+    # Al 1, so libjpeg-turbo would smooth the blocks
+    prog = _pil_bytes(rgb, "JPEG", progressive=True)
+    cut = prog.index(b"\xff\xda")
+    for _ in range(6):
+        cut = prog.index(b"\xff\xc4", cut + 2)
     cases = {
-        "progressive JPEG": _pil_bytes(rgb, "JPEG", progressive=True),
+        "progressive JPEG with incomplete refinement": prog[:cut]
+        + b"\xff\xd9",
         "arithmetic-coded JPEG": base[:sof + 1] + b"\xc9" + base[sof + 2:],
         "12-bit JPEG": _patched_sof(base, 4, 12),
-        "CMYK/YCCK JPEG": _pil_bytes(rgb.convert("CMYK"), "JPEG"),
-        "RGB-coded JPEG": _pil_bytes(rgb, "JPEG", keep_rgb=True),
-        # luma 4x1, chroma 1x1: a ratio the port does not upsample
-        "JPEG chroma sampling": _patched_sof(base, 11, 0x41),
+        # luma 3x1, Cb 2x1: a fractional ratio, which libjpeg refuses too
+        "JPEG chroma sampling": _patched_sof(_patched_sof(base, 11, 0x31),
+                                             14, 0x21),
         "lossless JPEG": base[:sof + 1] + b"\xc3" + base[sof + 2:],
+        "hierarchical JPEG": base[:sof + 1] + b"\xc5" + base[sof + 2:],
     }
     return cases
 

@@ -37,7 +37,8 @@ from videollama2_tpu.inference.engine import \
 from videollama2_tpu.models import videollama2 as jvl2
 from videollama2_tpu.serve import model_worker as jworker_mod
 from videollama2_tpu_torch.checkpoint.from_jax import params_from_jax
-from videollama2_tpu_torch.constants import VIDEO_TOKEN_INDEX
+from videollama2_tpu_torch.constants import (VIDEO_TOKEN_INDEX,
+                                             WORKER_HEART_BEAT_INTERVAL)
 from videollama2_tpu_torch.core import config as cfglib
 from videollama2_tpu_torch.inference import api as tapi
 from videollama2_tpu_torch.inference.engine import Engine, GenerationConfig
@@ -124,7 +125,17 @@ def serve_stack(loaded):
     wrk_srv, wrk_port = _serve(worker_mod.make_handler(worker))
     worker.worker_addr = f"http://localhost:{wrk_port}"
     worker.register_to_controller()
+    # heartbeats, as a worker that registers itself sends them: without
+    # them the controller drops the worker 30-60 s after this, which a
+    # loaded host can take to reach the later tests
+    stop = threading.Event()
+
+    def beat():
+        while not stop.wait(WORKER_HEART_BEAT_INTERVAL):
+            worker.send_heart_beat()
+    threading.Thread(target=beat, daemon=True).start()
     yield controller, worker, ctrl_port, wrk_port
+    stop.set()
     ctrl_srv.shutdown()
     wrk_srv.shutdown()
 
@@ -746,6 +757,43 @@ def test_openai_image_data_url_and_video_path(oai_stack, media, loaded):
         assert msg == {"role": "assistant", "content": tapi.mm_infer(
             tensor, "what is shown ?", model, tok, modal=modal,
             max_new_tokens=5)}
+
+
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_images")
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in os.listdir(IMAGE_FIXTURES) if n != "golden.json"))
+def test_image_formats_match_jax_in_worker_and_openai(
+        serve_stack, jax_worker, oai_stack, name):
+    """Progressive, CMYK and RGB-coded JPEG, Adam7 and 16-bit PNG and a
+    GIF still (tests/fixtures/torch_images/), sent base64 to the worker
+    and as an OpenAI data URL, give the JAX package's tensors: the
+    worker's on the i420 and rgb wires, the OpenAI server's against JAX's
+    processor on PIL's image (what JAX's server hands it)."""
+    import io
+    from PIL import Image
+    with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+        raw = f.read()
+    _, worker, _, _ = serve_stack
+    params = {"images": [base64.b64encode(raw).decode()]}
+    old = worker.wire
+    try:
+        for wire in ("i420", "rgb"):
+            worker.wire = jax_worker.wire = wire
+            got, got_modal = worker._decode_media(params)
+            want, want_modal = jax_worker._decode_media(params)
+            assert got_modal == want_modal == "image"
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    finally:
+        worker.wire = old
+    backend, _ = oai_stack
+    url = "data:image/x;base64," + base64.b64encode(raw).decode()
+    got = np.asarray(backend._media(url, "image"))
+    want = np.asarray(jax_worker.processor["image"](Image.open(
+        io.BytesIO(raw))))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 def test_openai_streaming_models_and_errors(oai_stack, media):

@@ -22,6 +22,7 @@ bound above (measured 0.954 at the worst; bf16-rounded masters score 0 on
 the norm scales, whose ulp at 1.0 is 8 times the update)."""
 
 import dataclasses
+import io
 import json
 import os
 import random
@@ -58,7 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "scripts"))
 from gif_writer import encode_rgb_gif  # noqa: E402
-from jpeg_writer import encode_jpeg  # noqa: E402
+from jpeg_writer import PROGRESSIVE, encode_jpeg  # noqa: E402
 from png_writer import encode_png  # noqa: E402
 
 LOSS_RTOL = 1e-5
@@ -210,17 +211,67 @@ def test_dataset_items_match_jax(corpus, tok, anno, pre):
         np.testing.assert_array_equal(got["frames"], want["frames"])
 
 
+def test_dataset_reads_every_image_format_as_jax(corpus, tok, tmp_path):
+    """Images and frame directories in the formats the port's reader
+    gained (progressive, CMYK and RGB-coded JPEG, Adam7, 16-bit and 2-bit
+    PNG, a GIF still) give the JAX dataset's items."""
+    rng = np.random.default_rng(8)
+    writers = {
+        "prog.jpg": lambda px: encode_jpeg(px, 80, "4:2:0",
+                                           script=PROGRESSIVE),
+        "cmyk.jpg": lambda px: _pil_file(Image.fromarray(px).convert(
+            "CMYK"), "JPEG"),
+        "rgb.jpg": lambda px: _pil_file(Image.fromarray(px), "JPEG",
+                                        keep_rgb=True),
+        "adam7.png": lambda px: encode_png(px, interlace=True),
+        "deep.png": lambda px: encode_png(px.astype(np.uint16) * 300,
+                                          depth=16),
+        "gray2.png": lambda px: encode_png(px[..., 1] >> 6, depth=2),
+        "still.gif": lambda px: _pil_file(Image.fromarray(px).quantize(32),
+                                          "GIF"),
+    }
+    annos = []
+    for i, (name, write) in enumerate(writers.items()):
+        (tmp_path / name).write_bytes(write(_smooth(rng, 44, 36)))
+        annos.append({"image": name, "conversations": _turns("<image>", i,
+                                                             1)})
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for f in range(5):
+        px = _smooth(rng, 30, 40)
+        data = (encode_jpeg(px, 80, "4:2:0", script=PROGRESSIVE) if f % 2
+                else encode_png(px, interlace=True))
+        (frames / f"{f:03d}.img").write_bytes(data)
+    annos.append({"video": "frames", "conversations": _turns("<video>", 9,
+                                                             2)})
+    (tmp_path / "anno.json").write_text(json.dumps(annos))
+    jds, tds = _datasets(str(tmp_path), tok, "anno.json")
+    for i in range(len(jds)):
+        want, got = jds[i], tds[i]
+        for key in ("input_ids", "labels", "frames"):
+            np.testing.assert_array_equal(got[key], want[key])
+
+
+def _pil_file(img, fmt, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
 def test_dataset_stand_in_is_seeded_and_unported_formats_propagate(
         corpus, tok, tmp_path):
     """A file that fails to decode (truncated, or missing) is replaced by
     the sample random.Random(seed) draws, with a warning naming the file;
-    a variant the port does not decode (a progressive JPEG) raises."""
+    a variant the port does not decode (a progressive JPEG whose scans
+    stop short of full refinement, which libjpeg-turbo would smooth)
+    raises."""
     with open(os.path.join(corpus, "sft.json")) as f:
         annos = json.load(f)
     png = open(os.path.join(corpus, "media", "i2.png"), "rb").read()
     (tmp_path / "cut.png").write_bytes(png[:60])
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        str(tmp_path / "prog.jpg"), "JPEG", progressive=True)
+    (tmp_path / "prog.jpg").write_bytes(encode_jpeg(
+        _smooth(np.random.default_rng(1), 16, 16), 80,
+        script=PROGRESSIVE[:6]))
     for i, name in enumerate(("cut.png", "missing.png")):
         annos[i] = {"image": str(tmp_path / name),
                     "conversations": annos[i]["conversations"]}

@@ -1,19 +1,31 @@
-// Baseline sequential Huffman JPEG (8-bit samples) -> RGB, for
-// media/image_io.py. The output is the one libjpeg-turbo gives with its
-// defaults, as PIL decodes (`Image.open(f).convert("RGB")`), bit for bit:
+// Huffman JPEG (8-bit samples), baseline, extended sequential and
+// progressive, -> RGB, for media/image_io.py. The output is the one
+// libjpeg-turbo gives with its defaults, as PIL decodes
+// (`Image.open(f).convert("RGB")`), bit for bit:
+//   - every scan's coefficients into a buffer a component (jdhuff.c's
+//     sequential decoding; jdphuff.c's four progressive scan kinds: DC
+//     first and refinement, AC first with EOB runs, AC refinement with
+//     correction bits), dequantized with the table in force at the
+//     component's first scan (jdinput.c latch_quant_tables);
 //   - the JDCT_ISLOW integer IDCT of jidctint.c (13-bit constants, two
 //     passes, 2 extra bits between them);
-//   - "fancy" triangle upsampling of jdsample.c: h2v1 and h2v2 when the
-//     downsampled width is above 2 (else pixel replication); edges
+//   - jdsample.c's upsampling: "fancy" triangle filters for h2v1 and h2v2
+//     (when the downsampled width is above 2, else replication) and h1v2,
+//     replication (int_upsample) for any other integral factor; edges
 //     replicate the last sample row or column;
-//   - the fixed-point YCbCr -> RGB tables of jdcolor.c (16 fraction bits).
-// Gray (1 component) is repeated to three channels. Interleaved and
-// non-interleaved scans, restart intervals, 8- and 16-bit quantization
-// tables and any width and height are decoded. Progressive, arithmetic,
-// lossless, hierarchical and 12-bit files, 2 and 4 components (CMYK /
-// YCCK), RGB-coded files (an Adobe transform of 0, or component ids R G B)
-// and chroma sampling other than 4:4:4, 4:2:2 and 4:2:0 are refused with
-// status 2 and a message naming the variant.
+//   - jdcolor.c: gray repeated to three channels, the fixed-point YCbCr ->
+//     RGB tables (16 fraction bits), RGB without conversion, CMYK as is and
+//     YCCK -> CMYK, the color space chosen as jdapimin.c does (JFIF and
+//     Adobe segments, then component ids); CMYK then goes through PIL's
+//     inverted "CMYK;I" raw mode and its cmyk2rgb.
+// Interleaved and non-interleaved scans, restart intervals, 8- and 16-bit
+// quantization tables and any width and height are decoded. Refused with
+// status 2 and a message naming the variant: arithmetic, lossless,
+// hierarchical and 12-bit files, 2 components, fractional chroma ratios,
+// and a progressive file whose coefficients 1-9 are not refined to Al 0
+// (libjpeg-turbo smooths its blocks, jdcoefct.c decompress_smooth_data).
+// The progression checks libjpeg makes fatal (JERR_BAD_PROGRESSION) fail
+// with status 1; scans out of order decode, as libjpeg only warns there.
 //
 // Build: media/_native.py (g++ -O3 -shared at first use), no dependency.
 
@@ -27,11 +39,15 @@
 
 namespace {
 
-const int kZigzag[64] = {
+// jutils.c's jpeg_natural_order: zigzag index -> natural position, with
+// 16 extra entries of 63 so that a run past the last coefficient lands
+// there, as libjpeg's decoders let it
+const int kZigzag[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 constexpr int kMaxDimension = 65500;
 constexpr long kMaxPixels = 178956970;
@@ -92,8 +108,17 @@ struct Component {
   int id, h, v, tq;
   int bw, bh;                 // blocks a row and block rows stored
   int dw, dh;                 // downsampled width and height
+  std::vector<int16_t> coef;  // bw x bh blocks of 64, natural order
   std::vector<uint8_t> plane; // bw * 8 x bh * 8 samples
-  int dc_table = 0, ac_table = 0, pred = 0;
+  int dc_table = 0, ac_table = 0;
+  long pred = 0;
+  bool latched = false;       // q holds the table of its first scan
+  uint16_t q[64];
+  int coef_bits[64];          // progressive: the last Al sent, -1 none
+
+  int16_t* block(int bx, int by) {
+    return coef.data() + (static_cast<size_t>(by) * bw + bx) * 64;
+  }
 };
 
 class BitReader {
@@ -207,7 +232,7 @@ void idct_islow(const int* in, uint8_t* out, int stride) {
     const int* col = in + c;
     if (!col[8] && !col[16] && !col[24] && !col[32] && !col[40] &&
         !col[48] && !col[56]) {
-      long dc = static_cast<long>(col[0]) << kPass1Bits;
+      long dc = col[0] * (1L << kPass1Bits);
       for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
       continue;
     }
@@ -217,8 +242,8 @@ void idct_islow(const int* in, uint8_t* out, int stride) {
     long tmp3 = z1 + z2 * F0765;
     z2 = col[0];
     z3 = col[32];
-    long tmp0 = (z2 + z3) << kConstBits;
-    long tmp1 = (z2 - z3) << kConstBits;
+    long tmp0 = (z2 + z3) * (1L << kConstBits);
+    long tmp1 = (z2 - z3) * (1L << kConstBits);
     long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
     long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
     tmp0 = col[56];
@@ -261,8 +286,8 @@ void idct_islow(const int* in, uint8_t* out, int stride) {
     long z1 = (z2 + z3) * F0541;
     long tmp2 = z1 + z3 * (-F1847);
     long tmp3 = z1 + z2 * F0765;
-    long tmp0 = (row[0] + row[4]) << kConstBits;
-    long tmp1 = (row[0] - row[4]) << kConstBits;
+    long tmp0 = (row[0] + row[4]) * (1L << kConstBits);
+    long tmp1 = (row[0] - row[4]) * (1L << kConstBits);
     long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
     long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
     tmp0 = row[7];
@@ -300,14 +325,36 @@ void idct_islow(const int* in, uint8_t* out, int stride) {
   }
 }
 
+// Component c's samples into c.plane, as jdcoefct.c's decompress_data
+// makes them: each block the upsampler reads, dequantized with the
+// component's latched table (zeros where it had no scan), through
+// idct_islow.
+void idct_plane(Component& c) {
+  const int stride = c.bw * 8;
+  const int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
+  int deq[64];
+  for (int by = 0; by < nby; ++by)
+    for (int bx = 0; bx < nbx; ++bx) {
+      const int16_t* blk = c.block(bx, by);
+      for (int i = 0; i < 64; ++i) deq[i] = blk[i] * (c.latched ? c.q[i] : 0);
+      idct_islow(deq,
+                 c.plane.data() + static_cast<size_t>(by) * 8 * stride +
+                     bx * 8,
+                 stride);
+    }
+}
+
+enum ColorSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+
 struct Decoder {
   const uint8_t* data;
   long n;
   long pos = 2;
   int width = 0, height = 0, hmax = 1, vmax = 1;
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, jfif = false, adobe = false;
   int adobe_transform = -1;
-  int restart_interval = 0;
+  ColorSpace space = kGray;
+  int restart_interval = 0, scans = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -323,7 +370,7 @@ struct Decoder {
     return (hi << 8) | u8();
   }
 
-  // Up to the first SOS (headers only) or through EOI (decode).
+  // Up to the frame header (headers only) or through EOI (decode).
   void run(bool decode) {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) fail(1, "not a JPEG");
     for (;;) {
@@ -333,6 +380,7 @@ struct Decoder {
       while (m == 0xFF) m = u8();
       if (m == 0xD9) {  // EOI
         if (!frame) fail(1, "JPEG without a frame");
+        if (!scans) fail(1, "JPEG without a scan");
         return;
       }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
@@ -342,11 +390,10 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_frame(m);
+        case 0xC2:
+          read_frame(m == 0xC2);
           if (!decode) return;
           break;
-        case 0xC2:
-          fail(2, "progressive JPEG");
         case 0xC6:
           fail(2, "progressive JPEG (hierarchical, differential)");
         case 0xC3:
@@ -374,11 +421,11 @@ struct Decoder {
           break;
         case 0xDC:
           fail(2, "JPEG with a DNL marker");
-        case 0xE0:
-          if (len >= 7 && std::memcmp(data + seg, "JFIF\0", 5) == 0)
+        case 0xE0:  // jdmarker.c examine_app0: 14 bytes of JFIF header
+          if (len >= 16 && std::memcmp(data + seg, "JFIF\0", 5) == 0)
             jfif = true;
           break;
-        case 0xEE:
+        case 0xEE:  // examine_app14: 12 bytes of Adobe header
           if (len >= 14 && std::memcmp(data + seg, "Adobe", 5) == 0) {
             adobe = true;
             adobe_transform = data[seg + 11];
@@ -386,8 +433,9 @@ struct Decoder {
           break;
         case 0xDA:
           if (!frame) fail(1, "JPEG scan before its frame header");
-          if (!decode) return;
+          if (!scans) choose_color_space();
           read_scan();
+          ++scans;
           continue;  // the scan reader leaves pos at the next marker
         default:
           break;  // APPn, COM and the rest carry nothing decoded here
@@ -396,8 +444,27 @@ struct Decoder {
     }
   }
 
-  void read_frame(int marker) {
+  // jdapimin.c default_decompress_parms, from the markers before the first
+  // scan.
+  void choose_color_space() {
+    if (comps.size() == 1) {
+      space = kGray;
+    } else if (comps.size() == 3) {
+      int c0 = comps[0].id, c1 = comps[1].id, c2 = comps[2].id;
+      if (jfif)
+        space = kYCbCr;
+      else if (adobe)
+        space = adobe_transform == 0 ? kRGB : kYCbCr;
+      else
+        space = (c0 == 82 && c1 == 71 && c2 == 66) ? kRGB : kYCbCr;
+    } else {
+      space = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
+    }
+  }
+
+  void read_frame(bool prog) {
     if (frame) fail(1, "JPEG with two frame headers");
+    progressive = prog;
     int precision = u8();
     if (precision != 8)
       fail(2, std::to_string(precision) + "-bit JPEG");
@@ -416,8 +483,7 @@ struct Decoder {
       fail(1, "JPEG of " + std::to_string(width) + "x" +
                   std::to_string(height) + ": more than " +
                   std::to_string(kMaxPixels) + " pixels");
-    if (nc == 4) fail(2, "CMYK/YCCK JPEG (4 components)");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)  // PIL opens no other count
       fail(2, "JPEG with " + std::to_string(nc) + " components");
     comps.resize(nc);
     for (auto& c : comps) {
@@ -430,33 +496,19 @@ struct Decoder {
         fail(1, "bad JPEG component header");
     }
     if (nc == 1) comps[0].h = comps[0].v = 1;  // one component: no MCU
-    if (nc == 3) {
-      int c0 = comps[0].id, c1 = comps[1].id, c2 = comps[2].id;
-      bool rgb = false;
-      if (jfif) {
-      } else if (adobe) {
-        if (adobe_transform == 0) rgb = true;
-      } else if (c0 == 82 && c1 == 71 && c2 == 66) {
-        rgb = true;
-      }
-      if (rgb)
-        fail(2, adobe ? "RGB-coded JPEG (Adobe transform 0)"
-                      : "RGB-coded JPEG (component ids R, G, B)");
-    }
-    (void)marker;
     hmax = vmax = 1;
     for (auto& c : comps) {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
+    // jdsample.c upsamples by integral factors only
     for (auto& c : comps) {
-      int rh = hmax / c.h, rv = vmax / c.v;
-      if (hmax % c.h || vmax % c.v || rh > 2 || rv > rh) {
+      if (hmax % c.h || vmax % c.v) {
         std::string s;
         for (auto& d : comps)
           s += (s.empty() ? "" : ",") + std::to_string(d.h) + "x" +
                std::to_string(d.v);
-        fail(2, "JPEG chroma sampling " + s);
+        fail(2, "JPEG chroma sampling " + s + " (a fractional ratio)");
       }
     }
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
@@ -466,7 +518,7 @@ struct Decoder {
       c.dh = (height * c.v + vmax - 1) / vmax;
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
-      c.plane.assign(static_cast<size_t>(c.bw) * 8 * c.bh * 8, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     frame = true;
   }
@@ -496,6 +548,11 @@ struct Decoder {
     }
   }
 
+  void need_table(const Huffman* tables, int id) {
+    if (id > 3 || !tables[id].defined)
+      fail(1, "JPEG scan uses an undefined Huffman table");
+  }
+
   void read_scan() {
     int ns = u8();
     if (ns < 1 || ns > 4) fail(1, "bad JPEG scan header");
@@ -504,81 +561,207 @@ struct Decoder {
       int id = u8(), t = u8();
       Component* c = nullptr;
       for (auto& d : comps)
-        if (d.id == id) c = &d;
+        if (!c && d.id == id) c = &d;
       if (!c) fail(1, "JPEG scan names an unknown component");
+      for (auto* d : sc)
+        if (d == c) fail(1, "JPEG scan names a component twice");
       c->dc_table = t >> 4;
       c->ac_table = t & 15;
-      if (c->dc_table > 3 || c->ac_table > 3 || !dc[c->dc_table].defined ||
-          !ac[c->ac_table].defined)
-        fail(1, "JPEG scan uses an undefined Huffman table");
-      if (!qt_defined[c->tq])
-        fail(1, "JPEG component uses an undefined quantization table");
       sc.push_back(c);
     }
-    int ss = u8(), se = u8(), a = u8();
-    if (ss != 0 || se != 63 || a != 0)
-      fail(2, "progressive JPEG (spectral selection in a sequential frame)");
+    const int ss = u8(), se = u8(), a = u8(), ah = a >> 4, al = a & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || a != 0)
+        fail(2, "progressive JPEG (spectral selection in a sequential "
+                "frame)");
+      for (auto* c : sc) {
+        need_table(dc, c->dc_table);
+        need_table(ac, c->ac_table);
+      }
+    } else {
+      // jdphuff.c start_pass_phuff_decoder: the fatal checks
+      // (JERR_BAD_PROGRESSION); a scan out of order only warns there
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad)
+        fail(1, "invalid progressive parameters Ss=" + std::to_string(ss) +
+                    " Se=" + std::to_string(se) + " Ah=" +
+                    std::to_string(ah) + " Al=" + std::to_string(al));
+      for (auto* c : sc) {
+        if (ss == 0 && ah == 0) need_table(dc, c->dc_table);
+        if (ss != 0) need_table(ac, c->ac_table);
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      }
+    }
+    int blocks = 0;
+    for (auto* c : sc) {  // jdinput.c latch_quant_tables
+      if (!c->latched) {
+        if (!qt_defined[c->tq])
+          fail(1, "JPEG component uses an undefined quantization table");
+        std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+        c->latched = true;
+      }
+      if (c->coef.empty())
+        c->coef.assign(static_cast<size_t>(c->bw) * c->bh * 64, 0);
+      blocks += c->h * c->v;
+    }
+    if (ns > 1 && blocks > 10)  // D_MAX_BLOCKS_IN_MCU
+      fail(1, "JPEG scan of more than 10 blocks an MCU");
     for (auto* c : sc) c->pred = 0;
 
     BitReader br(data, n, pos);
-    int coef[64];
-    auto block = [&](Component* c, int bx, int by) {
-      std::memset(coef, 0, sizeof(coef));
-      int s = br.decode(dc[c->dc_table]);
-      int diff = s ? extend(br.bits(s), s) : 0;
+    int eobrun = 0;
+    auto dc_value = [&](Component* c) -> long {
+      const int s = br.decode(dc[c->dc_table]);
+      const long diff = s ? extend(br.bits(s), s) : 0;
       c->pred += diff;
-      const uint16_t* q = qt[c->tq];
-      coef[0] = c->pred * q[0];
+      if (c->pred > INT32_MAX || c->pred < INT32_MIN)
+        fail(1, "corrupt JPEG data: DC coefficient out of range");
+      return c->pred;
+    };
+    // jdhuff.c decode_mcu: a sequential block
+    auto sequential = [&](Component* c, int16_t* blk) {
+      blk[0] = static_cast<int16_t>(dc_value(c));
       const Huffman& h = ac[c->ac_table];
-      for (int k = 1; k < 64;) {
-        int rs = br.decode(h);
-        int r = rs >> 4;
-        s = rs & 15;
+      for (int k = 1; k < 64; ++k) {
+        const int rs = br.decode(h), r = rs >> 4, s = rs & 15;
         if (s) {
           k += r;
-          if (k > 63) fail(1, "corrupt JPEG data: AC index past 63");
-          coef[kZigzag[k]] = extend(br.bits(s), s) * q[kZigzag[k]];
-          ++k;
+          blk[kZigzag[k]] = static_cast<int16_t>(extend(br.bits(s), s));
         } else {
           if (r != 15) break;
-          k += 16;
+          k += 15;
         }
       }
-      int stride = c->bw * 8;
-      idct_islow(coef, c->plane.data() + static_cast<size_t>(by) * 8 * stride +
-                           bx * 8,
-                 stride);
     };
-
-    long units;
-    int ux, uy;
-    if (ns == 1) {
-      Component* c = sc[0];
-      ux = (c->dw + 7) / 8;
-      uy = (c->dh + 7) / 8;
-    } else {
-      ux = mcux;
-      uy = mcuy;
-    }
-    units = static_cast<long>(ux) * uy;
-    int rst = 0;
-    for (long u = 0; u < units; ++u) {
-      if (restart_interval && u && u % restart_interval == 0) {
-        br.restart(rst);
-        rst = (rst + 1) & 7;
-        for (auto* c : sc) c->pred = 0;
+    // jdphuff.c decode_mcu_DC_first / _DC_refine
+    auto dc_first = [&](Component* c, int16_t* blk) {
+      blk[0] = static_cast<int16_t>(
+          static_cast<uint32_t>(dc_value(c)) << al);
+    };
+    auto dc_refine = [&](Component*, int16_t* blk) {
+      if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+    };
+    // decode_mcu_AC_first: the band Ss..Se at point transform Al
+    auto ac_first = [&](Component* c, int16_t* blk) {
+      if (eobrun > 0) {
+        --eobrun;
+        return;
       }
-      int mx = static_cast<int>(u % ux), my = static_cast<int>(u / ux);
+      const Huffman& h = ac[c->ac_table];
+      for (int k = ss; k <= se; ++k) {
+        const int rs = br.decode(h);
+        int r = rs >> 4;
+        const int s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kZigzag[k]] = static_cast<int16_t>(
+              static_cast<uint32_t>(extend(br.bits(s), s)) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = (1 << r) + br.bits(r) - 1;
+          break;
+        }
+      }
+    };
+    // decode_mcu_AC_refine: one more bit of every coefficient in the band
+    auto ac_refine = [&](Component* c, int16_t* blk) {
+      const int p1 = 1 << al, m1 = -p1;
+      auto correct = [&](int16_t* coef) {
+        if (br.bits(1) && (*coef & p1) == 0)
+          *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+      };
+      int k = ss;
+      if (eobrun == 0) {
+        const Huffman& h = ac[c->ac_table];
+        for (; k <= se; ++k) {
+          const int rs = br.decode(h);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {  // a newly nonzero coefficient, size 1
+            s = br.bits(1) ? p1 : m1;
+          } else if (r != 15) {
+            eobrun = (1 << r) + br.bits(r);
+            break;
+          }
+          // past already-nonzero coefficients (a correction bit each) and
+          // r zero ones
+          do {
+            int16_t* coef = blk + kZigzag[k];
+            if (*coef) {
+              correct(coef);
+            } else if (--r < 0) {
+              break;
+            }
+            ++k;
+          } while (k <= se);
+          if (s) blk[kZigzag[k]] = static_cast<int16_t>(s);
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= se; ++k) {
+          int16_t* coef = blk + kZigzag[k];
+          if (*coef) correct(coef);
+        }
+        --eobrun;
+      }
+    };
+    auto run_blocks = [&](auto&& decode_block) {
+      int ux, uy;
       if (ns == 1) {
-        block(sc[0], mx, my);
+        ux = (sc[0]->dw + 7) / 8;
+        uy = (sc[0]->dh + 7) / 8;
       } else {
-        for (auto* c : sc)
-          for (int y = 0; y < c->v; ++y)
-            for (int x = 0; x < c->h; ++x)
-              block(c, mx * c->h + x, my * c->v + y);
+        ux = mcux;
+        uy = mcuy;
       }
-    }
+      const long units = static_cast<long>(ux) * uy;
+      int rst = 0;
+      for (long u = 0; u < units; ++u) {
+        if (restart_interval && u && u % restart_interval == 0) {
+          br.restart(rst);
+          rst = (rst + 1) & 7;
+          for (auto* c : sc) c->pred = 0;
+          eobrun = 0;
+        }
+        const int mx = static_cast<int>(u % ux), my = static_cast<int>(u / ux);
+        if (ns == 1) {
+          decode_block(sc[0], sc[0]->block(mx, my));
+        } else {
+          for (auto* c : sc)
+            for (int y = 0; y < c->v; ++y)
+              for (int x = 0; x < c->h; ++x)
+                decode_block(c, c->block(mx * c->h + x, my * c->v + y));
+        }
+      }
+    };
+    if (!progressive)
+      run_blocks(sequential);
+    else if (ss == 0)
+      ah == 0 ? run_blocks(dc_first) : run_blocks(dc_refine);
+    else
+      ah == 0 ? run_blocks(ac_first) : run_blocks(ac_refine);
     pos = br.end();
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg-turbo smooths the blocks of a
+  // progressive file (decompress_smooth_data) when a component's DC is
+  // known and one of its coefficients 1-9 (SAVED_COEFS) was never refined
+  // to Al 0, provided every component has a latched table whose entries
+  // at those positions are nonzero.
+  bool needs_smoothing() const {
+    if (!progressive) return false;
+    static const int kSaved[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (const auto& c : comps) {
+      if (!c.latched) return false;
+      for (int pos : kSaved)
+        if (c.q[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 };
 
@@ -598,25 +781,21 @@ void upsample(const Component& c, int hmax, int vmax, int width, int height,
     uint8_t* o = out.data() + static_cast<size_t>(y) * width;
     if (rh == 1 && rv == 1) {
       for (int x = 0; x < width; ++x) o[x] = at(y, x);
-    } else if (rv == 1) {
-      int r = y;
+    } else if (rh == 2 && rv == 1 && fancy_h) {  // h2v1_fancy_upsample
       for (int x = 0; x < width; ++x) {
         int i = x >> 1;
-        if (!fancy_h) {
-          o[x] = at(r, i);
-        } else if (x & 1) {  // h2v1_fancy_upsample
-          o[x] = static_cast<uint8_t>((at(r, i) * 3 + at(r, i + 1) + 2) >> 2);
-        } else {
-          o[x] = static_cast<uint8_t>((at(r, i) * 3 + at(r, i - 1) + 1) >> 2);
-        }
+        if (x & 1)
+          o[x] = static_cast<uint8_t>((at(y, i) * 3 + at(y, i + 1) + 2) >> 2);
+        else
+          o[x] = static_cast<uint8_t>((at(y, i) * 3 + at(y, i - 1) + 1) >> 2);
       }
-    } else {  // 2 x 2
-      int r = y >> 1;
-      if (!fancy_h) {
-        for (int x = 0; x < width; ++x) o[x] = at(r, x >> 1);
-        continue;
-      }
-      int other = (y & 1) ? r + 1 : r - 1;  // h2v2_fancy_upsample
+    } else if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+      const int r = y >> 1, other = (y & 1) ? r + 1 : r - 1;
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < width; ++x)
+        o[x] = static_cast<uint8_t>((at(r, x) * 3 + at(other, x) + bias) >> 2);
+    } else if (rh == 2 && rv == 2 && fancy_h) {  // h2v2_fancy_upsample
+      const int r = y >> 1, other = (y & 1) ? r + 1 : r - 1;
       auto colsum = [&](int i) { return at(r, i) * 3 + at(other, i); };
       for (int x = 0; x < width; ++x) {
         int i = x >> 1;
@@ -625,6 +804,9 @@ void upsample(const Component& c, int hmax, int vmax, int width, int height,
         else
           o[x] = static_cast<uint8_t>((colsum(i) * 3 + colsum(i - 1) + 8) >> 4);
       }
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+      const int r = y / rv;
+      for (int x = 0; x < width; ++x) o[x] = at(r, x / rh);
     }
   }
 }
@@ -647,6 +829,14 @@ struct ColorTables {
 
 inline uint8_t limit(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// PIL's Convert.c cmyk2rgb on the inverted samples of its "CMYK;I" raw
+// mode (255 - what libjpeg gives); MULDIV255(a, b) rounds a * b / 255.
+inline uint8_t cmyk_channel(int c, int k) {
+  const int ic = 255 - c, nk = k;  // nk = 255 - (255 - k)
+  const int t = ic * nk + 128;
+  return limit(nk - (((t >> 8) + t) >> 8));
 }
 
 int report(const Error& e, char* msg, int msglen) {
@@ -683,24 +873,60 @@ extern "C" int jpeg_decode(const uint8_t* data, long n, uint8_t* out,
     d.run(true);
     const long w = d.width, h = d.height;
     if (out_size < w * h * 3) fail(1, "output buffer too small");
+    if (d.needs_smoothing())
+      fail(2, "progressive JPEG with incomplete refinement (block "
+              "smoothing)");
     std::vector<std::vector<uint8_t>> planes(d.comps.size());
-    for (size_t i = 0; i < d.comps.size(); ++i)
-      upsample(d.comps[i], d.hmax, d.vmax, d.width, d.height, planes[i]);
-    if (d.comps.size() == 1) {
-      const uint8_t* g = planes[0].data();
+    for (size_t i = 0; i < d.comps.size(); ++i) {
+      Component& c = d.comps[i];
+      if (c.coef.empty())  // no scan: zero coefficients, as libjpeg's
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      c.plane.assign(static_cast<size_t>(c.bw) * 8 * c.bh * 8, 0);
+      idct_plane(c);
+      std::vector<int16_t>().swap(c.coef);
+      upsample(c, d.hmax, d.vmax, d.width, d.height, planes[i]);
+      std::vector<uint8_t>().swap(c.plane);
+    }
+    const uint8_t* p0 = planes[0].data();
+    if (d.space == kGray) {
       for (long i = 0; i < w * h; ++i)
-        out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g[i];
+        out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = p0[i];
+      return 0;
+    }
+    const uint8_t *p1 = planes[1].data(), *p2 = planes[2].data();
+    if (d.space == kRGB) {  // jdcolor.c rgb_rgb_convert
+      for (long i = 0; i < w * h; ++i) {
+        out[3 * i] = p0[i];
+        out[3 * i + 1] = p1[i];
+        out[3 * i + 2] = p2[i];
+      }
       return 0;
     }
     static const ColorTables t;
-    const uint8_t *py = planes[0].data(), *pb = planes[1].data(),
-                  *pr = planes[2].data();
+    if (d.space == kYCbCr) {  // ycc_rgb_convert
+      for (long i = 0; i < w * h; ++i) {
+        int y = p0[i], cb = p1[i], cr = p2[i];
+        out[3 * i] = limit(y + t.cr_r[cr]);
+        out[3 * i + 1] =
+            limit(y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        out[3 * i + 2] = limit(y + t.cb_b[cb]);
+      }
+      return 0;
+    }
+    const uint8_t* p3 = planes[3].data();
     for (long i = 0; i < w * h; ++i) {
-      int y = py[i], cb = pb[i], cr = pr[i];
-      out[3 * i] = limit(y + t.cr_r[cr]);
-      out[3 * i + 1] =
-          limit(y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-      out[3 * i + 2] = limit(y + t.cb_b[cb]);
+      int c = p0[i], m = p1[i], yy = p2[i];
+      if (d.space == kYCCK) {  // ycck_cmyk_convert
+        int y = p0[i], cb = p1[i], cr = p2[i];
+        c = limit(255 - (y + t.cr_r[cr]));
+        m = limit(255 - (y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >>
+                                              16)));
+        yy = limit(255 - (y + t.cb_b[cb]));
+      }
+      const int k = p3[i];
+      out[3 * i] = cmyk_channel(c, k);
+      out[3 * i + 1] = cmyk_channel(m, k);
+      out[3 * i + 2] = cmyk_channel(yy, k);
     }
     return 0;
   } catch (const Error& e) {

@@ -1,21 +1,33 @@
 """Still-image decoding of the port's media layer, without PIL.
 
 Reads the formats a frame directory or a base64 image of a serving request
-uses, on every host (the GPU host has no PIL): PNG (8-bit gray, gray +
-alpha, RGB and RGBA; palette at 1, 2, 4 or 8 bits; not interlaced),
-baseline JPEG (8-bit gray or YCbCr at 4:4:4, 4:2:2 or 4:2:0), binary
-PPM / PGM (maxval 255) and uncompressed 24- and 32-bit BMP. Each gives
-what `PIL.Image.open(f).convert("RGB")` gives, bit for bit: alpha is
-dropped, not composited; gray is repeated to three channels; a palette is
-looked up; JPEG is libjpeg-turbo's default decode (ISLOW IDCT, fancy
-upsampling, its YCbCr tables). Two small C++ helpers, built at first use
-by media/_native.py, do the loops numpy cannot: csrc/png_unfilter.cc (the
-Average and Paeth filters depend on the byte just decoded) and
-csrc/jpeg_decode.cc (Huffman decoding, the IDCT, upsampling, color).
+uses, on every host (the GPU host has no PIL), each to what
+`PIL.Image.open(f).convert("RGB")` gives, bit for bit:
+  - PNG: every color type at every bit depth (gray at 1, 2, 4, 8 and 16
+    bits, palette at 1-8, RGB, gray + alpha and RGBA at 8 and 16), plain
+    or Adam7. Alpha and tRNS are dropped, not composited; gray is repeated
+    to three channels; low-bit gray scales as PIL's raw modes ("1" 0 or
+    255, "L;2" x 85, "L;4" x 17); 16-bit gray clips at 255 as PIL's
+    "I;16" does; 16-bit color keeps the high byte.
+  - JPEG: baseline, extended sequential and progressive Huffman files,
+    8-bit, in gray, YCbCr, RGB, CMYK or YCCK, at any integral chroma
+    factors: libjpeg-turbo's default decode (ISLOW IDCT, its upsampling
+    and color tables), CMYK through PIL's inverted raw mode.
+  - GIF: the first frame (later frames are not decoded).
+  - binary PPM / PGM (maxval 255) and uncompressed 24- and 32-bit BMP.
+Three small C++ helpers, built at first use by media/_native.py, do the
+loops numpy cannot: csrc/png_unfilter.cc (the Average and Paeth filters
+depend on the byte just decoded), csrc/jpeg_decode.cc (entropy decoding,
+the IDCT, upsampling, color) and csrc/gif_lzw.cc (via
+media/video_reader.py).
 
-Other formats and variants (progressive, arithmetic or 12-bit JPEG, CMYK
-or RGB-coded JPEG, GIF stills, ...) raise NotImplementedError naming
-them; nothing is decoded by a substitute.
+Still refused, with NotImplementedError naming them: WebP, TIFF,
+arithmetic, lossless, hierarchical and 12-bit JPEG, progressive JPEG left
+short of full refinement (libjpeg-turbo would smooth its blocks), JPEG at
+fractional chroma ratios, BMP with compression or a palette, PNM with
+another maxval, ASCII PNM and GIFs whose first frame reaches past the
+screen. Nothing is decoded by a substitute; a malformed file raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -106,9 +118,13 @@ def read_image(src: Union[str, os.PathLike, bytes]) -> np.ndarray:
         return _read_bmp(data)
     if fmt == "JPEG":
         return _read_jpeg(data)
+    if fmt == "GIF":
+        from .video_reader import read_gif_still
+        return read_gif_still(data)
     raise NotImplementedError(
         f"{fmt} images are not decoded by the port yet (it reads PNG, "
-        "baseline JPEG, binary PPM/PGM and uncompressed 24/32-bit BMP)")
+        "baseline and progressive JPEG, GIF, binary PPM/PGM and "
+        "uncompressed 24/32-bit BMP)")
 
 
 def as_rgb(img) -> np.ndarray:
@@ -122,6 +138,34 @@ def as_rgb(img) -> np.ndarray:
     return np.ascontiguousarray(arr[..., :3])
 
 
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# the (bit depth, color type) pairs of the PNG specification, all of which
+# PIL opens
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# low-bit gray as PIL's "1", "L;2" and "L;4" raw modes scale it
+_GRAY_SCALE = {1: 255, 2: 85, 4: 17}
+# PIL's decompression-bomb limit (2 x Image.MAX_IMAGE_PIXELS)
+MAX_PIXELS = 178956970
+
+
+def _png_samples(rows: np.ndarray, width: int, channels: int,
+                 depth: int) -> np.ndarray:
+    """Unfiltered rows of one pass -> [h, width, channels] samples (uint16
+    at depth 16)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, width, depth) * weights).sum(
+        axis=-1, dtype=np.uint8)[..., None]
+
+
 def _read_png(data: bytes) -> np.ndarray:
     pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
     while pos + 8 <= len(data):
@@ -133,9 +177,12 @@ def _read_png(data: bytes) -> np.ndarray:
         if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise ValueError(f"PNG chunk {kind!r}: bad CRC")
         pos += 12 + length
-        if kind == b"IHDR":
+        if kind == b"IHDR" and length == 13:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
+            if length % 3:
+                raise ValueError("PNG palette of a length not a multiple "
+                                 "of 3")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
@@ -144,49 +191,74 @@ def _read_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError("interlaced PNG is not decoded by the "
-                                  "port yet")
-    supported = depth == 8 or (ctype == 3 and depth in (1, 2, 4))
-    if ctype not in _PNG_CHANNELS or not supported:
-        raise NotImplementedError(f"PNG of color type {ctype} at bit depth "
-                                  f"{depth} is not decoded by the port yet")
-    channels = _PNG_CHANNELS[ctype]
-    row_bytes = (width * channels * depth + 7) // 8
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < height * (row_bytes + 1):
-        raise ValueError("PNG image data is truncated")
-    rows = np.empty((height, row_bytes), np.uint8)
-    bad = _png_unfilter()(raw, height, row_bytes,
-                          max(1, channels * depth // 8),
-                          rows.ctypes.data_as(ctypes.c_void_p))
-    if bad:
-        raise ValueError(f"PNG row {bad - 1}: unknown filter type")
-    if ctype != 3:
-        return as_rgb(rows.reshape(height, width, channels))
-    if palette is None:
+    if depth not in _PNG_DEPTHS.get(ctype, ()):
+        raise ValueError(f"PNG of color type {ctype} at bit depth {depth}: "
+                         "not a combination the PNG specification allows")
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace}")
+    if not width or not height or width * height > MAX_PIXELS:
+        raise ValueError(f"PNG of {width}x{height}: an empty image or more "
+                         f"than {MAX_PIXELS} pixels")
+    if ctype == 3 and palette is None:
         raise ValueError("palette PNG without PLTE")
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        rows = (bits * weights).sum(axis=-1, dtype=np.uint8)
-    lut = np.zeros((256, 3), np.uint8)   # indices past PLTE read black
-    lut[:len(palette)] = palette[:256]
-    return lut[rows[:, :width]]
+    channels = _PNG_CHANNELS[ctype]
+    pixel_bits = channels * depth
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from None
+    samples, offset = None, 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:   # an empty pass has no bytes at all
+            continue
+        row_bytes = (pw * pixel_bits + 7) // 8
+        need = ph * (row_bytes + 1)
+        if len(raw) < offset + need:
+            raise ValueError("PNG image data is truncated")
+        src = np.frombuffer(raw, np.uint8, count=need, offset=offset)
+        offset += need
+        rows = np.empty((ph, row_bytes), np.uint8)
+        bad = _png_unfilter()(src.ctypes.data, ph, row_bytes,
+                              max(1, pixel_bits // 8),
+                              rows.ctypes.data_as(ctypes.c_void_p))
+        if bad:
+            raise ValueError(f"PNG row {bad - 1}: unknown filter type")
+        px = _png_samples(rows, pw, channels, depth)
+        if not interlace:
+            samples = px
+            break
+        if samples is None:
+            samples = np.empty((height, width, px.shape[-1]), px.dtype)
+        samples[y0::dy, x0::dx] = px
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)   # indices past PLTE read black
+        lut[:len(palette)] = palette[:256]
+        return lut[samples[..., 0]]
+    if depth == 16:
+        if ctype == 0:   # PIL's "I;16" -> "RGB" clips, it does not scale
+            samples = np.minimum(samples, 255).astype(np.uint8)
+        else:            # "RGB;16B", "LA;16B", "RGBA;16B": the high byte
+            samples = (samples >> 8).astype(np.uint8)
+    elif ctype == 0 and depth < 8:
+        samples = samples * np.uint8(_GRAY_SCALE[depth])
+    return as_rgb(samples)
 
 
 def _jpeg_status(status: int, msg) -> None:
     text = msg.value.decode(errors="replace")
     if status == 2:
-        raise NotImplementedError(f"{text} is not decoded by the port yet "
-                                  "(baseline 8-bit gray or YCbCr is)")
+        raise NotImplementedError(
+            f"{text} is not decoded by the port yet (8-bit baseline and "
+            "progressive Huffman JPEG in gray, YCbCr, RGB, CMYK or YCCK is)")
     if status:
         raise ValueError(text)
 
 
 def _read_jpeg(data: bytes) -> np.ndarray:
-    """Baseline Huffman JPEG (csrc/jpeg_decode.cc): libjpeg-turbo's ISLOW
-    IDCT, fancy upsampling and YCbCr tables, as PIL decodes by default."""
+    """Baseline or progressive Huffman JPEG (csrc/jpeg_decode.cc):
+    libjpeg-turbo's ISLOW IDCT, upsampling and color tables, as PIL decodes
+    by default."""
     lib = _jpeg_lib()
     msg = ctypes.create_string_buffer(256)
     w, h = ctypes.c_int(), ctypes.c_int()

@@ -274,6 +274,54 @@ def _gif_frames(data: bytes):
         transparency, disposal = None, 0
 
 
+def _gif_screen(data: bytes, what: str):
+    """-> (width, height, global palette or None, background index) of the
+    logical screen; a screen past PIL's decompression-bomb limit raises
+    ValueError."""
+    W, H, flags = struct.unpack("<HHB", data[6:11])
+    if W * H > GIF_MAX_PIXELS:
+        raise ValueError(f"GIF screen of {W}x{H}: more than "
+                         f"{GIF_MAX_PIXELS} pixels ({what})")
+    global_palette, background = None, 0
+    if flags & 128:
+        background = data[11]
+        raw = data[13:13 + (3 << ((flags & 7) + 1))]
+        if _palette_needed(raw):
+            global_palette = raw
+    return W, H, global_palette, background
+
+
+def _check_extent(ext, W: int, H: int, what: str) -> None:
+    if ext[2] > W or ext[3] > H:
+        raise NotImplementedError(
+            f"GIF frames past the logical screen ({what}) are not decoded "
+            "by the port yet")
+
+
+def read_gif_still(data: bytes) -> np.ndarray:
+    """A GIF given as an image -> [H, W, 3] uint8 RGB: its first frame, as
+    `PIL.Image.open(f).convert("RGB")` gives it (the screen filled with the
+    transparent index, else 0, the image pasted in, its palette's colors
+    or gray without one); later frames are not decoded. A first image past
+    the logical screen raises NotImplementedError; a truncated or corrupt
+    stream ValueError."""
+    try:
+        W, H, global_palette, _ = _gif_screen(data, "GIF image")
+        for ext, idx, palette, trans, _ in _gif_frames(data):
+            _check_extent(ext, W, H, "GIF image")
+            x0, y0, x1, y1 = ext
+            canvas = np.full((H, W), trans if trans is not None else 0,
+                             np.uint8)
+            canvas[y0:y1, x0:x1] = idx
+            palette = global_palette if palette is None else palette
+            if palette:
+                return _palette_lut(palette)[canvas]
+            return np.repeat(canvas[..., None], 3, axis=-1)
+    except (IndexError, struct.error) as e:
+        raise ValueError(f"truncated GIF: {e}") from None
+    raise ValueError("GIF without an image")
+
+
 def read_gif(path: str) -> List[np.ndarray]:
     """Every frame of a GIF as [H, W, 3] uint8 RGB: the frames JAX's
     `_read_gif` gives (imageio over PIL's GifImagePlugin, gray repeated to
@@ -292,16 +340,7 @@ def read_gif(path: str) -> List[np.ndarray]:
         data = f.read()
     if data[:6] not in (b"GIF87a", b"GIF89a"):
         raise ValueError(f"not a GIF: {path}")
-    W, H, flags = struct.unpack("<HHB", data[6:11])
-    if W * H > GIF_MAX_PIXELS:
-        raise ValueError(f"GIF screen of {W}x{H}: more than "
-                         f"{GIF_MAX_PIXELS} pixels ({path})")
-    global_palette, background = None, 0
-    if flags & 128:
-        background = data[11]
-        raw = data[13:13 + (3 << ((flags & 7) + 1))]
-        if _palette_needed(raw):
-            global_palette = raw
+    W, H, global_palette, background = _gif_screen(data, path)
     frames: List[np.ndarray] = []
     canvas = mode = lut = None
     info_transparency = None   # PIL's info["transparency"] (first frame's)
@@ -309,10 +348,7 @@ def read_gif(path: str) -> List[np.ndarray]:
     dispose = None             # (array, extent) to paste before the next
     for k, (ext, idx, palette, trans, bits) in enumerate(_gif_frames(data)):
         x0, y0, x1, y1 = ext
-        if x1 > W or y1 > H:
-            raise NotImplementedError(
-                f"GIF frames past the logical screen ({path}) are not "
-                "decoded by the port yet")
+        _check_extent(ext, W, H, path)
         if bits:
             disposal_method = bits
         if dispose is not None:
