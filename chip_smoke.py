@@ -69,8 +69,8 @@ tokenizer files. The
 "eval" phase runs the evaluation harness on the api phase's checkpoint in
 bf16: the MVBench inference script as `python -m` in a child process over a GIF
 task and a JPEG frame-directory task it writes (then the merge and the
-scorer's command line; once more with no --tokenizer, on the
-checkpoint's own files), the Video-MME inference script in this process (JSON
+scorer's command line), the "launch" phase's eval scripts (below), the
+Video-MME inference script in this process (JSON
 question file, SRT subtitles, mm_infer_batch), run_batched over grouped
 videos, each record and answer held to a direct B 1 mm_infer's, and
 quant_accuracy.measure's six variants on the checkpoint's LLM (K3-K7 on
@@ -115,18 +115,38 @@ remat=True and one under remat="dots", whose losses and exact bit sums
 of every trained tensor and fp32 master must be equal.
 The "train entry" phase runs first, right after the build and the
 writing of the api phases' checkpoints, so that this process holds no
-more than its CUDA context while it runs: `python -m
-videollama2_tpu_torch.train.train` in child processes, as the reference's
-recipes launch it (their microbatches: 8 a device for pretrain.sh, 4 for
-finetune.sh, at accumulation 2), over those checkpoints (as plain LLM
-and tower directories) and a corpus of JPEG, PNG and GIF media it
-writes: stage 1, the same run stopped by SIGTERM and resumed (bit-equal
-to the uninterrupted one), stage 2 and VideoLLaMA2.1 stage 1, under
---bf16 (bf16 compute, fp32 masters of the trained tensors), each with
-exact launch counts, every trained tensor moved and every frozen one
-bit-unchanged; stage 2 and VideoLLaMA2.1 stage 1 run with no --tokenizer,
-on the LLM directory's own tokenizer files, and the tokenization's share
-of the host time of stage 2's dataset items is measured.
+more than its CUDA context while it runs: the port's training entry
+point in child processes, as the reference's recipes launch it (their
+microbatches: 8 a device for pretrain.sh, 4 for finetune.sh, at
+accumulation 2), over those checkpoints (as plain LLM and tower
+directories) and a corpus of JPEG, PNG and GIF media it writes, on the
+LLM directory's own tokenizer files: stage 1, the same flags as a plain
+`python -m` stopped by SIGTERM and resumed (its losses and restored state
+held to the uninterrupted run's), stage 2 and VideoLLaMA2.1 stage 1 (on
+a --tokenizer factory, two epochs of one step with a save every step),
+under --bf16 (bf16 compute, fp32 masters of the trained tensors), each
+with exact launch counts, every trained tensor moved and every frozen one
+bit-unchanged; the tokenization's share of the host time of stage 2's
+dataset items is measured. The "launch" phase drives the port's launch
+scripts (scripts/torch/) as a user runs them, `bash` from the repository
+root with this interpreter as `python` and `torchrun`: in the train entry
+phase, stage 1's uninterrupted run is vllava/pretrain.sh under torchrun
+(one rank), stage 2 is vllava/finetune.sh over its newest adapter, and
+custom/finetune_lora.sh and finetune_qlora.sh take a step each (their
+4 x 4) over the api checkpoint beside the plain SIGTERM and resumed runs
+(scripts/profile_torch_launch.py times each script alone); in the eval
+phase, eval/eval_video_mcqa_mvbench.sh runs
+at CHUNKS 2 (both chunks on this card) and 1, whose merged records must
+be equal, and eval/eval_video_mcqa_videomme.sh runs over the committed
+parquet fixture (tests/fixtures/videomme/, decoded by the port's reader
+and held to its golden digest of pandas' rows) with two of its videos
+given GIF media, whose records must equal those of the same questions
+read from their JSON form in this process. A sitecustomize module on the
+scripts' PYTHONPATH (LAUNCH_SITECUSTOMIZE) hands each torchrun worker
+and inference chunk to launch_hook, which records its exact kernel
+launches (and a worker's TrainRecorder report); `[launch]` lines print
+each script's seconds, the script's start to its first step, the steps
+and the reader's milliseconds.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
@@ -3532,13 +3552,25 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
 
 # -- the "train entry" phase: train/train.py as the recipes launch it ---------
 
-TE_STEPS = 4            # stage 1: save_steps 2, SIGTERM during step 2
-TE_STAGE2_STEPS = 2
+TE_STEPS = 4            # stage 1: SIGTERM during step 2
+# 2.1 stage 1: two epochs of one step (PRE_ONE_STEP), a save every step
 TE_QWEN2_STEPS = 2
 # the recipes' microbatches at accumulation 2: pretrain.sh 8 a device
-# (stage 1 and 2.1), finetune.sh 4
+# (stage 1 and 2.1), finetune.sh and the custom scripts 4
 TE_MB, TE_ACCUM = 8, 2
 TE_FT_MB, TE_FT_ACCUM = 4, 2
+TE_PRE_SAMPLES = TE_STEPS * TE_MB * TE_ACCUM   # one epoch of TE_STEPS
+# stage 2: 22 media samples and 2 text-only ones; grouped by modality, an
+# epoch is the full batches of each: 2 steps of TE_FT_MB x TE_FT_ACCUM
+TE_SFT_MEDIA, TE_SFT_TEXT = 22, 2
+# LoRA, QLoRA: one step of the custom scripts' 4 x 4 over custom.json,
+# each beside a plain stage-1 run (41.5 GB) on the card
+CUSTOM_MB, CUSTOM_ACCUM = 4, 4
+CUSTOM_SAMPLES = CUSTOM_MB * CUSTOM_ACCUM
+PRE_ANNOTATIONS = os.path.join("annotations", "valley_llavaimage.json")
+PRE_ONE_STEP = os.path.join("annotations", "pretrain_one_step.json")
+SFT_ANNOTATIONS = os.path.join("annotations",
+                               "videochatgpt_llavaimage_tune.json")
 TE_LOSS_RTOL = 1e-6     # resumed vs uninterrupted losses (bit-equal seen)
 TE_TIMEOUT = 600
 TE_WORDS = ("the a cat dog man woman car ball runs jumps walks sits opens "
@@ -3547,92 +3579,118 @@ TE_WORDS = ("the a cat dog man woman car ball runs jumps walks sits opens "
             "then while after video shows person object moves turns").split()
 
 # a child process: runs videollama2_tpu_torch.train.train as `python -m`
-# does (runpy, the module as __main__, the flags in sys.argv) and writes a
-# JSON report: every kernel's launches, each step's device time (and its
-# forward, backward and optimizer parts), loss and tokens, the state's bit
-# checksums when it is first stepped (after a restore), after each step and
-# at the end, the trainable paths, the steps the train state was saved at
-# (written only when asked: state_saves), the save and restore times and
-# the peak device memory
+# does (runpy, the module as __main__, the flags in sys.argv) under
+# TrainRecorder and writes its report
 TE_RUNNER = r"""
-import json, runpy, sys, time
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cudnn.deterministic = True
-torch.backends.cudnn.benchmark = False
+import runpy, sys
 import chip_smoke as cs
-from videollama2_tpu_torch.checkpoint import train_state
-from videollama2_tpu_torch.train import optimizer as opt_lib
-from videollama2_tpu_torch.train import step as step_lib
 report_path, write_state = sys.argv[1], sys.argv[2] == "save"
 sys.argv = ["videollama2_tpu_torch.train.train"] + sys.argv[3:]
-counters = cs.kernel_counters()
-rep = {"steps": [], "after_step": {}, "restores": []}
-held = {}
-parts = {}
-def timed_part(fn, key):
-    def run(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
-        parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
-        return out
-    return run
-step_lib.loss_fn = timed_part(step_lib.loss_fn, "forward_s")
-opt_lib.GroupedAdamW.step = timed_part(opt_lib.GroupedAdamW.step,
-                                       "optimizer_s")
-make = step_lib.make_train_step
-def make_timed(cfg, tx, trainable, grad_accum=1, **mesh):
-    inner = make(cfg, tx, trainable, grad_accum=grad_accum, **mesh)
-    rep["trained"] = sorted("/".join(p) for p, t in trainable.items() if t)
-    def step(state, batch):
-        if "first" not in rep:
-            rep["first"] = cs.state_checksums(state)
-            rep["first_step_at_s"] = time.perf_counter() - t_start
-        parts.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = inner(state, batch)
-        torch.cuda.synchronize()
-        s = time.perf_counter() - t0
-        rep["steps"].append({"step": state.step, "s": s,
-                             "loss": float(metrics["loss"]),
-                             "num_tokens": int(metrics["num_tokens"]),
-                             "valid_tokens": int(batch.valid_len.sum()),
-                             "forward_s": parts["forward_s"],
-                             "optimizer_s": parts["optimizer_s"],
-                             "backward_s": s - parts["forward_s"]
-                             - parts["optimizer_s"]})
-        rep["after_step"][str(state.step)] = cs.state_checksums(state)
-        held["state"] = state
-        return state, metrics
-    return step
-step_lib.make_train_step = make_timed
-restore = train_state.restore_train_state
-def timed_restore(*a, **k):
-    t0 = time.perf_counter()
-    out = restore(*a, **k)
-    torch.cuda.synchronize()
-    rep["restores"].append(time.perf_counter() - t0)
-    return out
-train_state.restore_train_state = timed_restore
-for fn in counters.values():
-    fn.launches = 0
-torch.cuda.reset_peak_memory_stats()
-t_start = time.perf_counter()
-with cs.state_saves(rep, write_state):
-    runpy.run_module("videollama2_tpu_torch.train.train", run_name="__main__",
-                     alter_sys=True)
-rep["wall_s"] = time.perf_counter() - t_start
-rep["launches"] = {n: fn.launches for n, fn in counters.items()}
-rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-rep["final"] = cs.state_checksums(held["state"])
-rep["device"] = torch.cuda.get_device_name(0)
-with open(report_path, "w") as f:
-    json.dump(rep, f)
+rec = cs.TrainRecorder(write_state)
+runpy.run_module("videollama2_tpu_torch.train.train", run_name="__main__",
+                 alter_sys=True)
+rec.write(report_path)
 """
+
+
+class TrainRecorder:
+    """Instruments train/train.py in this process before it runs (a
+    TE_RUNNER child, or a launch script's torchrun worker through
+    LAUNCH_SITECUSTOMIZE) and writes a JSON report: every kernel's
+    launches, each step's device time (and its forward, backward and
+    optimizer parts), loss and tokens, the state's bit checksums when it is
+    first stepped (after a restore), after each step and at the end, the
+    trainable paths, the steps the train state was saved at (written only
+    with write_state: state_saves), the save and restore times, the peak
+    device memory and the host clock at the first step. The matmuls run
+    without TF32 and cuDNN deterministically, so that runs in different
+    processes are bit-comparable."""
+
+    def __init__(self, write_state: bool):
+        from videollama2_tpu_torch.checkpoint import train_state
+        from videollama2_tpu_torch.train import optimizer as opt_lib
+        from videollama2_tpu_torch.train import step as step_lib
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        self.counters = kernel_counters()
+        rep = self.rep = {"steps": [], "after_step": {}, "restores": []}
+        held = self.held = {}
+        parts = {}
+
+        def timed_part(fn, key):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+        step_lib.loss_fn = timed_part(step_lib.loss_fn, "forward_s")
+        opt_lib.GroupedAdamW.step = timed_part(opt_lib.GroupedAdamW.step,
+                                               "optimizer_s")
+        make = step_lib.make_train_step
+
+        def make_timed(cfg, tx, trainable, grad_accum=1, **mesh):
+            inner = make(cfg, tx, trainable, grad_accum=grad_accum, **mesh)
+            rep["trained"] = sorted("/".join(p) for p, t in trainable.items()
+                                    if t)
+
+            def step(state, batch):
+                if "first" not in rep:
+                    rep["first"] = state_checksums(state)
+                    rep["first_step_at_s"] = time.perf_counter() \
+                        - self.t_start
+                    rep["first_step_wall"] = time.time()
+                parts.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = inner(state, batch)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                rep["steps"].append({
+                    "step": state.step, "s": s,
+                    "loss": float(metrics["loss"]),
+                    "num_tokens": int(metrics["num_tokens"]),
+                    "valid_tokens": int(batch.valid_len.sum()),
+                    "forward_s": parts["forward_s"],
+                    "optimizer_s": parts["optimizer_s"],
+                    "backward_s": s - parts["forward_s"]
+                    - parts["optimizer_s"]})
+                rep["after_step"][str(state.step)] = state_checksums(state)
+                held["state"] = state
+                return state, metrics
+            return step
+        step_lib.make_train_step = make_timed
+        restore = train_state.restore_train_state
+
+        def timed_restore(*a, **k):
+            t0 = time.perf_counter()
+            out = restore(*a, **k)
+            torch.cuda.synchronize()
+            rep["restores"].append(time.perf_counter() - t0)
+            return out
+        train_state.restore_train_state = timed_restore
+        for fn in self.counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        self._saves = state_saves(rep, write_state)
+        self._saves.__enter__()
+        self.t_start = time.perf_counter()
+
+    def write(self, path: str) -> None:
+        rep = self.rep
+        self._saves.__exit__(None, None, None)
+        rep["wall_s"] = time.perf_counter() - self.t_start
+        rep["launches"] = {n: fn.launches for n, fn in self.counters.items()}
+        rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if "state" in self.held:
+            rep["final"] = state_checksums(self.held["state"])
+        rep["device"] = torch.cuda.get_device_name(0)
+        with open(path, "w") as f:
+            json.dump(rep, f)
 
 
 def kernel_counters() -> dict:
@@ -3671,8 +3729,8 @@ def state_checksums(state) -> dict:
 
 
 def toy_tokenizer(model_path):
-    """The --tokenizer factory of the "train entry" phase: ToyTokenizer at
-    the vocabulary of the model directory's config.json."""
+    """The --tokenizer factory of the 2.1 stage-1 run: ToyTokenizer at the
+    vocabulary of the model directory's config.json."""
     with open(os.path.join(model_path, "config.json")) as f:
         return ToyTokenizer(json.load(f)["vocab_size"])
 
@@ -3685,9 +3743,14 @@ def write_train_corpus(root) -> dict:
     """The phase's corpus in the reference's annotation format, written with
     the test writers: 16-frame 480x640 frame directories of JPEG (4:2:0)
     and of PNG files, 16-frame 240x320 GIF videos, 480x640 JPEG (4:2:0 and
-    4:4:4) and PNG images; pre.json (pretrain: one human/gpt round, a
-    caption of 24-60 words) and sft.json (one to three rounds, plus two
-    text-only samples). Returns the media counts and the seconds taken."""
+    4:4:4) and PNG images; under the names the launch scripts read,
+    annotations/valley_llavaimage.json (pretrain: TE_PRE_SAMPLES samples
+    of one human/gpt round, a caption of 24-60 words),
+    annotations/videochatgpt_llavaimage_tune.json (one to three rounds,
+    plus two text-only samples) and custom.json (its first CUSTOM_SAMPLES
+    samples, the LoRA and QLoRA scripts'); PRE_ONE_STEP holds the first
+    TE_MB x TE_ACCUM pretrain samples (the 2.1 run's). Returns the media
+    counts and the seconds taken."""
     from gif_writer import encode_rgb_gif
     from jpeg_writer import encode_jpeg
     from png_writer import encode_png
@@ -3726,10 +3789,14 @@ def write_train_corpus(root) -> dict:
         if kind:
             out[kind] = path
         return out
-    pre = [sample(*media[i % len(media)], 1) for i in range(32)]
-    sft = [sample(*media[i % len(media)], 1 + i % 3) for i in range(22)]
-    sft += [sample(None, None, 1 + i) for i in range(2)]
-    for name, annos in (("pre.json", pre), ("sft.json", sft)):
+    pre = [sample(*media[i % len(media)], 1) for i in range(TE_PRE_SAMPLES)]
+    sft = [sample(*media[i % len(media)], 1 + i % 3)
+           for i in range(TE_SFT_MEDIA)]
+    sft += [sample(None, None, 1 + i) for i in range(TE_SFT_TEXT)]
+    os.makedirs(os.path.join(root, "annotations"))
+    for name, annos in ((PRE_ANNOTATIONS, pre), (SFT_ANNOTATIONS, sft),
+                        (PRE_ONE_STEP, pre[:TE_MB * TE_ACCUM]),
+                        ("custom.json", sft[:CUSTOM_SAMPLES])):
         with open(os.path.join(root, name), "w") as f:
             json.dump(annos, f)
     return {"videos": 7, "images": 4, "pre_samples": len(pre),
@@ -3842,10 +3909,192 @@ def _train_log(out_dir) -> list:
         return [json.loads(line) for line in f]
 
 
-def check_entry_run(label, rep, train_log, want) -> dict:
+# -- the "launch" phase's plumbing: scripts/torch/ as a user runs them --------
+
+# Put first on the scripts' PYTHONPATH: every python process they start
+# runs the interpreter's own sitecustomize, if any, then, when it runs the
+# port's training entry point (torchrun's workers) or an inference driver
+# (the eval chunks), hands it to chip_smoke.launch_hook, which records its kernel launches (and, in a
+# training worker, TrainRecorder's report) into CHIP_SMOKE_LAUNCH_DIR.
+LAUNCH_SITECUSTOMIZE = r"""
+import os
+import sys
+
+
+def _chain():
+    import importlib.machinery
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    rest = [p for p in sys.path if os.path.abspath(p or os.curdir) != here]
+    spec = importlib.machinery.PathFinder.find_spec("sitecustomize", rest)
+    if spec is not None and spec.origin != os.path.abspath(__file__):
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+
+
+_chain()
+# `python -m M`: sys.argv[0] is "-m" until runpy finds M (a script run
+# with -m among its own arguments, as torchrun's agent, is not one)
+_argv = getattr(sys, "orig_argv", [])
+_mod = (_argv[_argv.index("-m") + 1]
+        if sys.argv[:1] == ["-m"] and "-m" in _argv[:-1] else "")
+if os.environ.get("CHIP_SMOKE_LAUNCH_DIR") and (
+        _mod == "videollama2_tpu_torch.train.train"
+        or _mod.startswith("videollama2_tpu_torch.eval.inference_")):
+    import chip_smoke
+    chip_smoke.launch_hook(_mod)
+"""
+LAUNCH_TIMEOUT = 600
+
+
+def launch_hook(module: str) -> None:
+    """In a process a launch script started on a module of the port: its
+    report, written at exit to CHIP_SMOKE_LAUNCH_DIR/<module>.<pid>.json.
+    A training worker runs under TrainRecorder (the train state's saves
+    recorded, not written); any other module records its kernel launches,
+    argv and card."""
+    import atexit
+    path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"],
+                        f"{module}.{os.getpid()}.json")
+    if module == "videollama2_tpu_torch.train.train":
+        atexit.register(TrainRecorder(write_state=False).write, path)
+        return
+    counters = kernel_counters()
+    start = time.time()
+
+    def write():
+        with open(path, "w") as f:
+            json.dump({"module": module, "argv": sys.argv, "start": start,
+                       "end": time.time(), "cuda_visible_devices":
+                       os.environ.get("CUDA_VISIBLE_DEVICES"),
+                       "launches": {n: fn.launches
+                                    for n, fn in counters.items()}}, f)
+    atexit.register(write)
+
+
+class Launcher:
+    """Runs scripts/torch/<rel> with bash from the repository root, with
+    this interpreter as `python` and `torchrun` (their first entries on
+    PATH), LAUNCH_SITECUSTOMIZE on PYTHONPATH and the variables given. A
+    run returns its wall seconds, host clock at start, output lines and
+    the reports of the processes it started (each run its own report
+    directory, so that runs may overlap: start() them, then finish())."""
+
+    def __init__(self, root: str):
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+        self.root = root
+        self.hook = os.path.join(root, "launch_hook")
+        os.makedirs(os.path.join(self.hook, "bin"))
+        with open(os.path.join(self.hook, "sitecustomize.py"), "w") as f:
+            f.write(LAUNCH_SITECUSTOMIZE)
+        for name, text in (
+                ("python", f'#!/bin/sh\nexec "{sys.executable}" "$@"\n'),
+                ("torchrun", f"#!{sys.executable}\nimport sys\n"
+                 "from torch.distributed.run import main\n"
+                 "sys.exit(main())\n")):
+            path = os.path.join(self.hook, "bin", name)
+            with open(path, "w") as f:
+                f.write(text)
+            os.chmod(path, 0o755)
+        self.runs = 0
+
+    def start(self, label: str, rel: str, **env) -> dict:
+        import socket
+        self.runs += 1
+        reports = os.path.join(self.root, f"launch_reports_{self.runs}")
+        os.makedirs(reports)
+        with socket.socket() as sock:       # a free port for torchrun
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        full = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=
+                    "expandable_segments:True", ARG_MASTER_PORT=str(port),
+                    CHIP_SMOKE_LAUNCH_DIR=reports,
+                    PATH=os.pathsep.join([os.path.join(self.hook, "bin"),
+                                          os.environ.get("PATH", "")]),
+                    PYTHONPATH=os.pathsep.join(
+                        [self.hook, self.repo, os.path.join(self.repo,
+                                                            "tests")]
+                        + ([os.environ["PYTHONPATH"]]
+                           if os.environ.get("PYTHONPATH") else [])),
+                    **{k: str(v) for k, v in env.items()})
+        log_path = os.path.join(reports, "output.txt")
+        out = open(log_path, "w")
+        proc = subprocess.Popen(
+            ["bash", os.path.join(self.repo, "scripts", "torch", rel)],
+            cwd=self.repo, env=full, stdout=out, stderr=subprocess.STDOUT)
+        out.close()
+        return {"label": label, "rel": rel, "proc": proc, "reports": reports,
+                "log": log_path, "start": time.time(),
+                "t0": time.perf_counter()}
+
+    def finish(self, run: dict) -> dict:
+        proc = run["proc"]
+        try:
+            rc = proc.wait(timeout=LAUNCH_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - run["t0"]
+        with open(run["log"]) as f:
+            lines = f.read().splitlines()
+        if rc != 0:
+            raise RuntimeError(f"[launch] {run['label']}: bash scripts/torch/"
+                               f"{run['rel']} exit code {rc}\n"
+                               + "\n".join(lines[-60:]))
+        reports = []
+        for name in sorted(os.listdir(run["reports"])):
+            if name.endswith(".json"):
+                with open(os.path.join(run["reports"], name)) as f:
+                    reports.append(json.load(f))
+        log(f"[launch] {run['label']}: bash scripts/torch/{run['rel']} "
+            f"{wall:.1f} s wall, {len(reports)} port process(es)")
+        return {"wall_s": wall, "start": run["start"], "lines": lines,
+                "reports": reports}
+
+    def run(self, label: str, rel: str, **env) -> dict:
+        return self.finish(self.start(label, rel, **env))
+
+    def finish_all(self, runs: list) -> list:
+        """finish() each started run; if one fails, the others are killed
+        before its error propagates."""
+        try:
+            return [self.finish(run) for run in runs]
+        finally:
+            for run in runs:
+                if run["proc"].poll() is None:
+                    run["proc"].kill()
+                    run["proc"].wait()
+
+
+def launch_train(label, run, want, out_dir, may_stay=()) -> tuple:
+    """A training script's finished run (Launcher): one torchrun worker,
+    checked as a train entry run (check_entry_run), with its wall seconds,
+    the seconds from the script's start to its first step, and its `step
+    N:` lines. Returns (the run's numbers, the worker's report)."""
+    if len(run["reports"]) != 1:
+        raise RuntimeError(f"[launch] {label}: {len(run['reports'])} worker "
+                           "reports, not one (torchrun --nproc_per_node 1)")
+    rep = run["reports"][0]
+    rep["process_s"] = run["wall_s"]
+    res = check_entry_run(label, rep, _train_log(out_dir), want, may_stay)
+    nproc = [ln for ln in run["lines"] if ln.startswith("WORLD_SIZE")]
+    res.update(script_s=run["wall_s"], start_to_first_step_s=rep[
+        "first_step_wall"] - run["start"], world=nproc,
+        step_lines=[ln for ln in run["lines"] if ln.startswith("step ")])
+    log(f"[launch] {label}: {nproc}; script {run['wall_s']:.1f} s, script "
+        f"start to first step under torchrun "
+        f"{res['start_to_first_step_s']:.1f} s, steps "
+        f"{[round(st['s'], 3) for st in res['steps']]} s, losses "
+        f"{[round(st['loss'], 6) for st in res['steps']]}")
+    return res, rep
+
+
+def check_entry_run(label, rep, train_log, want, may_stay=()) -> dict:
     """Launch counts, finite losses, every trained tensor moved (its fp32
-    master, where it has one), every frozen tensor bit-unchanged; returns
-    the run's numbers."""
+    master, where it has one) but those whose path ends with one of
+    may_stay, every frozen tensor bit-unchanged; returns the run's
+    numbers."""
     if rep["launches"] != want:
         raise RuntimeError(f"[train entry] {label}: launch counts "
                            f"{rep['launches']} != {want}")
@@ -3861,12 +4110,14 @@ def check_entry_run(label, rep, train_log, want) -> dict:
                            f"{changed[:5]}")
     values = [f"master:{p}" if f"master:{p}" in rep["first"]
               else f"params:{p}" for p in rep["trained"]]
-    still = [k for k in values if rep["first"][k] == rep["final"][k]]
+    still = [k for k in values if rep["first"][k] == rep["final"][k]
+             and not k.endswith(tuple(may_stay))]
     if still:
         raise RuntimeError(f"[train entry] {label}: {len(still)} of "
                            f"{len(values)} trained tensors did not move: "
                            f"{still[:5]}")
-    moved = {g: sum(k.split(":")[1].startswith(f"{g}/") for k in values)
+    moved = {g: sum(k.split(":")[1].startswith(f"{g}/")
+                    and rep["first"][k] != rep["final"][k] for k in values)
              for g in ("connector", "llm")}
     masters = sum(k.startswith("master:") for k in values)
     # the host's batch time of each logged step (a preempted step saves
@@ -3920,24 +4171,32 @@ def entry_launches(counters, cfg, steps, accum, mb) -> dict:
 
 
 def run_train_entry_phase(api_ckpt, api_av_ckpt, counters) -> tuple:
-    """The "train entry" phase: train/train.py in child processes, as the
-    recipes launch it, at full width with the LLM cut to API_LLM_LAYERS
-    layers, on the api phases' seeded bf16 checkpoints (released 7B-16F and
-    2.1-AV layouts) as plain LLM and tower directories, and a corpus
-    written here, while this process holds only its CUDA context (main
-    runs the phase first). Stage 1 (pretrain.sh's flags) runs TE_STEPS steps
-    uninterrupted (save_steps 2), then again with SIGTERM sent during step
-    2 (it saves at step 2 and exits 0) and resumed in a new process to
-    TE_STEPS: the restored state is bit-equal to the one saved, and the
-    resumed steps' losses equal the uninterrupted run's. Stage 2
-    (finetune.sh's flags) reads stage 1's adapter-4/, groups by modality
-    length and trains the LLM; VideoLLaMA2.1 runs stage 1. Every run
-    holds its trained tensors as fp32 masters (--bf16), all of which must
-    move. A whole train state at this size is ~12 GB and the machine
-    allows ~45 GiB of disk writes a run, so only the SIGTERM run writes
-    its state; the other runs record the steps at which the Trainer saves
-    it (state_saves) and write their adapter-{step}/. Returns the phase's
-    numbers and launch counts."""
+    """The "train entry" phase, and the "launch" phase's training scripts:
+    train/train.py in child processes, at full width with the LLM cut to
+    API_LLM_LAYERS layers, on the api phases' seeded bf16 checkpoints
+    (released 7B-16F and 2.1-AV layouts) as plain LLM and tower
+    directories, and a corpus written here under the names the scripts
+    read, while this process holds only its CUDA context (main runs the
+    phase first). Stage 1 runs TE_STEPS steps uninterrupted through
+    scripts/torch/vllava/pretrain.sh (torchrun, one rank), then as a plain
+    `python -m` with the same flags with SIGTERM sent during step 2 (it
+    saves at step 2 and exits 0) and resumed in a new process to TE_STEPS:
+    the restored state is bit-equal to the one saved, and the steps'
+    losses equal the script run's. Stage 2 runs through
+    scripts/torch/vllava/finetune.sh, which reads stage 1's newest
+    adapter-{step}/, groups by modality length and trains the LLM; LoRA
+    and QLoRA take a step each through scripts/torch/custom/
+    finetune_{lora,qlora}.sh over the api checkpoint (their 4 x 4 over
+    custom.json), beside the SIGTERM and the resumed run; VideoLLaMA2.1
+    runs stage 1 as a plain `python -m` on a --tokenizer factory, two
+    epochs of one step with a save every step. Every run holds its trained
+    tensors as fp32 masters (--bf16; LoRA adapters are fp32 themselves),
+    all of which must move (a LoRA a only after its b has). A whole train
+    state at this size is ~12 GB and the machine allows ~45 GiB of disk
+    writes a run, so only the SIGTERM run writes its state; the other runs
+    record the steps at which the Trainer saves it (state_saves) and write
+    their adapter-{step}/ or lora-{step}/. Returns the phase's numbers and
+    launch counts."""
     from videollama2_tpu_torch.core import config as cfglib
     from videollama2_tpu_torch.media import _native
 
@@ -3969,7 +4228,7 @@ def run_train_entry_phase(api_ckpt, api_av_ckpt, counters) -> tuple:
         f"directories ({API_LLM_LAYERS} layers) and the CLIP and SigLIP "
         f"tower directories written in {out['dirs_s']:.1f} s")
     counts = run_entry_runs(out, root, corpus, (mcfg, m_llm, m_tower),
-                            (qcfg, q_llm, q_tower), counters)
+                            (qcfg, q_llm, q_tower), counters, api_ckpt)
     tmp.cleanup()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[train entry] phase {out['phase_s']:.1f} s")
@@ -3977,15 +4236,15 @@ def run_train_entry_phase(api_ckpt, api_av_ckpt, counters) -> tuple:
 
 
 def tokenization_share(corpus, llm_dir, cfg) -> dict:
-    """Host seconds of the stage-2 corpus (sft.json) on the LLM directory's
-    own tokenizer, each on a fresh reader (its word cache empty, as in a
+    """Host seconds of stage 2's corpus on the LLM directory's own
+    tokenizer, each on a fresh reader (its word cache empty, as in a
     child's first epoch): the dataset's items whole (media decode and
     resize, then tokenization) against the tokenization alone (the same
     conversations through data.preprocess)."""
     import copy
     from videollama2_tpu_torch.multimodal import hf_tokenizer
     from videollama2_tpu_torch.train import data as data_lib
-    path = [os.path.join(corpus, "sft.json")]
+    path = [os.path.join(corpus, SFT_ANNOTATIONS)]
     args = data_lib.DataArguments(data_path=path, data_folder=corpus,
                                   num_frames=cfg.num_frames)
     ds = data_lib.SupervisedDataset(path, hf_tokenizer.load(llm_dir), args,
@@ -4013,10 +4272,10 @@ def tokenization_share(corpus, llm_dir, cfg) -> dict:
 
 
 def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
-                   extra_flags=()) -> dict:
-    """The phase's five processes (see run_train_entry_phase) over the
-    corpus and the (config, LLM directory, tower directory) of each model;
-    fills `out` with their numbers and returns their launch counts."""
+                   api_ckpt) -> dict:
+    """The phase's runs (see run_train_entry_phase) over the corpus and the
+    (config, LLM directory, tower directory) of each model; fills `out`
+    with their numbers and returns their launch counts."""
     from videollama2_tpu_torch.checkpoint.projector_io import \
         load_projector_only
     from videollama2_tpu_torch.models import connector as conn_lib
@@ -4024,54 +4283,55 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
     mcfg, m_llm, m_tower = mistral
     qcfg, q_llm, q_tower = qwen2
     counts = {}
+    launcher = Launcher(root)
+    outputs = os.path.join(root, "outputs")
+    launch = out.setdefault("launch", {})
 
     def flags(llm, tower, out_dir, model_type="videollama2_mistral",
-              projector="stc_connector", stage=1, steps=TE_STEPS,
-              save_steps=2, epochs=2, own_tokenizer=False):
-        # own_tokenizer: no --tokenizer, the LLM directory's own files
-        # (tests/tokenizer_writer.py's, copied from the api checkpoints)
-        tok_flags = ([] if own_tokenizer
-                     else ["--tokenizer", "chip_smoke:toy_tokenizer"])
-        common = [
+              projector="stc_connector", data=PRE_ANNOTATIONS, epochs=1,
+              save_steps=500, tokenizer=None):
+        # scripts/torch/vllava/pretrain.sh's flags at TE_MB x TE_ACCUM on
+        # one card (without a tokenizer factory, the LLM directory's own
+        # tokenizer files, written by tests/tokenizer_writer.py and copied
+        # from the api checkpoints)
+        return [
             "--model_type", model_type, "--model_path", llm,
             "--vision_tower", tower, "--mm_projector_type", projector,
-            "--mm_vision_select_layer", "-2", "--data_folder", corpus,
-            "--num_frames", "8", "--model_max_length", str(TRAIN_S),
-            "--output_dir", out_dir, "--num_train_epochs", str(epochs),
-            "--weight_decay", "0.", "--warmup_ratio", "0.03",
-            "--lr_scheduler_type", "cosine", "--save_steps", str(save_steps),
-            "--logging_steps", "1", "--bf16", "true", "--max_steps",
-            str(steps), "--mesh_fsdp", "-1", "--mesh_tensor", "1",
-            *tok_flags, *extra_flags]
-        if stage == 1:
-            return common + [
-                "--tune_mm_mlp_adapter", "true", "--data_path",
-                os.path.join(corpus, "pre.json"), "--learning_rate", "1e-3",
-                "--per_device_train_batch_size", str(TE_MB),
-                "--gradient_accumulation_steps", str(TE_ACCUM)]
-        return common + [
-            "--image_aspect_ratio", "pad", "--data_path",
-            os.path.join(corpus, "sft.json"), "--learning_rate", "2e-5",
-            "--group_by_modality_length", "true",
-            "--per_device_train_batch_size", str(TE_FT_MB),
-            "--gradient_accumulation_steps", str(TE_FT_ACCUM)]
+            "--mm_vision_select_layer", "-2", "--tune_mm_mlp_adapter",
+            "true", "--data_path", os.path.join(corpus, data),
+            "--data_folder", corpus, "--num_frames", "8",
+            "--model_max_length", str(TRAIN_S), "--output_dir", out_dir,
+            "--num_train_epochs", str(epochs),
+            "--per_device_train_batch_size", str(TE_MB),
+            "--gradient_accumulation_steps", str(TE_ACCUM),
+            "--learning_rate", "1e-3", "--weight_decay", "0.",
+            "--warmup_ratio", "0.03", "--lr_scheduler_type", "cosine",
+            "--save_steps", str(save_steps), "--logging_steps", "1",
+            "--bf16", "true", "--mesh_fsdp", "-1", "--mesh_tensor", "1"] + (
+                ["--tokenizer", tokenizer] if tokenizer else [])
 
     def report(name):
         return os.path.join(root, f"{name}.json")
 
-    # stage 1, uninterrupted
-    a_dir = os.path.join(root, "stage1")
+    # stage 1, uninterrupted: scripts/torch/vllava/pretrain.sh under torchrun
+    a_dir = os.path.join(outputs, "vllava_pretrain", "pretrain")
     want = entry_launches(counters, mcfg, TE_STEPS, TE_ACCUM, TE_MB)
     log(f"[train entry] stage 1 launches wanted a run of {TE_STEPS} steps: "
         f"{want}")
-    rep_a, _ = run_entry("stage 1", flags(m_llm, m_tower, a_dir),
-                         report("a"))
-    out["stage1"] = check_entry_run("stage 1", rep_a, _train_log(a_dir),
-                                    want)
-    if rep_a["save_steps"] != [2, TE_STEPS]:
+    script_env = dict(MODEL_PATH=m_llm, VISION_TOWER=m_tower,
+                      DATA_DIR=corpus, OUTP_DIR=outputs)
+    label = "stage 1 (pretrain.sh)"
+    out["stage1"], rep_a = launch_train(label, launcher.run(
+        label, "vllava/pretrain.sh", **script_env, ARG_NPROC_PER_NODE=1,
+        GLOBAL_BATCH_SIZE=TE_PRE_SAMPLES // TE_STEPS,
+        LOCAL_BATCH_SIZE=TE_MB), want, a_dir)
+    launch["pretrain.sh"] = out["stage1"]
+    if rep_a["save_steps"] != [TE_STEPS] \
+            or not os.path.isdir(os.path.join(a_dir, f"adapter-{TE_STEPS}")):
         raise RuntimeError("[train entry] stage 1 saved its state at "
-                           f"{rep_a['save_steps']}, not at 2 and {TE_STEPS}")
-    counts["stage 1"] = rep_a["launches"]
+                           f"{rep_a['save_steps']}, not at {TE_STEPS} "
+                           f"only, or wrote no adapter-{TE_STEPS}/")
+    counts["stage 1 (pretrain.sh)"] = rep_a["launches"]
     # the saved projector reads back through load_projector_only as the
     # trained connector's fp32 masters
     like = {}
@@ -4091,11 +4351,25 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
         raise RuntimeError("[train entry] adapter-4 does not read back as "
                            "the trained connector's fp32 masters")
 
-    # stage 1 again: SIGTERM during step 2, then resumed in a new process
+    # stage 1 again with pretrain.sh's flags as a plain `python -m`:
+    # SIGTERM during step 2, then resumed in a new process; beside each, a
+    # step of scripts/torch/custom/finetune_lora.sh, then finetune_qlora.sh,
+    # over the api checkpoint (a whole VideoLLaMA2-7B-16F directory, LLM cut
+    # to API_LLM_LAYERS), checked below
+    custom = {}
+
+    def custom_start(rel):
+        return launcher.start(
+            os.path.basename(rel), rel, MODEL_PATH=api_ckpt,
+            DATA_DIR=corpus, OUTP_DIR=outputs, ARG_NPROC_PER_NODE=1)
     b_dir = os.path.join(root, "stage1_preempted")
-    rep_b, lines_b = run_entry(
-        "stage 1 preempted", flags(m_llm, m_tower, b_dir), report("b"),
-        sigterm_after="step 1:", write_state=True)
+    started = custom_start("custom/finetune_lora.sh")
+    try:
+        rep_b, lines_b = run_entry(
+            "stage 1 preempted", flags(m_llm, m_tower, b_dir), report("b"),
+            sigterm_after="step 1:", write_state=True)
+    finally:
+        custom["custom/finetune_lora.sh"], = launcher.finish_all([started])
     if not any(ln.startswith("preemption signal received") for ln in lines_b) \
             or sorted(os.listdir(os.path.join(b_dir, "checkpoints"))) != ["2"]:
         raise RuntimeError("[train entry] the SIGTERM run did not save at "
@@ -4103,9 +4377,14 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
     out["stage1_preempted"] = check_entry_run(
         "stage 1 preempted", rep_b, _train_log(b_dir),
         entry_launches(counters, mcfg, 2, TE_ACCUM, TE_MB))
+    out["stage1_preempted"]["concurrent_with"] = "finetune_lora.sh"
     counts["stage 1 preempted"] = rep_b["launches"]
-    rep_c, lines_c = run_entry("stage 1 resumed",
-                               flags(m_llm, m_tower, b_dir), report("c"))
+    started = custom_start("custom/finetune_qlora.sh")
+    try:
+        rep_c, lines_c = run_entry("stage 1 resumed",
+                                   flags(m_llm, m_tower, b_dir), report("c"))
+    finally:
+        custom["custom/finetune_qlora.sh"], = launcher.finish_all([started])
     if not any(ln.startswith("Resuming from checkpoint step 2")
                for ln in lines_c):
         raise RuntimeError("[train entry] the resumed run did not resume "
@@ -4118,13 +4397,20 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
     out["stage1_resumed"] = check_entry_run(
         "stage 1 resumed", rep_c, _train_log(b_dir),
         entry_launches(counters, mcfg, TE_STEPS - 2, TE_ACCUM, TE_MB))
+    out["stage1_resumed"]["concurrent_with"] = "finetune_qlora.sh"
     counts["stage 1 resumed"] = rep_c["launches"]
     if rep_b["save_steps"] != [2] or rep_c["save_steps"] != [TE_STEPS]:
         raise RuntimeError("[train entry] state saves at "
                            f"{rep_b['save_steps']} and {rep_c['save_steps']}")
+    # the plain runs' steps against pretrain.sh's under torchrun (a
+    # one-rank NCCL group: the world-1 mesh)
     want_l = [s["loss"] for s in rep_a["steps"][2:]]
     got_l = [s["loss"] for s in rep_c["steps"]]
     np.testing.assert_allclose(got_l, want_l, rtol=TE_LOSS_RTOL, atol=0)
+    first_l = [s["loss"] for s in rep_b["steps"]]
+    np.testing.assert_allclose(first_l, [s["loss"] for s in
+                                         rep_a["steps"][:2]],
+                               rtol=TE_LOSS_RTOL, atol=0)
     same_final = rep_c["final"] == rep_a["final"]
     out["resume"] = {"losses": got_l, "uninterrupted": want_l,
                      "bit_equal_losses": got_l == want_l,
@@ -4132,44 +4418,74 @@ def run_entry_runs(out, root, corpus, mistral, qwen2, counters,
                      "final_bit_equal": same_final}
     log(f"[train entry] resumed at step 2: restored params and moments "
         f"bit-equal to the saved ones; steps 3-4 losses {got_l} vs the "
-        f"uninterrupted run's {want_l} (bit-equal: {got_l == want_l}; "
-        f"tolerance rtol {TE_LOSS_RTOL}); final state bit-equal to the "
-        f"uninterrupted run's: {same_final}")
+        f"uninterrupted run's (pretrain.sh under torchrun) {want_l} "
+        f"(bit-equal: {got_l == want_l}; tolerance rtol {TE_LOSS_RTOL}); "
+        f"final state bit-equal to the uninterrupted run's: {same_final}")
     shutil_rm(b_dir)
 
-    # stage 2 over stage 1's adapter
-    d_dir = os.path.join(root, "stage2")
-    want2 = entry_launches(counters, mcfg, TE_STAGE2_STEPS, TE_FT_ACCUM,
-                           TE_FT_MB)
-    rep_d, _ = run_entry(
-        "stage 2", flags(m_llm, m_tower, d_dir, stage=2,
-                         steps=TE_STAGE2_STEPS, save_steps=500, epochs=1,
-                         own_tokenizer=True)
-        + ["--pretrain_mm_mlp_adapter",
-           os.path.join(a_dir, f"adapter-{TE_STEPS}")], report("d"))
+    # stage 2 over stage 1's newest adapter: scripts/torch/vllava/
+    # finetune.sh under torchrun
+    d_dir = os.path.join(outputs, "vllava_finetune", "finetune")
+    ft_steps = TE_SFT_MEDIA // (TE_FT_MB * TE_FT_ACCUM)
+    want2 = entry_launches(counters, mcfg, ft_steps, TE_FT_ACCUM, TE_FT_MB)
+    label = "stage 2 (finetune.sh)"
+    out["stage2"], rep_d = launch_train(label, launcher.run(
+        label, "vllava/finetune.sh", **script_env, ARG_NPROC_PER_NODE=1,
+        GLOBAL_BATCH_SIZE=TE_FT_MB * TE_FT_ACCUM,
+        LOCAL_BATCH_SIZE=TE_FT_MB), want2, d_dir)
+    launch["finetune.sh"] = out["stage2"]
     first_conn = {k[len("master:connector/"):]: v
                   for k, v in rep_d["first"].items()
                   if k.startswith("master:connector/")}
     if first_conn != final_conn:
         raise RuntimeError("[train entry] stage 2 did not start from stage "
                            "1's adapter")
-    out["stage2"] = check_entry_run("stage 2", rep_d, _train_log(d_dir),
-                                    want2)
     out["stage2"]["tokenization"] = tokenization_share(corpus, m_llm, mcfg)
-    counts["stage 2"] = rep_d["launches"]
+    counts["stage 2 (finetune.sh)"] = rep_d["launches"]
     shutil_rm(a_dir)
     shutil_rm(d_dir)
 
-    # VideoLLaMA2.1: stage 1
+    # the LoRA and QLoRA script runs, each a step beside a plain stage-1 run
+    want_c = entry_launches(counters, mcfg, 1, CUSTOM_ACCUM, CUSTOM_MB)
+    for (rel, run), name, beside in zip(
+            custom.items(), ("custom_lora", "custom_qlora"),
+            ("stage 1 preempted", "stage 1 resumed")):
+        o_dir = os.path.join(outputs, name)
+        res, rep = launch_train(os.path.basename(rel), run, want_c, o_dir,
+                                may_stay=("lora/a",))
+        res["concurrent_with"] = beside
+        # the adapters' b and the connector train; each a waits on b
+        # (zero at the start): LoRA's first step leaves it unchanged
+        b_paths = [k for k in rep["trained"] if k.endswith("lora/b")
+                   or "/lora/b/" in k]
+        if not b_paths or res["trained_tensors_moved"]["connector"] == 0 \
+                or not os.path.isdir(os.path.join(o_dir, "lora-1")):
+            raise RuntimeError(f"[launch] {rel}: adapters b {b_paths}, "
+                               f"moved {res['trained_tensors_moved']}, "
+                               f"lora-1/ {os.listdir(o_dir)}")
+        launch[os.path.basename(rel)] = res
+        counts[os.path.basename(rel)] = rep["launches"]
+        shutil_rm(o_dir)
+
+    # VideoLLaMA2.1: stage 1, two epochs of one step with a save every
+    # step (the Trainer's save_steps trigger and an epoch boundary), on a
+    # --tokenizer factory
     e_dir = os.path.join(root, "qwen2")
     wantq = entry_launches(counters, qcfg, TE_QWEN2_STEPS, TE_ACCUM, TE_MB)
     rep_e, _ = run_entry(
         "2.1 stage 1", flags(q_llm, q_tower, e_dir, "videollama2_qwen2",
-                             "stc_connector_v35", steps=TE_QWEN2_STEPS,
-                             save_steps=500, epochs=1, own_tokenizer=True),
+                             "stc_connector_v35", data=PRE_ONE_STEP,
+                             epochs=TE_QWEN2_STEPS, save_steps=1,
+                             tokenizer="chip_smoke:toy_tokenizer"),
         report("e"))
     out["qwen2_stage1"] = check_entry_run("2.1 stage 1", rep_e,
                                           _train_log(e_dir), wantq)
+    saves = list(range(1, TE_QWEN2_STEPS + 1))
+    if rep_e["save_steps"] != saves or not all(
+            os.path.isdir(os.path.join(e_dir, f"adapter-{n}")) for n in saves):
+        raise RuntimeError("[train entry] 2.1 stage 1 saved its state at "
+                           f"{rep_e['save_steps']}, not at {saves}, or "
+                           f"wrote no adapter-{{1, 2}}/: {os.listdir(e_dir)}")
     counts["2.1 stage 1"] = rep_e["launches"]
     shutil_rm(e_dir)
     return counts
@@ -4297,23 +4613,276 @@ def write_eval_media(root) -> dict:
     return out
 
 
-def eval_child(label, args, root) -> list:
+LAUNCH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "videomme",
+                              "test-00000-of-00001.parquet")
+LAUNCH_FIXTURE_GOLDEN = LAUNCH_FIXTURE.replace(".parquet", ".golden.json")
+LAUNCH_VIDEOMME_VIDEOS = 2    # of the fixture's, given GIF media
+READER_ITERS = 5
+
+
+def parquet_rows_digest(columns: dict) -> str:
+    """SHA-256 of a table's rows as canonical JSON (tests/
+    test_torch_parquet.py's rows_digest: the golden digest is pandas')."""
+    import hashlib
+    names = list(columns)
+    rows = [dict(zip(names, vals)) for vals in zip(*columns.values())]
+    return hashlib.sha256(json.dumps(
+        rows, ensure_ascii=False, separators=(",", ":")).encode()).hexdigest()
+
+
+def check_parquet_fixture() -> dict:
+    """The committed Video-MME-shaped fixture through the port's reader
+    (eval/parquet.py) against its golden digest of pandas' rows; the read's
+    host milliseconds, median of READER_ITERS."""
+    from videollama2_tpu_torch.eval import parquet
+    with open(LAUNCH_FIXTURE_GOLDEN) as f:
+        golden = json.load(f)
+    times = []
+    for _ in range(READER_ITERS):
+        t0 = time.perf_counter()
+        cols = parquet.read_columns(LAUNCH_FIXTURE)
+        times.append(time.perf_counter() - t0)
+    got = {"rows": len(cols["question_id"]),
+           "rows_sha256": parquet_rows_digest(cols)}
+    if any(golden[k] != v for k, v in got.items()):
+        raise RuntimeError(f"[launch] parquet fixture decodes to {got}, its "
+                           f"golden digest is {golden}")
+    out = dict(got, bytes=os.path.getsize(LAUNCH_FIXTURE),
+               read_ms=statistics.median(times) * 1e3,
+               read_ms_all=[t * 1e3 for t in times])
+    log(f"[launch] parquet fixture ({out['bytes']} bytes, {got['rows']} "
+        f"rows, {golden['row_groups']} row groups) equals its golden digest "
+        f"(pandas' rows); read in {out['read_ms']:.1f} ms on the host "
+        f"(median of {READER_ITERS})")
+    return out
+
+
+def run_videomme_json_form(vm, ckpt, root, picked, videos, vroot, counters,
+                           counts, want, out) -> str:
+    """The Video-MME driver in this process over the pre-grouped JSON form
+    of the fixture's `picked` videos, with exact launches; returns its
+    answer file."""
+    json_form = os.path.join(root, "launch_videomme.json")
+    with open(json_form, "w") as f:
+        json.dump(picked, f)
+    answer = os.path.join(root, "launch_videomme_json", "1_0.json")
+    for c in counters.values():
+        c.launches = 0
+    saved = sys.argv
+    sys.argv = ["inference_video_mcqa_videomme", "--model-path", ckpt,
+                "--video-folder", videos, "--subtitle-folder",
+                os.path.join(vroot, "videomme", "subtitles"),
+                "--question-file", json_form, "--answer-file", answer]
+    t0 = time.perf_counter()
+    try:
+        vm.main()
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    out["videomme_json_in_process_s"] = time.perf_counter() - t0
+    counts["launch videomme json form"] = {n: c.launches
+                                           for n, c in counters.items()}
+    if counts["launch videomme json form"] != want:
+        raise RuntimeError(f"[launch] videomme json form: launches "
+                           f"{counts['launch videomme json form']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return answer
+
+
+def run_launch_eval(ckpt, media, root, counters, counts, want_b1,
+                    together=True) -> tuple:
+    """The "launch" phase's eval scripts on the api checkpoint (its own
+    tokenizer files), over write_eval_media's trees: scripts/torch/eval/
+    eval_video_mcqa_mvbench.sh at CHUNKS 2 (both chunks on this card) and
+    CHUNKS 1, whose merged records must be equal; eval_video_mcqa_
+    videomme.sh over the committed parquet fixture, LAUNCH_VIDEOMME_VIDEOS
+    of its videos given GIF media under their YouTube ids (the rest are
+    missing), whose records must equal those of the same questions read
+    from their pre-grouped JSON form by the driver in this process. With
+    `together` the three scripts run at once on this card, the JSON form
+    meanwhile; else each runs alone, in turn, then the JSON form. Every
+    inference process's launches are exact (want_b1 a video). Returns (the
+    numbers, the CHUNKS 1 MVBench records)."""
+    from videollama2_tpu_torch.eval import inference_video_mcqa_videomme as vm
+    out = {"fixture": check_parquet_fixture()}
+    launcher = Launcher(os.path.join(root, "launch"))
+    name = os.path.basename(ckpt.rstrip(os.sep))
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible is not None else
+             [str(i) for i in range(torch.cuda.device_count())])
+
+    def per_video(n):
+        return {k: v * n for k, v in want_b1.items()}
+
+    def check_chunks(label, run, module, chunks, answers, ext):
+        infer = [r for r in run["reports"] if r["module"] == module]
+        if len(infer) != chunks:
+            raise RuntimeError(f"[launch] {label}: {len(infer)} inference "
+                               f"processes, not {chunks}")
+        for r in infer:
+            argv = r["argv"]
+            idx = int(argv[argv.index("--chunk-idx") + 1])
+            with open(os.path.join(answers, f"{chunks}_{idx}.{ext}")) as f:
+                n = sum(1 for line in f if '"missing": true' not in line)
+            counts[f"launch {label} chunk {idx}"] = r["launches"]
+            if r["launches"] != per_video(n) \
+                    or argv[argv.index("--device") + 1] != "cuda" \
+                    or r["cuda_visible_devices"] != cards[idx % len(cards)]:
+                raise RuntimeError(
+                    f"[launch] {label} chunk {idx}: launches "
+                    f"{r['launches']} (want {per_video(n)} for {n} videos), "
+                    f"argv {argv}, card {r['cuda_visible_devices']}")
+        return infer
+
+    # MVBench at CHUNKS 2 (both chunks on this card) and 1, and Video-MME
+    # over the fixture (LAUNCH_VIDEOMME_VIDEOS of its videos given GIF
+    # media)
+    records = vm.load_parquet(LAUNCH_FIXTURE)
+    step = len(records) // LAUNCH_VIDEOMME_VIDEOS
+    picked = records[::step][:LAUNCH_VIDEOMME_VIDEOS]
+    vroot = os.path.join(root, "launch_videomme")
+    videos = os.path.join(vroot, "videomme", "videos")
+    os.makedirs(videos)
+    os.makedirs(os.path.join(vroot, "videomme", "subtitles"))
+    shutil.copy(LAUNCH_FIXTURE, os.path.join(vroot, "videomme",
+                                             os.path.basename(LAUNCH_FIXTURE)))
+    for rec, gif in zip(picked, media["gifs"][2:]):
+        shutil.copy(gif, os.path.join(videos, rec["url"].split(
+            "watch?v=")[-1] + ".gif"))
+    module = "videollama2_tpu_torch.eval.inference_video_mcqa_mvbench"
+    vm_out = os.path.join(root, "launch_videomme_out")
+    labels = ("mvbench CHUNKS=2", "mvbench CHUNKS=1", "videomme")
+    specs = [
+        ("eval/eval_video_mcqa_mvbench.sh", dict(
+            CKPT=ckpt, EVAL_DATA_DIR=root, CHUNKS=2,
+            OUTPUT_DIR=os.path.join(root, "launch_mvbench_2"))),
+        ("eval/eval_video_mcqa_mvbench.sh", dict(
+            CKPT=ckpt, EVAL_DATA_DIR=root, CHUNKS=1,
+            OUTPUT_DIR=os.path.join(root, "launch_mvbench_1"),
+            CUDA_VISIBLE_DEVICES=cards[0])),
+        ("eval/eval_video_mcqa_videomme.sh", dict(
+            CKPT=ckpt, EVAL_DATA_DIR=vroot, OUTPUT_DIR=vm_out))]
+
+    def json_form():
+        # the present videos' JSON form through the driver here
+        return run_videomme_json_form(
+            vm, ckpt, root, picked, videos, vroot, counters, counts,
+            per_video(len(picked)), out)
+    if together:
+        started = [launcher.start(label, rel, **env)
+                   for label, (rel, env) in zip(labels, specs)]
+        try:
+            answer = json_form()
+        finally:
+            runs = dict(zip(labels, launcher.finish_all(started)))
+    else:
+        runs = {label: launcher.run(label, rel, **env)
+                for label, (rel, env) in zip(labels, specs)}
+        answer = json_form()
+    beside = {label: [k for k in labels if k != label] if together else []
+              for label in labels}
+    merged = {}
+    for chunks in (2, 1):
+        label = f"mvbench CHUNKS={chunks}"
+        run = runs[label]
+        answers = os.path.join(root, f"launch_mvbench_{chunks}", "mvbench",
+                               "answers", name)
+        check_chunks(label, run, module, chunks, answers, "jsonl")
+        with open(os.path.join(answers, "merge.json")) as f:
+            merged[chunks] = json.load(f)
+        if not any(ln.startswith(os.path.join(answers, "merge.json") + ":")
+                   for ln in run["lines"]):
+            raise RuntimeError(f"[launch] {label}: no score line "
+                               f"{run['lines'][-5:]}")
+        out[label] = {"script_s": run["wall_s"], "records": len(
+            merged[chunks]), "chunk_cards": [r["cuda_visible_devices"] for r
+                                             in run["reports"]]}
+    for label in labels[:2]:
+        out[label]["concurrent_with"] = beside[label]
+    if merged[2] != merged[1]:
+        raise RuntimeError(f"[launch] mvbench: CHUNKS=2 merged {merged[2]} "
+                           f"!= CHUNKS=1 {merged[1]}")
+    where = ("beside each other and the Video-MME script" if together
+             else "each alone")
+    log(f"[launch] mvbench: CHUNKS=2 (both chunks on card {cards[0]}) "
+        f"{out['mvbench CHUNKS=2']['script_s']:.1f} s and CHUNKS=1 "
+        f"{out['mvbench CHUNKS=1']['script_s']:.1f} s, {where}; merged "
+        f"records equal record for record: "
+        f"{[r['pred'] for r in merged[1]]}")
+
+    # Video-MME: the script's records, then their JSON form in this process
+    run = runs["videomme"]
+    answers = os.path.join(vm_out, "videomme", "answers", name)
+    check_chunks("videomme", run, "videollama2_tpu_torch.eval."
+                 "inference_video_mcqa_videomme", len(cards), answers, "json")
+    script = {}
+    for sub, fname in ((False, "merge.json"), (True, "merge_sub.json")):
+        with open(os.path.join(answers, fname)) as f:
+            script[sub] = json.load(f)
+        present = [r for r in script[sub] if not r["missing"]]
+        if len(script[sub]) != len(records) or [
+                r["video_id"] for r in present] != [
+                r["video_id"] for r in picked] or any(
+                q.get("response") not in tuple("ABCD")
+                for r in present for q in r["questions"]):
+            raise RuntimeError(f"[launch] videomme {fname}: "
+                               f"{len(script[sub])} records, present "
+                               f"{present}")
+    out["videomme"] = {"script_s": run["wall_s"], "records": len(records),
+                       "videos_with_media": len(picked),
+                       "concurrent_with": beside["videomme"]}
+    for sub, path in ((False, answer),
+                      (True, answer.replace(".json", "_sub.json"))):
+        with open(path) as f:
+            direct = [json.loads(line) for line in f]
+        present = [r for r in script[sub] if not r["missing"]]
+        if direct != present:
+            raise RuntimeError(f"[launch] videomme: the script's records "
+                               f"{present} != the JSON form's {direct}")
+    letters = [[q["response"] for q in r["questions"]]
+               for r in script[False] if not r["missing"]]
+    log(f"[launch] videomme: eval_video_mcqa_videomme.sh over the parquet "
+        f"fixture {run['wall_s']:.1f} s "
+        f"{'beside the MVBench scripts' if together else 'alone'} "
+        f"({len(records)} videos, "
+        f"{len(picked)} with media); their records (answers {letters}, "
+        f"and with subtitles) equal the JSON form's through the driver in "
+        f"this process ({out['videomme_json_in_process_s']:.1f} s)")
+    return out, merged[1]
+
+
+def eval_child_start(args) -> subprocess.Popen:
     """`python -m` a module in a child process from the repository root
     (the tests/ writers and chip_smoke on its path, for the tokenizer
-    factory); returns its output lines, raising unless it exits 0."""
+    factory)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [repo, os.path.join(repo, "tests")]
         + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    proc = subprocess.run([sys.executable, "-m"] + args, cwd=repo, env=env,
-                          capture_output=True, text=True,
-                          timeout=EVAL_TIMEOUT)
-    lines = (proc.stdout + proc.stderr).splitlines()
+    return subprocess.Popen([sys.executable, "-m"] + args, cwd=repo, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def eval_child_finish(label, proc) -> list:
+    """The started child's output lines, raising unless it exits 0."""
+    try:
+        stdout, stderr = proc.communicate(timeout=EVAL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
         raise RuntimeError(f"[eval] {label}: exit code {proc.returncode}\n"
-                           + "\n".join(lines[-40:]))
-    return proc.stdout.splitlines()
+                           + "\n".join((stdout + stderr).splitlines()[-40:]))
+    return stdout.splitlines()
+
+
+def eval_child(label, args) -> list:
+    return eval_child_finish(label, eval_child_start(args))
 
 
 def quant_launches(counters, cfg, variant, prompts, steps) -> dict:
@@ -4430,44 +4999,43 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
             f"{EVAL_FRAMES[2]}), an MVBench and a Video-MME tree in "
             f"{media['write_s']:.1f} s")
 
-        # (a) MVBench: the inference script in a child process, then merge and score
+        # (a) MVBench: the inference script in a child process, beside the
+        # "launch" phase's eval scripts (scripts/torch/eval/, the
+        # checkpoint's own tokenizer files): MVBench at CHUNKS 2 and 1,
+        # whose records are held below to direct calls through the reader,
+        # and Video-MME over the committed parquet fixture; then merge and
+        # score
         answers = os.path.join(root, "mvbench_answers", "1_0.jsonl")
         t0 = time.perf_counter()
-        eval_child("mvbench", [
+        child = eval_child_start([
             "videollama2_tpu_torch.eval.inference_video_mcqa_mvbench",
             "--model-path", ckpt, "--question-file", media["mvbench_json"],
             "--video-folder", media["mvbench_video"],
             "--answer-file", answers, "--num-chunks", "1", "--chunk-idx",
-            "0", "--tokenizer", "chip_smoke:letter_tokenizer"], root)
+            "0", "--tokenizer", "chip_smoke:letter_tokenizer"])
+        want_b1 = phase_launches(counters, cfg, 1, True, 0, False)
+        try:
+            out["launch"], own_records = run_launch_eval(
+                ckpt, media, root, counters, counts, want_b1)
+        finally:
+            eval_child_finish("mvbench", child)
         out["mvbench_process_s"] = time.perf_counter() - t0
         merged = os.path.join(root, "mvbench_answers", "merge.json")
         records = common.merge_chunks([answers], merged,
                                       return_records=True)
         scored = eval_child("mvbench scorer", [
             "videollama2_tpu_torch.eval.eval_video_mcqa_mvbench",
-            "--pred_path", merged], root)
+            "--pred_path", merged])
         from videollama2_tpu_torch.eval.eval_video_mcqa_mvbench import score
         out["mvbench_score"] = score(records)
         if scored[0] != f"{merged}: {out['mvbench_score']['overall']}":
             raise RuntimeError(f"[eval] mvbench scorer printed {scored}")
-        log(f"[eval] MVBench inference (child process, exit 0) "
-            f"{out['mvbench_process_s']:.1f} s: {len(records)} records, "
+        log(f"[eval] MVBench inference (child process, exit 0, beside the "
+            f"launch scripts) {out['mvbench_process_s']:.1f} s: "
+            f"{len(records)} records, "
             f"scorer {out['mvbench_score']}")
         if len(records) != 4 or any("error" in r for r in records):
             raise RuntimeError(f"[eval] mvbench records {records}")
-        # the same script without --tokenizer: the checkpoint's own files
-        own_answers = os.path.join(root, "mvbench_own", "1_0.jsonl")
-        t0 = time.perf_counter()
-        eval_child("mvbench own tokenizer", [
-            "videollama2_tpu_torch.eval.inference_video_mcqa_mvbench",
-            "--model-path", ckpt, "--question-file", media["mvbench_json"],
-            "--video-folder", media["mvbench_video"],
-            "--answer-file", own_answers, "--num-chunks", "1",
-            "--chunk-idx", "0"], root)
-        out["mvbench_own_tokenizer_process_s"] = time.perf_counter() - t0
-        own_records = common.merge_chunks(
-            [own_answers], os.path.join(root, "mvbench_own", "merge.json"),
-            return_records=True)
         if len(own_records) != 4 or any("error" in r for r in own_records):
             raise RuntimeError(f"[eval] mvbench own tokenizer records "
                                f"{own_records}")
@@ -4481,7 +5049,6 @@ def run_eval_phase(ckpt, counters, smi, k3, dk) -> tuple:
             f"{out['load_s']:.2f} s")
         rec = CallRecorder(model.engine)
         model.engine = rec
-        want_b1 = phase_launches(counters, cfg, 1, True, 0, False)
 
         with rec:
             # the MVBench records against direct B 1 mm_infer calls

@@ -1,0 +1,37 @@
+#!/bin/bash
+# VideoChatGPT-bench dimension 2 detail: inference + GPT judge.
+# PyTorch/CUDA port of scripts/eval/eval_video_oqa_vcgpt_2_detail.sh: the same inference,
+# merge and scoring through videollama2_tpu_torch, one inference chunk
+# a card as the reference runs them (scripts/torch/lib/chunks.sh): the
+# cards are CUDA_VISIBLE_DEVICES (every card when unset), CHUNKS defaults
+# to their number, chunk IDX runs on card IDX % cards, and a failed
+# chunk fails the script. Deviation: --device cuda.
+source "$(dirname "${BASH_SOURCE[0]}")/../lib/chunks.sh"
+CKPT=${CKPT:-DAMO-NLP-SG/VideoLLaMA2-7B}
+EVAL_DATA_DIR=${EVAL_DATA_DIR:-eval}
+OUTPUT_DIR=${OUTPUT_DIR:-eval_output}
+CKPT_NAME=$(basename ${CKPT})
+eval_cards
+out=${OUTPUT_DIR}/videochatgpt_gen/answers/detailed_orientation/${CKPT_NAME}
+output_file=${out}/merge.json
+if [ ! -f "$output_file" ]; then
+    infer() {
+        python -m videollama2_tpu_torch.eval.inference_video_oqa_vcgpt \
+            --mode general \
+            --model-path ${CKPT} \
+            --video-folder ${EVAL_DATA_DIR}/videochatgpt_gen/Test_Videos \
+            --question-file ${EVAL_DATA_DIR}/videochatgpt_gen/generic_qa.json \
+            --answer-file ${out}/${CHUNKS}_${1}.jsonl \
+            --num-chunks $CHUNKS --chunk-idx $1 \
+            --device cuda
+    }
+    run_chunks infer
+    python - <<PYEOF
+from videollama2_tpu_torch.eval.common import merge_chunks
+import glob
+merge_chunks(sorted(glob.glob("${out}/${CHUNKS}_*.jsonl")), "${output_file}")
+PYEOF
+fi
+python -m videollama2_tpu_torch.eval.gpt_judge --dimension detailed_orientation \
+    --pred-file ${output_file} --output-dir ${out}/judge \
+    --output-json ${out}/results.json ${JUDGE_ARGS:---api none}

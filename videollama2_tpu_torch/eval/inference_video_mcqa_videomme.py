@@ -26,6 +26,7 @@ Port of videollama2_tpu/eval/inference_video_mcqa_videomme.py:
 the same flags, prompts, records and chunking, plus `--device` (cuda by
 default) and an optional `--tokenizer module:callable` for the port's
 model_init, which reads the checkpoint's own tokenizer files without it.
+The parquet question file is read by eval/parquet.py (no pandas).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import os
 import re
 
 from ..media import sampler as sampler_lib
+from . import parquet
 from .common import get_chunk
 from ..inference.api import add_model_flags, load_tokenizer
 
@@ -62,11 +64,11 @@ def load_parquet(parquet_file: str):
     One parquet row per question; rows group by `video_id` into
     {video_id, youtube_id, url, duration, domain, sub_category,
      questions: [{question_id, task_type, question, choices, answer}]}.
+    The rows come from the port's own reader (eval/parquet.py), in place
+    of pandas, which the GPU host lacks.
     """
-    import pandas as pd
-    df = pd.read_parquet(parquet_file)
     jsons = []
-    for record in df.itertuples():
+    for record in parquet.read_rows(parquet_file):
         q = {
             "question_id": record.question_id,
             "task_type": record.task_type,
