@@ -35,16 +35,18 @@ token difference held to a near-tie. On the int8 slice's Engine the
 processors on a 16-frame 480x640 directory (PNG and BMP frames, written
 here) and a 480x640 PNG; the still-image formats (every file of
 tests/fixtures/torch_images/ held to its golden digest of PIL's pixels,
-host decode times of progressive and baseline JPEG and of Adam7 and
-plain PNG, a 16-frame directory of progressive JPEG and Adam7 PNG
-frames through the processors); a controller and a model worker on
-localhost streaming a video, a PNG image and a progressive JPEG image
-request (exact launch counts, the tokens of a direct Engine.generate);
+WebP and TIFF among them; host decode times of progressive and baseline
+JPEG, Adam7 and plain PNG, lossy and lossless WebP and LZW, Deflate and
+uncompressed TIFF; a 16-frame directory of progressive JPEG, Adam7 PNG,
+lossless WebP and LZW TIFF frames through the processors); a controller
+and a model worker on localhost streaming a video, a PNG image, a
+progressive JPEG image and a lossy WebP image request (exact launch
+counts, the tokens of a direct Engine.generate);
 16 concurrent video requests over 4 videos plus 2 text ones on a
 dynamic-batching worker against the plain worker (requests/s; answers
 held to B = 1 up to near-ties; each distinct video of a batch encoded
-once); three chat completions of the OpenAI-compatible server (a PNG
-and a progressive JPEG data URL, a video path); and the container
+once); four chat completions of the OpenAI-compatible server (a PNG,
+a progressive JPEG and a WebP data URL, a video path); and the container
 paths (the decoder built
 from media/csrc where libavcodec is, else a named error and an
 error_code 1 answer). The "api" phase loads a checkpoint
@@ -3122,11 +3124,15 @@ def run_still_images(rng, processors, root, smi) -> tuple:
     """The still-image formats on the host: the fixtures against their
     golden digests; the host ms (median of 5) to decode a 480x640 and a
     1920x1080 progressive JPEG against baseline files of the same pixels,
-    and an Adam7 PNG against a plain one; a 16-frame 480x640 directory of
-    progressive JPEG and Adam7 PNG frames through the processors. Returns
-    the numbers, the fixtures' bytes and their pixels."""
+    an Adam7 PNG against a plain one, the lossy 1920x1080 and lossless
+    480x640 WebP fixtures, and 480x640 TIFFs (LZW with predictor 2,
+    Deflate, uncompressed); a 16-frame 480x640 directory of progressive
+    JPEG, Adam7 PNG, lossless WebP and LZW TIFF frames through the
+    processors. Returns the numbers, the fixtures' bytes and their
+    pixels."""
     from jpeg_writer import PROGRESSIVE, encode_jpeg
     from png_writer import encode_png
+    from tiff_writer import encode_tiff
     from videollama2_tpu_torch.media import image_io, video_reader
 
     files, pixels = check_image_fixtures()
@@ -3142,6 +3148,15 @@ def run_still_images(rng, processors, root, smi) -> tuple:
         "baseline JPEG 1920x1080": encode_jpeg(big, 85, "4:2:0"),
         "Adam7 PNG 480x640": encode_png(still, interlace=True),
         "PNG 480x640": encode_png(still),
+        "lossy WebP 1920x1080": files["lossy_1920x1080.webp"],
+        "lossless WebP 480x640": files["lossless_480x640.webp"],
+        "LZW TIFF 480x640 (predictor 2)": encode_tiff(
+            still, photometric=2, compression=5, predictor=2,
+            rows_per_strip=16),
+        "Deflate TIFF 480x640": encode_tiff(still, photometric=2,
+                                            compression=8,
+                                            rows_per_strip=16),
+        "TIFF 480x640": encode_tiff(still, photometric=2),
     }
     decode_ms = {}
     for label, data in samples.items():
@@ -3153,19 +3168,26 @@ def run_still_images(rng, processors, root, smi) -> tuple:
         decode_ms[label] = statistics.median(runs)
     log(f"[images] ({smi}) host ms to decode (median of 5): " + ", ".join(
         f"{k} {v:.1f}" for k, v in decode_ms.items()))
+    # frames 4k progressive JPEG, 4k + 1 Adam7 PNG, 4k + 2 the lossless
+    # WebP fixture, 4k + 3 LZW TIFF (predictor 2)
     clip = smooth_frames(rng, 16, 480, 640)
+    clip[2::4] = pixels["lossless_480x640.webp"]
     clip_dir = os.path.join(root, "stills_clip")
     os.makedirs(clip_dir)
     for i, frame in enumerate(clip):
         with open(os.path.join(clip_dir, f"{i:03d}.img"), "wb") as f:
-            f.write(encode_jpeg(frame, 85, "4:2:0", script=PROGRESSIVE)
-                    if i % 2 == 0 else encode_png(frame, interlace=True))
+            f.write((encode_jpeg(frame, 85, "4:2:0", script=PROGRESSIVE),
+                     encode_png(frame, interlace=True),
+                     files["lossless_480x640.webp"],
+                     encode_tiff(frame, photometric=2, compression=5,
+                                 predictor=2, rows_per_strip=16))[i % 4])
     decoded = np.stack(video_reader.read_video_frames(clip_dir, 16))
-    err = np.abs(decoded[::2].astype(int) - clip[::2]).mean()
-    if not np.array_equal(decoded[1::2], clip[1::2]) or err > 12:
-        raise RuntimeError("images: the progressive JPEG / Adam7 PNG "
-                           "directory did not decode to its frames (JPEG "
-                           f"mean error {err:.2f})")
+    err = np.abs(decoded[::4].astype(int) - clip[::4]).mean()
+    lossless = [i for i in range(16) if i % 4]
+    if not np.array_equal(decoded[lossless], clip[lossless]) or err > 12:
+        raise RuntimeError("images: the progressive JPEG / Adam7 PNG / WebP "
+                           "/ TIFF directory did not decode to its frames "
+                           f"(JPEG mean error {err:.2f})")
     S = processors["rgb"]["image"](photo).shape[1]
     frame_dir_ms = {}
     for wire in ("rgb", "i420"):
@@ -3178,9 +3200,10 @@ def run_still_images(rng, processors, root, smi) -> tuple:
         if video.shape != shape or video.dtype != np.uint8:
             raise RuntimeError(f"images: processor shape {video.shape} on "
                                f"the {wire} wire")
-    log(f"[images] ({smi}) processors on a 16-frame 480x640 directory (8 "
-        "progressive JPEG, 8 Adam7 PNG; JPEG frames within "
-        f"{err:.2f} levels of their source, PNG frames equal): " + ", ".join(
+    log(f"[images] ({smi}) processors on a 16-frame 480x640 directory (4 "
+        "progressive JPEG, 4 Adam7 PNG, 4 lossless WebP, 4 LZW TIFF; JPEG "
+        f"frames within {err:.2f} levels of their source, the others "
+        "equal): " + ", ".join(
             f"{k} {v:.1f}" for k, v in frame_dir_ms.items()))
     return ({"decode_ms": decode_ms, "frame_dir_host_ms": frame_dir_ms},
             files, pixels)
@@ -3192,16 +3215,16 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
     tokenizer: the processors on a 16-frame 480x640 directory (PNG and
     BMP frames) and a 480x640 PNG; the still-image formats
     (run_still_images); a controller and a model worker on localhost
-    streaming a video, a PNG image and a progressive JPEG image request
-    through the proxy, each with exact launch counts and the tokens of a
-    direct Engine.generate on the same processed frames (the JPEG's
-    digest-checked pixels); 16 concurrent video
+    streaming a video, a PNG image, a progressive JPEG image and a lossy
+    WebP image request through the proxy, each with exact launch counts
+    and the tokens of a direct Engine.generate on the same processed frames
+    (the JPEG's and the WebP's digest-checked pixels); 16 concurrent video
     requests over 4 distinct videos plus 2 text requests on a worker with
     dynamic batching against the same 18 on the plain worker (answers held
     to B = 1 up to near-ties, the tower run once a distinct video of a
-    group, requests/s and the batcher's stats); three chat completions of
-    the OpenAI-compatible server (a progressive JPEG data URL's held to a
-    direct generate too); the container paths. Returns the
+    group, requests/s and the batcher's stats); four chat completions of
+    the OpenAI-compatible server (the progressive JPEG and the WebP data
+    URLs' held to a direct generate too); the container paths. Returns the
     numbers and the launch counts of each serialized request."""
     from http.server import ThreadingHTTPServer
     import threading
@@ -3270,6 +3293,9 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
         b64_prog = base64.b64encode(fixture_files[prog]).decode()
         # the digest-checked pixels, as the worker processes them
         prog_i420 = processors["i420"]["image"](fixture_pixels[prog])
+        webp = "lossy_1920x1080.webp"
+        b64_webp = base64.b64encode(fixture_files[webp]).decode()
+        webp_i420 = processors["i420"]["image"](fixture_pixels[webp])
 
         # -- 2. controller + worker: two serialized streamed requests -------
         controller = ctrl_mod.Controller("shortest_queue")
@@ -3290,7 +3316,9 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
                 ("video", {"video": clip_dir}, video_i420, "video"),
                 ("image", {"images": [b64_image]}, image_i420, "image"),
                 ("progressive JPEG image", {"images": [b64_prog]},
-                 prog_i420, "image")):
+                 prog_i420, "image"),
+                ("WebP image", {"images": [b64_webp]}, webp_i420,
+                 "image")):
             question = f"what happens in the {kind} ?"
             ids = api.build_prompt_ids(question, cfg, tok, modal)
             frames = tensor[None]
@@ -3456,8 +3484,11 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
         oai_url = serve(openai_api.make_handler(backend))
         data_url = "data:image/png;base64," + b64_image
         prog_url = "data:image/jpeg;base64," + b64_prog
+        webp_url = "data:image/webp;base64," + b64_webp
         sent = {"image": "data-URL PNG", "video": "video path",
-                "progressive JPEG image": "data-URL progressive JPEG"}
+                "progressive JPEG image": "data-URL progressive JPEG",
+                "WebP image": "data-URL lossy 1920x1080 WebP"}
+        checked = ("progressive JPEG image", "WebP image")
         for kind, part, tensor, modal in (
                 ("image", {"type": "image_url",
                            "image_url": {"url": data_url}},
@@ -3467,7 +3498,10 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
                  video_i420, "video"),
                 ("progressive JPEG image", {
                     "type": "image_url", "image_url": {"url": prog_url}},
-                 prog_i420, "image")):
+                 prog_i420, "image"),
+                ("WebP image", {
+                    "type": "image_url", "image_url": {"url": webp_url}},
+                 webp_i420, "image")):
             body = {"messages": [{"role": "user", "content": [
                 {"type": "text", "text": f"describe the {kind}"}, part]}],
                 "max_tokens": NEW_TOKENS}
@@ -3490,22 +3524,22 @@ def run_serve_phase(eng, cfg, counters, smi) -> tuple:
                     call["ids"][0] != api.build_prompt_ids(
                         f"describe the {kind}", cfg, tok, modal):
                 raise RuntimeError(f"serve openai {kind}: {reply}")
-            if kind == "progressive JPEG image":
+            if kind in checked:
                 direct = eng.generate(
                     [call["ids"][0]], frames=np.broadcast_to(
                         tensor[None], (1, cfg.num_frames) + tensor.shape[1:]),
                     gen=GenerationConfig(max_new_tokens=NEW_TOKENS),
                     eos_token_id=-1, image_mode=True)[0]
                 if call["outs"][0] != direct:
-                    raise RuntimeError("serve openai progressive JPEG: the "
-                                       "tokens differ from a direct "
+                    raise RuntimeError(f"serve openai {kind}: the tokens "
+                                       "differ from a direct "
                                        "Engine.generate")
             counts[f"serve openai {kind}"] = got
             out[f"openai_{kind}_s"] = took
             log(f"[serve] ({smi}) OpenAI chat completion with a "
                 f"{sent[kind]}: {took:.3f} s, launches {got}"
                 + ("; tokens equal a direct Engine.generate"
-                   if kind == "progressive JPEG image" else ""))
+                   if kind in checked else ""))
 
         # -- 5. container paths ---------------------------------------------
         avi = os.path.join(root.name, "clip.avi")

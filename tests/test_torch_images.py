@@ -38,6 +38,7 @@ from videollama2_tpu_torch.media import preprocess as tprep  # noqa: E402
 import jpeg_writer as jw  # noqa: E402
 from gif_writer import encode_gif  # noqa: E402
 from png_writer import encode_png  # noqa: E402
+from tiff_writer import encode_tiff  # noqa: E402
 
 FIXTURES = os.path.join(HERE, "fixtures", "torch_images")
 GOLDEN = os.path.join(FIXTURES, "golden.json")
@@ -460,10 +461,42 @@ def _still_refused():
     cut = jw.encode_jpeg(px, 80, script=jw.PROGRESSIVE[:6])
     gif = encode_gif([{"indices": np.zeros((4, 4), np.uint8), "x": 6}],
                      (8, 8), global_palette=np.zeros((2, 3), np.uint8))
-    return {
+    rgb = Image.fromarray(px)
+    tiff = encode_tiff(px, photometric=2)
+    at = tiff.index(b"\x03\x01\x03\x00\x01\x00\x00\x00") + 8
+    old_lzw = bytearray(tiff[:at] + b"\x05\x00" + tiff[at + 2:])
+    old_lzw[8:10] = b"\x00\x01"   # the first bytes of old-style LZW data
+    refused = {
         "progressive JPEG with incomplete refinement": cut,
         "GIF frames past the logical screen": gif,
+        "TIFF with JPEG": _pil_bytes(rgb, "TIFF", compression="jpeg"),
+        "TIFF with CCITT Group 3": _pil_bytes(rgb.convert("1"), "TIFF",
+                                              compression="group3"),
+        "TIFF with CCITT Group 4": _pil_bytes(rgb.convert("1"), "TIFF",
+                                              compression="group4"),
+        "TIFF in YCbCr": _pil_bytes(rgb.convert("YCbCr"), "TIFF"),
+        "TIFF in CIELab": _pil_bytes(rgb.convert("LAB"), "TIFF"),
+        "TIFF with floating-point samples": _pil_bytes(rgb.convert("F"),
+                                                       "TIFF"),
+        "TIFF with signed integer samples": _pil_bytes(rgb.convert("I"),
+                                                       "TIFF"),
+        "TIFF with 12-bit samples": encode_tiff(
+            px[..., 0] * 16, photometric=1, bits=12),
+        "TIFF with 32-bit samples": encode_tiff(
+            px[..., 0], photometric=1, bits=32),
+        "TIFF with the floating-point predictor": encode_tiff(
+            px, photometric=2, compression=5, predictor=3),
+        "TIFF with old-style": bytes(old_lzw),
+        "uncompressed planar TIFF at 16 bits": encode_tiff(
+            px.astype(np.uint16) * 257, photometric=2, bits=16, planar=True),
+        "BigTIFF": _pil_bytes(rgb, "TIFF", big_tiff=True),
     }
+    for name, tag in (("TIFF with LZMA", 34925), ("TIFF with ZSTD", 50000),
+                      ("TIFF with WebP", 50001),
+                      ("TIFF with old-style JPEG", 6),
+                      ("TIFF with CCITT modified Huffman", 2)):
+        refused[name] = tiff[:at] + tag.to_bytes(2, "little") + tiff[at + 2:]
+    return refused
 
 
 STILL_REFUSED = _still_refused()
@@ -472,8 +505,11 @@ STILL_REFUSED = _still_refused()
 @pytest.mark.parametrize("name", sorted(STILL_REFUSED))
 def test_still_refused_variants_raise_naming_them(name):
     """A progressive file whose coefficients 1-9 stop short of Al 0
-    (libjpeg-turbo would smooth its blocks) and a GIF whose first frame
-    reaches past its screen (PIL grows the canvas) are refused by name."""
+    (libjpeg-turbo would smooth its blocks), a GIF whose first frame
+    reaches past its screen (PIL grows the canvas) and the TIFF variants
+    outside baseline (other compressions, color spaces, sample formats and
+    depths, the floating-point predictor, old-style LZW, 16-bit planar
+    data PIL misreads, BigTIFF) are refused by name."""
     with pytest.raises(NotImplementedError, match=name):
         image_io.read_image(STILL_REFUSED[name])
 
@@ -494,6 +530,13 @@ def _sweep_files():
             rng.integers(0, 65536, (21, 17, 4)).astype(np.uint16),
             depth=16),
         "16-bit gray Adam7 PNG": encode_png(g16, depth=16, interlace=True),
+        "lossless WebP": _pil_bytes(Image.fromarray(px), "WEBP",
+                                    lossless=True),
+        "lossy WebP with alpha": _pil_bytes(Image.fromarray(np.dstack(
+            [px, px[..., 1]])), "WEBP", quality=70),
+        "LZW TIFF": _pil_bytes(Image.fromarray(px), "TIFF",
+                               compression="tiff_lzw",
+                               tiffinfo={317: 2, 274: 6, 278: 16}),
     }
 
 
@@ -540,7 +583,7 @@ def _digest(rgb: np.ndarray) -> dict:
 
 def fixture_files() -> dict:
     """name -> bytes of the fixtures (PIL's where PIL writes the format,
-    tests/png_writer.py's Adam7 file)."""
+    tests/png_writer.py's Adam7 file), WebP and TIFF among them."""
     rng = np.random.default_rng(18)
     y, x = np.mgrid[0:480, 0:640]
     photo = np.stack([(x * 255 // 639), (y * 255 // 479),
@@ -563,6 +606,49 @@ def fixture_files() -> dict:
         "frames.gif": _pil_bytes(gif_frames[0], "GIF", save_all=True,
                                  append_images=gif_frames[1:],
                                  transparency=5),
+        **_webp_tiff_fixtures(photo),
+    }
+
+
+def _discs(rng, h: int, w: int, n: int) -> np.ndarray:
+    """A gradient under n half-transparent discs."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255 // (w - 1), y * 255 // (h - 1),
+                    (x + y) * 255 // (h + w - 2)], -1)
+    for _ in range(n):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(h / 24, h / 3)
+        m = (y - cy) ** 2 + (x - cx) ** 2 < r * r
+        img[m] = (img[m] + rng.integers(0, 256, 3)) // 2
+    return img
+
+
+def _webp_tiff_fixtures(photo: np.ndarray) -> dict:
+    """WebP and TIFF fixtures: a lossy 1920x1080 WebP, a lossless 480x640
+    one (fine noise over its lower half), a lossy one with alpha, an
+    animation and an LZW TIFF with predictor 2 and Orientation 6."""
+    rng = np.random.default_rng(25)
+    big = np.clip(_discs(rng, 1080, 1920, 12)
+                  + rng.integers(-2, 3, (1080, 1920, 3)), 0, 255)
+    still = _discs(rng, 480, 640, 8)
+    still[240:] += rng.integers(-1, 2, (240, 640, 3))
+    still = np.clip(still, 0, 255).astype(np.uint8)
+    rgba = np.dstack([photo[::4, ::4], _discs(rng, 120, 160, 4)[..., 0]])
+    frames = [Image.fromarray(_discs(rng, 96, 128, 5).astype(np.uint8))
+              for _ in range(3)]
+    return {
+        "lossy_1920x1080.webp": _pil_bytes(Image.fromarray(big.astype(
+            np.uint8)), "WEBP", quality=80),
+        "lossless_480x640.webp": _pil_bytes(Image.fromarray(still), "WEBP",
+                                            lossless=True),
+        "alpha_lossy.webp": _pil_bytes(Image.fromarray(rgba.astype(
+            np.uint8)), "WEBP", quality=75),
+        "animated.webp": _pil_bytes(frames[0], "WEBP", save_all=True,
+                                    append_images=frames[1:], duration=90,
+                                    quality=70),
+        "lzw_predictor_orientation.tiff": _pil_bytes(
+            Image.fromarray(photo[::4, ::4]), "TIFF", compression="tiff_lzw",
+            tiffinfo={317: 2, 274: 6}),
     }
 
 
@@ -623,9 +709,11 @@ def test_process_image_matches_jax(name, aspect):
 
 def test_frame_directory_matches_jax(tmp_path):
     """A frame directory of progressive JPEG (jpeg_writer's script and
-    PIL's), Adam7 and 16-bit PNG, low-bit gray PNG, CMYK JPEG and a GIF
-    still through both packages' process_video, as a directory and as a
-    list of paths, with the reference's zero-frame padding at 12."""
+    PIL's), Adam7 and 16-bit PNG, low-bit gray PNG, CMYK JPEG, a GIF
+    still, lossy and lossless WebP and an LZW TIFF turned by its
+    Orientation tag through both packages' process_video, as a directory
+    and as a list of paths, with the reference's zero-frame padding at
+    12."""
     rng = np.random.default_rng(19)
     writers = [
         lambda px: jw.encode_jpeg(px, 85, "4:2:0", script=jw.PROGRESSIVE),
@@ -636,8 +724,12 @@ def test_frame_directory_matches_jax(tmp_path):
         lambda px: encode_png(px[..., 0] >> 6, depth=2, interlace=True),
         lambda px: _pil_bytes(Image.fromarray(px).convert("CMYK"), "JPEG"),
         lambda px: _pil_bytes(Image.fromarray(px).quantize(64), "GIF"),
+        lambda px: _pil_bytes(Image.fromarray(px), "WEBP", quality=80),
+        lambda px: _pil_bytes(Image.fromarray(px), "WEBP", lossless=True),
+        lambda px: encode_tiff(px, photometric=2, compression=5,
+                               predictor=2, orientation=3),
     ]
-    for i in range(9):
+    for i in range(10):
         data = writers[i % len(writers)](_smooth(rng, 60, 80, 3))
         (tmp_path / f"{i:02d}.img").write_bytes(data)
     jcfg, tcfg = jcfglib.tiny_vision(), tcfglib.tiny_vision()

@@ -1,11 +1,13 @@
 """Build the media layer's C++ helpers with g++ at first use and load them
 with ctypes.
 
-Three libraries come from `media/csrc/`: `video_decoder.cc` (libavcodec,
-libavformat and libswscale: the container reader of media/video_reader.py),
-`png_unfilter.cc` (no dependency: the PNG row filters of
-media/image_io.py) and `resample.cc` (no dependency: PIL's bicubic resize
-for media/preprocess.py). Each lands in `csrc/build/<hash>/`, keyed on a hash of
+The libraries come from `media/csrc/`: `video_decoder.cc` (libavcodec,
+libavformat and libswscale: the container reader of media/video_reader.py)
+and, with no dependency, `png_unfilter.cc`, `jpeg_decode.cc`,
+`webp_decode.cc` and `tiff_lzw.cc` (the still readers of
+media/image_io.py, media/webp.py and media/tiff.py), `gif_lzw.cc` (GIF
+frames) and `resample.cc` (PIL's bicubic resize for
+media/preprocess.py). Each lands in `csrc/build/<hash>/`, keyed on a hash of
 its source, the flags and the libraries, so an edited source rebuilds and
 an unchanged one is reused; the build writes under a temporary name and
 renames into place, so processes that build at once never load a

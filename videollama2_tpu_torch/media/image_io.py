@@ -14,20 +14,33 @@ uses, on every host (the GPU host has no PIL), each to what
     factors: libjpeg-turbo's default decode (ISLOW IDCT, its upsampling
     and color tables), CMYK through PIL's inverted raw mode.
   - GIF: the first frame (later frames are not decoded).
+  - WebP (media/webp.py): lossy (VP8, through libwebp's fancy upsampling
+    and fixed-point YUV -> RGB) and lossless (VP8L), simple or extended
+    (VP8X, with ALPH decoded then dropped, metadata chunks skipped), and
+    an animation's first frame on its canvas.
+  - TIFF (media/tiff.py): the first image of a classic little- or
+    big-endian file, uncompressed, PackBits, LZW or Deflate, predictor 1
+    or 2, strips or tiles, chunky or planar; bilevel, gray, palette, RGB
+    and CMYK at the depths PIL opens, with or without extra samples; the
+    Orientation tag applied as PIL applies it.
   - binary PPM / PGM (maxval 255) and uncompressed 24- and 32-bit BMP.
-Three small C++ helpers, built at first use by media/_native.py, do the
-loops numpy cannot: csrc/png_unfilter.cc (the Average and Paeth filters
-depend on the byte just decoded), csrc/jpeg_decode.cc (entropy decoding,
-the IDCT, upsampling, color) and csrc/gif_lzw.cc (via
-media/video_reader.py).
+Small C++ helpers, built at first use by media/_native.py, do the loops
+numpy cannot: csrc/png_unfilter.cc (the Average and Paeth filters depend
+on the byte just decoded), csrc/jpeg_decode.cc (entropy decoding, the
+IDCT, upsampling, color), csrc/webp_decode.cc (VP8L, ALPH, VP8 and the
+upsampler), csrc/tiff_lzw.cc and csrc/gif_lzw.cc (via
+media/video_reader.py). None links an image library.
 
-Still refused, with NotImplementedError naming them: WebP, TIFF,
-arithmetic, lossless, hierarchical and 12-bit JPEG, progressive JPEG left
-short of full refinement (libjpeg-turbo would smooth its blocks), JPEG at
-fractional chroma ratios, BMP with compression or a palette, PNM with
-another maxval, ASCII PNM and GIFs whose first frame reaches past the
-screen. Nothing is decoded by a substitute; a malformed file raises
-ValueError.
+Still refused, with NotImplementedError naming them: arithmetic, lossless,
+hierarchical and 12-bit JPEG, progressive JPEG left short of full
+refinement (libjpeg-turbo would smooth its blocks), JPEG at fractional
+chroma ratios; TIFF with JPEG, CCITT, LZMA, ZSTD, WebP or any other
+compression, in YCbCr, CIELab or another color space, with float, signed,
+12- or 32-bit samples, the floating-point predictor or old-style LZW,
+uncompressed planar 16-bit TIFF (PIL misreads it) and BigTIFF; BMP with
+compression or a palette, PNM with another maxval, ASCII PNM and GIFs
+whose first frame reaches past the screen. Nothing is decoded by a
+substitute; a malformed file raises ValueError.
 """
 
 from __future__ import annotations
@@ -95,8 +108,10 @@ def _image_format(data: bytes) -> str:
         return "GIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*"):
         return "TIFF"
+    if data[:4] in (b"II+\x00", b"MM\x00+"):
+        return "BigTIFF"
     if data[:2] in (b"P1", b"P2", b"P3", b"P4"):
         return "ASCII or bitmap PNM"
     return "unknown"
@@ -121,10 +136,16 @@ def read_image(src: Union[str, os.PathLike, bytes]) -> np.ndarray:
     if fmt == "GIF":
         from .video_reader import read_gif_still
         return read_gif_still(data)
+    if fmt == "WebP":
+        from .webp import read_webp
+        return read_webp(data, MAX_PIXELS)
+    if fmt == "TIFF":
+        from .tiff import read_tiff
+        return read_tiff(data, MAX_PIXELS)
     raise NotImplementedError(
         f"{fmt} images are not decoded by the port yet (it reads PNG, "
-        "baseline and progressive JPEG, GIF, binary PPM/PGM and "
-        "uncompressed 24/32-bit BMP)")
+        "baseline and progressive JPEG, GIF, WebP, classic TIFF, binary "
+        "PPM/PGM and uncompressed 24/32-bit BMP)")
 
 
 def as_rgb(img) -> np.ndarray:
