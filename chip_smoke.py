@@ -115,6 +115,12 @@ a generate under utils/profiling.device_trace whose trace must hold K1's
 and K2's kernels and the annotate ranges, and a stage-2 step under
 remat=True and one under remat="dots", whose losses and exact bit sums
 of every trained tensor and fp32 master must be equal.
+The "drivers" phase runs the serving path's timing drivers
+(scripts/bench_session_torch.py, bench_speculative_torch.py,
+profile_torch_components.py and profile_torch_kernels.py) through their
+functions at full width, at DRIVER_SPEC_TOKENS tokens a speculative run
+and one timed iteration, every Engine call and stage with exact launch
+counts and every speculative run held to plain greedy by check_tokens.
 The "train entry" phase runs first, right after the build and the
 writing of the api phases' checkpoints, so that this process holds no
 more than its CUDA context while it runs: the port's training entry
@@ -292,6 +298,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def script_device(script: str) -> str:
+    """The device of a port driver script that reads PLATFORM
+    (scripts/bench_*_torch.py, profile_torch_components.py and
+    profile_torch_kernels.py): "cpu" under PLATFORM=cpu, which also
+    selects their tiny config, else "cuda". Without a CUDA device and
+    without PLATFORM=cpu, SystemExit naming the missing device: a driver
+    never falls back to the CPU on its own."""
+    if os.environ.get("PLATFORM") == "cpu":
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{script}: no CUDA device (torch.cuda."
+                         "is_available() is false); PLATFORM=cpu runs the "
+                         "tiny config on the CPU")
+    return "cuda"
+
+
 def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
     """Median over `iters` launches of fn's device time (CUDA events). A
     spin kernel queued first keeps the device busy while the host enqueues
@@ -311,6 +341,40 @@ def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_SPIN_MS_PER_CYCLE = []
+
+
+def spin_timed_ms(fn, host_ms: float):
+    """(device ms, covered) of one call of fn from CUDA events behind a
+    spin kernel that lasts 1.5 x host_ms + 1 ms (host_ms: fn's time on the
+    host clock, which bounds the time to enqueue it; the spin's cycles a
+    ms measured once). When every launch of fn is enqueued before the spin
+    ends (covered: the host's enqueue time is below the spin's device
+    time), the events hold fn's kernels back to back, without the host's
+    gaps between launches; uncovered, they hold some of those gaps."""
+    if not _SPIN_MS_PER_CYCLE:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        b.record()
+        b.synchronize()
+        _SPIN_MS_PER_CYCLE.append(a.elapsed_time(b) / SPIN_CYCLES)
+    cycles = int((1.5 * host_ms + 1.0) / _SPIN_MS_PER_CYCLE[0])
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    torch.cuda.synchronize()
+    spin.record()
+    torch.cuda._sleep(cycles)
+    start.record()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), enqueue_ms < spin.elapsed_time(start)
 
 
 def bound(flops: float, nbytes: float):
@@ -718,14 +782,16 @@ def run_slice(name, eng, cfg, frames, prompt, gcfg, counters, want,
     return counts, stage
 
 
-def _plan_args(cfg, frames, prompt, dev, bucket, B=None, tpm=None):
+def _plan_args(cfg, frames, prompt, dev, bucket, B=None, tpm=None,
+               prompts=None):
     """The prefill's inputs for B copies of prompt (B: frames' rows by
-    default): frames on the device (None stays None) and the splice plan
-    (tpm: the tokens a modal tag stands for, cfg.tokens_per_video by
-    default)."""
+    default), or for the rows of `prompts`: frames on the device (None
+    stays None) and the splice plan (tpm: the tokens a modal tag stands
+    for, cfg.tokens_per_video by default)."""
     from videollama2_tpu_torch.multimodal import splice as splice_lib
-    plan = splice_lib.plan_batch([prompt] * (B or frames.shape[0]),
-                                 tpm or cfg.tokens_per_video, bucket)
+    plan = splice_lib.plan_batch(
+        prompts or [prompt] * (B or frames.shape[0]),
+        tpm or cfg.tokens_per_video, bucket)
     return (None if frames is None else torch.from_numpy(frames).to(dev),
             torch.from_numpy(plan.text_ids).to(dev).long(),
             torch.from_numpy(plan.is_visual).to(dev),
@@ -2120,37 +2186,50 @@ def w8a8_reference(x: torch.Tensor, pack: dict) -> torch.Tensor:
     return (y * xs * pack["scale"][..., 0, :].float()).to(x.dtype)
 
 
-def verify_logits(eng, cfg, frames, prompt, bucket, record, firsts) -> dict:
+def verify_logits(eng, cfg, frames, prompt, bucket, record, firsts,
+                  prompts=None) -> dict:
     """The verify path's logits behind token firsts[b] of row b in two
-    arithmetics: "weight_only" (w8a8 False, the weight-only int8
+    arithmetics: "weight_only" (w8a8 False, the weight-only int8 or int4
     arithmetic of the decode kernels) and "w8a8_reference" (w8a8 True with
-    every packed dense through w8a8_reference). The prompt is prefilled
-    once into a fresh cache for frames' B rows; each mode replays, on its
-    own copy of that cache, the verify passes of `record` (a LogitTap
-    record of a speculative run) with their embeddings and per-row
-    frontiers, and takes token p from the pass and slot that logits_at
-    takes it from in the record. Lockstep passes from other frontiers
+    every packed dense through w8a8_reference, an int4 pack's nibbles
+    unpacked to its int8 plane first). The prompt is prefilled once into
+    a fresh cache for frames' B rows (or, with frames None, the text-only
+    `prompts`, one a row, as the Engine's text mode prefills them); each
+    mode replays, on its own copy of that cache, the verify passes of
+    `record` (a LogitTap record of a speculative run) with their
+    embeddings and per-row frontiers, and takes token p from the pass and
+    slot that logits_at takes it from in the record. Lockstep passes from other frontiers
     would write the cache from other passes, which at full width alone
     moves a logit by about 0.4 std. Returns {mode: {row: logits}}."""
     from videollama2_tpu_torch.models import llm as llm_lib
     from videollama2_tpu_torch.models import videollama2 as vl2
     from videollama2_tpu_torch.ops import layers
-    args = _plan_args(cfg, frames, prompt, eng.device, bucket)
+    from videollama2_tpu_torch.ops.quant import unpack_int4
+    args = _plan_args(cfg, frames, prompt, eng.device, bucket,
+                      prompts=prompts)
     params = eng.params["llm"]
-    prefilled = llm_lib.init_cache(cfg.llm, frames.shape[0], eng.max_len,
+    prefilled = llm_lib.init_cache(cfg.llm, args[1].shape[0], eng.max_len,
                                    eng.dtype, kv_bits=eng.kv_bits,
                                    device=eng.device)
     out = {}
     with torch.inference_mode():
-        vl2.prefill_multimodal(eng.params, cfg, *args, prefilled, w8a8=True)
+        if frames is None:
+            llm_lib.prefill(params, cfg.llm, llm_lib.embed_tokens(
+                params, args[1], eng.dtype), args[4], args[5], prefilled,
+                w8a8=True)
+        else:
+            vl2.prefill_multimodal(eng.params, cfg, *args, prefilled,
+                                   w8a8=True)
         for mode in ("weight_only", "w8a8_reference"):
             cache = dataclasses.replace(prefilled, **{
                 f.name: getattr(prefilled, f.name).clone()
                 for f in dataclasses.fields(prefilled)
                 if getattr(prefilled, f.name) is not None})
-            saved = layers.dense_w8a8
+            saved = layers.dense_w8a8, layers.dense_w4a8
             if mode == "w8a8_reference":
                 layers.dense_w8a8 = w8a8_reference
+                layers.dense_w4a8 = lambda x, pack: w8a8_reference(
+                    x, {"q": unpack_int4(pack["q4"]), "scale": pack["scale"]})
             try:
                 verifies = []
                 for (fronts, _), (embeds, step0) in zip(record["verifies"],
@@ -2162,7 +2241,7 @@ def verify_logits(eng, cfg, frames, prompt, bucket, record, firsts) -> dict:
                 out[mode] = {b: logits_at({"verifies": verifies}, b, p, True)
                              for b, p in firsts.items()}
             finally:
-                layers.dense_w8a8 = saved
+                layers.dense_w8a8, layers.dense_w4a8 = saved
             del cache
     return out
 
@@ -6213,6 +6292,124 @@ def run_projectors_phase(counters, attn, k1, k2) -> tuple:
     return rec, counts
 
 
+# the "drivers" phase: the serving path's timing drivers at full width, at
+# reduced counts (DRIVER_SPEC_TOKENS tokens a speculative run, one timed
+# iteration of everything)
+DRIVER_SPEC_TOKENS = 32
+DRIVER_SPEC_B = 8
+
+
+def _import_script(name: str):
+    """A module of scripts/ (the port's driver scripts), imported by its
+    file name."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts")
+    if scripts not in sys.path:
+        # last: scripts/ holds directories (torch/, eval/) that must not
+        # shadow packages
+        sys.path.append(scripts)
+    return __import__(name)
+
+
+def run_drivers_phase(counters) -> tuple:
+    """The "drivers" phase: the functions of scripts/bench_session_torch.py,
+    bench_speculative_torch.py, profile_torch_components.py and
+    profile_torch_kernels.py at full width on the card, each Engine call
+    or stage through counted_call with exact launch counts (a session's
+    turn 1 of 16 tokens K1 23, K2 32, K3 480, K4 960, K5 480; a continued
+    turn no K1 or K2; the speculative bench's 64-token text prompt no K1
+    or K2, and its speculative generates, whose budget suffices, no
+    K3-K5; a decode chunk of 32 steps at B 8 K3 1024, K4 2048, K5 1024).
+    The two bench scripts share one tree (int8 LLM packs, bf16 tower,
+    seed 0); their speculative runs go through check_tokens. Returns
+    each script's numbers and the launch counts of each call."""
+    bst = _import_script("bench_session_torch")
+    bsp = _import_script("bench_speculative_torch")
+    comp = _import_script("profile_torch_components")
+    kern = _import_script("profile_torch_kernels")
+    out, counts = {}, {}
+
+    def hook_for(name, wants):
+        def hook(label, fn):
+            res, _, counts[f"drivers {name} {label}"] = counted_call(
+                f"drivers {name} {label}", counters, wants(label),
+                lambda cb: fn())
+            return res
+        return hook
+
+    def want(**per_kernel):
+        w = dict.fromkeys(counters, 0)
+        w.update(per_kernel)
+        return w
+
+    t0 = time.perf_counter()
+    cfg, params, dtype = bst.build("7b", "cuda")
+    frames, prompt1, turn2, bucket = bst.inputs(cfg, True)
+    eng = bst.engine(cfg, params, dtype, "cuda", bucket)
+    del params
+    steps = bst.NEW_TOKENS - 1
+    sess = bst.run(eng, frames, prompt1, turn2, iters=1, hook=hook_for(
+        "session", lambda label: phase_launches(
+            counters, cfg, 1, label == "turn 1", steps, True)))
+    out["session"] = {k: v for k, v in sess.items()
+                      if not k.endswith("_tokens")}
+    out["session"].update(bucket=bucket, turn2_speedup_vs_fresh=(
+        sess["turn1_fresh_s"] / sess["turn2_cached_s"]))
+    log(f"[drivers] session: turn 1 {sess['turn1_fresh_s']:.3f} s, turn 2 "
+        f"{sess['turn2_cached_s']:.3f} s (bucket {bucket})")
+    spec_eng = bsp.engine(cfg, eng.params, dtype, "cuda", DRIVER_SPEC_TOKENS)
+    del eng
+    spec = bsp.run(
+        spec_eng, cfg, DRIVER_SPEC_TOKENS, DRIVER_SPEC_B, iters=1,
+        # the 64-token prompt prefills on the plain attention (under 128
+        # queries, the JAX package's routing rule): no K2
+        hook=hook_for("speculative", lambda label: phase_launches(
+            counters, cfg, DRIVER_SPEC_B if "B=" in label else 1, False,
+            DRIVER_SPEC_TOKENS - 1 if label.startswith("plain") else 0,
+            True)),
+        check=bsp.near_ties(spec_eng, cfg))
+    out["speculative"] = dict(spec["results"], runs={
+        label: {k: v for k, v in r.items() if k not in ("tokens", "record")}
+        for label, r in spec["runs"].items()})
+    del spec_eng, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[drivers] bench scripts: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    L = cfg.llm.num_layers
+    per_chunk = dict(decode_attention=comp.STEPS * L,
+                     matmul_q8_layered=2 * comp.STEPS * L,
+                     ffn_q8_layered=comp.STEPS * L)
+    # warm-up + one timed call a stage; the decode chunk once more on the
+    # device clock
+    stage_wants = {
+        "vit": want(encoder_attention=2 * vit_layers(cfg)
+                    * (8 * cfg.num_frames // 128)),
+        "conn": want(),
+        "prefill w8a8=0": want(flash_attention=2 * L),
+        "prefill w8a8=1": want(flash_attention=2 * L),
+        "decode": want(**{k: 3 * v for k, v in per_chunk.items()})}
+    out["components"] = comp.run(
+        ["vit", "conn", "prefill", "decode"], "cuda", w8a8=(False, True),
+        iters=1, decode_iters=1,
+        hook=hook_for("components", stage_wants.__getitem__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kernels"] = kern.run(
+        "cuda", iters=1, scan_iters=1, hook=hook_for(
+            "kernels", {"null dispatch": want(),
+                        "one layer": want(matmul_q8_layered=3 * 4,
+                                          ffn_q8_layered=3),
+                        "32 layers": want(matmul_q8_layered=3 * 4 * L,
+                                          ffn_q8_layered=3 * L)}
+            .__getitem__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[drivers] profile scripts: {time.perf_counter() - t0:.1f} s")
+    return out, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6236,10 +6433,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -6478,6 +6672,16 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     log(json.dumps({"stages": stages}))
     log(json.dumps({"speculative": spec_stages}))
+
+    # -- the "drivers" phase: the serving path's timing drivers ----------------
+    t0 = time.perf_counter()
+    drivers, driver_counts = run_drivers_phase(counters)
+    drivers["phase_s"] = time.perf_counter() - t0
+    slice_counts.update(driver_counts)
+    log(json.dumps({"drivers": drivers}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     # -- the public API on a released-layout checkpoint ----------------------
     # (the checkpoint stays for the "lora" phase's model_base)

@@ -1,6 +1,7 @@
 """The PyTorch port, chip_smoke.py, the port's profile scripts
-(scripts/profile_torch_*.py), scripts/quant_accuracy_torch.py and
-scripts/e2e_smoke_torch.py import no jax and nothing of the JAX package,
+(scripts/profile_torch_*.py), scripts/quant_accuracy_torch.py,
+scripts/e2e_smoke_torch.py and the bench scripts
+(scripts/bench_session_torch.py, bench_speculative_torch.py) import no jax and nothing of the JAX package,
 and none of the libraries the GPU host lacks (PIL, imageio, transformers,
 safetensors, tokenizers, regex, sentencepiece), not even in a function:
 the port reads tokenizer files with its own plain-Python reader
@@ -77,6 +78,8 @@ def _closure():
             + sorted((ROOT / "scripts").glob("profile_torch_*.py"))
             + [ROOT / "scripts" / "quant_accuracy_torch.py",
                ROOT / "scripts" / "e2e_smoke_torch.py",
+               ROOT / "scripts" / "bench_session_torch.py",
+               ROOT / "scripts" / "bench_speculative_torch.py",
                ROOT / "tests" / "tokenizer_writer.py"])
     seen = {}
     while todo:
@@ -137,6 +140,10 @@ def test_port_reaches_no_jax():
                  "multimodal/chat_template.py"):
         assert PORT / path in closure
     assert ROOT / "scripts" / "profile_torch_vit_attn.py" in closure
+    # the serving path's timing drivers
+    for script in ("bench_session_torch.py", "bench_speculative_torch.py",
+                   "profile_torch_components.py", "profile_torch_kernels.py"):
+        assert ROOT / "scripts" / script in closure
     # chip_smoke's serve phase writes its media with the test writers
     # and its "train entry" phase its corpus
     for helper in ("avi_writer.py", "png_writer.py", "jpeg_writer.py",

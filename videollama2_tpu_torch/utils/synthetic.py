@@ -63,7 +63,8 @@ def _build(spec: dict, path, dtype, device, generator) -> dict:
 
 def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
                      seed: int = 0, llm_bits: Optional[int] = None,
-                     quantize_embed: bool = False) -> dict:
+                     quantize_embed: bool = False,
+                     quantize_vision: Optional[bool] = None) -> dict:
     """Full parameter tree for `cfg` on `device` in `dtype`. With llm_bits
     8 or 4 (bench.py's BENCH_BITS), the LLM's projections become int8 or
     folded int4 packs, its head and the tower's linears int8 packs (the
@@ -72,9 +73,13 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
     quantized from the seeded floating weights. With quantize_embed, the
     embedding becomes an int8 pack with per-row scales (include_embed:
     bench.py quantizes it for BENCH_MODEL=qwen2, whose 152k-row table is
-    1.1 GB in bf16). The audio-visual model's audio branch stays floating,
-    as the JAX package's quantizers leave it. An MoE config takes no
-    llm_bits (models/llm.check_supported)."""
+    1.1 GB in bf16). quantize_vision (JAX `synthetic_model_params`'s
+    switch) packs the tower's linears; None, the default, packs them
+    whenever llm_bits is set (bench.py's serving tree), and False keeps
+    them floating under packed LLM layers (the tree of the JAX speculative
+    and session benchmarks). The audio-visual model's audio branch stays
+    floating, as the JAX package's quantizers leave it. An MoE config
+    takes no llm_bits (models/llm.check_supported)."""
     llm_lib.check_supported(cfg.llm, llm_bits)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -85,6 +90,8 @@ def synthetic_params(cfg, dtype=torch.bfloat16, device="cuda",
         quant.quantize_in_place(llm["layers"], quant.LLM_PROJECTIONS,
                                 llm_bits)
         quant.quantize_in_place(llm, ("lm_head",), 8)
+    if quantize_vision or (quantize_vision is None
+                           and llm_bits is not None):
         quant.quantize_in_place(params["vision"]["layers"],
                                 quant.VISION_PROJECTIONS, 8)
     if quantize_embed:
